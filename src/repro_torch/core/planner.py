@@ -1,0 +1,393 @@
+"""Adaptive cost-model method dispatch (DESIGN.md §14), a numpy copy of
+the JAX package's ``core/planner.py``.
+
+The committed BENCH artifacts prove the method trade-off is real:
+bitmap popcount wins small universes, the flat-LFVT walk wins large
+ones (82x at U=2^21, BENCH_pr4), one-hot only ever pays on matmul
+hardware, and Zipf skew moves the crossover. This module owns the
+decision so the caller no longer has to:
+
+  * :func:`probe_features` — a cheap O(m+n+E) host probe of the inputs
+    (m, n, universe, density, Zipf head mass, the per-measure Lemma-3.1
+    window fraction, and the exact expected walk traffic
+    sum_a freq_R(a) * freq_S(a));
+  * :func:`score_methods` — a linear cost model per rep family
+    (``seconds = fixed + per_byte * bytes_staged + per_unit * work +
+    per_tile * row_tiles``) with the embedded default coefficients;
+  * :func:`build_plan` — the kwarg-lattice validator + planner front
+    end of the single-device driver. It emits a frozen :class:`JoinPlan`
+    (method, block/tile sizes) that ``cf_rs_join_device`` consumes, and
+    raises the named :class:`PlannerError` (a ``ValueError``) for
+    contradictory or infeasible requests (``pair_capacity`` with
+    ``emit='mask'``).
+
+The JAX package also rescales the coefficients from its committed
+``BENCH_pr*.json`` rows. Those rows are CPU timings of the JAX package
+and say nothing about the GPU, so the port scores with the defaults
+alone; the plan equals the reference's with its calibration off.
+
+Every decision lands in driver stats (``stats["plan"]``); planning
+alters which method runs, never the result.
+:class:`JoinStats` is the typed view over the drivers' stats mapping
+(``.to_dict()`` stays byte-compatible with ``benchmarks/``).
+
+The model intentionally predicts *ordering*, not wall clock: bitmap
+cost is linear in W = ceil(U/32) while the walk cost is U-independent,
+so the pick flips from bitmap to lfvt as U grows.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Iterator, Mapping
+
+import numpy as np
+
+from .config import global_config
+from .measures import get_measure
+
+__all__ = [
+    "PlannerError", "JoinPlan", "JoinStats", "probe_features",
+    "score_methods", "choose_method", "build_plan", "validate_join_args",
+    "DEFAULT_COEFFS", "KNOWN_METHODS", "AUTO_CANDIDATES",
+]
+
+
+class PlannerError(ValueError):
+    """A contradictory or infeasible join plan request.
+
+    Subclasses ``ValueError`` so pre-existing ``pytest.raises(ValueError)``
+    call sites (and callers catching ValueError) keep working; the message
+    text of the historical driver checks is preserved verbatim.
+    """
+
+
+#: every method name the reference's drivers accept
+KNOWN_METHODS = ("popcount", "onehot", "kernel_bitmap", "kernel_onehot",
+                 "lfvt", "lfvt_ref")
+
+#: families ``method='auto'`` chooses between for a whole join. The
+#: ``kernel_*`` bitmap-kernel variants are deliberately absent: they
+#: share the bitmap family's cost shape, so the planner maps
+#: the bitmap family to ``popcount``. ``lfvt_ref`` is scored (it is a
+#: degradation rung) but strictly dominated by ``lfvt`` in the model.
+AUTO_CANDIDATES = ("popcount", "onehot", "lfvt", "lfvt_ref")
+
+_FAMILY_OF = {"popcount": "bitmap", "kernel_bitmap": "bitmap",
+              "onehot": "onehot", "kernel_onehot": "onehot",
+              "lfvt": "lfvt", "lfvt_ref": "lfvt_ref"}
+
+# Embedded default coefficients, fitted by hand against the committed
+# full-run BENCH rows (BENCH_pr4/pr8 method_axis: midW m=n=320 U=2^13
+# bitmap 0.100s / lfvt 0.310s; largeW m=n=192 U=2^21 bitmap 10.4s /
+# lfvt 0.127s; onehot midW-smoke 0.023s). Units per family:
+#   bitmap  : work = window_frac * m * n * W      (popcount cells)
+#   onehot  : work = m * n * U                    (scan over U cols)
+#   lfvt    : work = sum_a freq_R(a) * freq_S(a)  (walk traffic)
+# plus a per-row-tile dispatch term for the walk paths (each ragged
+# tile pays lane setup) and a per-call fixed dispatch cost.
+DEFAULT_COEFFS: dict[str, dict[str, float]] = {
+    "bitmap": {"fixed": 1.0e-3, "per_byte": 2.0e-9, "per_unit": 8.0e-9,
+               "per_tile": 0.0},
+    "onehot": {"fixed": 2.0e-3, "per_byte": 1.0e-9, "per_unit": 6.0e-10,
+               "per_tile": 0.0},
+    "lfvt": {"fixed": 5.0e-3, "per_byte": 2.0e-9, "per_unit": 1.0e-6,
+             "per_tile": 2.0e-3},
+    # the whole-block walk re-walks dead lanes the kernel skips
+    # (BENCH kernel_vs_ref_walk_ratio ~ 0.8)
+    "lfvt_ref": {"fixed": 5.0e-3, "per_byte": 2.0e-9, "per_unit": 1.25e-6,
+                 "per_tile": 2.5e-3},
+}
+
+
+# ---------------------------------------------------------------------- #
+# input probe
+# ---------------------------------------------------------------------- #
+def probe_features(R, S, t: float,
+                   measure: str = "jaccard") -> dict[str, Any]:
+    """Cheap host probe of one join: O(m + n + total elements).
+
+    ``walk_units`` is the *exact* expected flat-LFVT walk traffic
+    ``sum_a freq_R(a) * freq_S(a)`` — every R-side occurrence of element
+    ``a`` walks ``seq(a)``, whose length is S's frequency of ``a``.
+    ``zipf_head_mass`` is the share of S-side element occurrences held
+    by the top ``planner_head_frac`` of distinct elements (skew widens
+    the hottest chains, which is what moves the crossover).
+    """
+    meas = get_measure(measure)
+    r_sets, r_sizes = R.sets, R.sizes()
+    s_sets, s_sizes = S.sets, S.sizes()
+    m, n = len(r_sets), len(s_sets)
+    universe = int(max(R.universe, S.universe, 1))
+    w_words = (universe + 31) // 32
+    r_elems = int(np.asarray(r_sizes).sum()) if m else 0
+    s_elems = int(np.asarray(s_sizes).sum()) if n else 0
+    feats: dict[str, Any] = {
+        "m": m, "n": n, "universe": universe, "w_words": w_words,
+        "r_elems": r_elems, "s_elems": s_elems,
+        "max_r": int(np.asarray(r_sizes).max(initial=0)) if m else 0,
+        "max_s": int(np.asarray(s_sizes).max(initial=0)) if n else 0,
+        "density": s_elems / float(max(n, 1) * universe),
+        "window_frac": meas.window_fraction(r_sizes, s_sizes, t),
+        "walk_units": 0, "distinct_s": 0, "zipf_head_mass": 0.0,
+    }
+    if not s_elems:
+        return feats
+    vals_s, cnt_s = np.unique(
+        np.concatenate([np.asarray(s) for s in s_sets if len(s)]),
+        return_counts=True)
+    feats["distinct_s"] = int(len(vals_s))
+    k = max(1, math.ceil(global_config.planner_head_frac * len(vals_s)))
+    k = min(k, len(vals_s))
+    feats["zipf_head_mass"] = float(
+        np.sort(cnt_s)[-k:].sum() / float(s_elems))
+    if r_elems:
+        vals_r, cnt_r = np.unique(
+            np.concatenate([np.asarray(s) for s in r_sets if len(s)]),
+            return_counts=True)
+        idx = np.clip(np.searchsorted(vals_s, vals_r), 0, len(vals_s) - 1)
+        hit = vals_s[idx] == vals_r
+        feats["walk_units"] = int(
+            (cnt_r[hit].astype(np.int64) * cnt_s[idx[hit]]).sum())
+    return feats
+
+
+# ---------------------------------------------------------------------- #
+# cost model
+# ---------------------------------------------------------------------- #
+def _family_workload(family: str, f: Mapping[str, Any]) -> dict[str, float]:
+    """(bytes_staged, work_units, tiles) for one rep family, from probe
+    features only — the quantities the coefficients multiply."""
+    m, n = f["m"], f["n"]
+    W, U = f["w_words"], f["universe"]
+    tiles = max(1, -(-m // max(int(global_config.row_tile), 1)))
+    if family == "bitmap":
+        return {"bytes_staged": float((m + n) * W * 4),
+                "work_units": float(f["window_frac"]) * m * n * W,
+                "tiles": 0.0}
+    if family == "onehot":
+        return {"bytes_staged": float((m + n) * U * 4),
+                "work_units": float(m) * n * U, "tiles": 0.0}
+    # flat-LFVT families: CSR tables (entry triplet + seq/hop + sizes)
+    # plus the padded R rows; size scales with sum |seq|, never with U
+    flat_bytes = 4.0 * (3 * f["distinct_s"] + 2 * f["s_elems"] + n)
+    r_bytes = 4.0 * m * max(f["max_r"], 1)
+    return {"bytes_staged": flat_bytes + r_bytes,
+            "work_units": float(f["walk_units"]), "tiles": float(tiles)}
+
+
+def score_methods(features: Mapping[str, Any],
+                  coeffs: Mapping[str, Mapping[str, float]] | None = None,
+                  candidates: tuple[str, ...] = AUTO_CANDIDATES,
+                  ) -> dict[str, dict[str, float]]:
+    """Predicted cost per candidate method -> ``{method: {bytes_staged,
+    work_units, tiles, seconds}}``. Bitmap/onehot scores grow linearly
+    with the universe; the walk scores do not — the structural source of
+    the bitmap->lfvt flip as U grows."""
+    coeffs = coeffs if coeffs is not None else DEFAULT_COEFFS
+    out: dict[str, dict[str, float]] = {}
+    for meth in candidates:
+        fam = _FAMILY_OF[meth]
+        c = coeffs[fam]
+        w = _family_workload(fam, features)
+        w["seconds"] = (c["fixed"] + c["per_byte"] * w["bytes_staged"]
+                        + c["per_unit"] * w["work_units"]
+                        + c.get("per_tile", 0.0) * w["tiles"])
+        out[meth] = w
+    return out
+
+
+def choose_method(scores: Mapping[str, Mapping[str, float]],
+                  candidates: tuple[str, ...] = AUTO_CANDIDATES) -> str:
+    """Lowest predicted seconds; ties break toward the earlier candidate
+    (popcount before the walk — cheaper to stage, simpler to debug)."""
+    ranked = [m for m in candidates if m in scores]
+    if not ranked:
+        raise PlannerError("no feasible method candidate to choose from")
+    return min(ranked, key=lambda m: (scores[m]["seconds"],
+                                      ranked.index(m)))
+
+
+# ---------------------------------------------------------------------- #
+# plan + stats dataclasses
+# ---------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class JoinPlan:
+    """The planner's decision record, consumed by the driver.
+
+    ``method`` is always a concrete method name (never ``'auto'``);
+    ``requested`` keeps what the caller asked for. ``shard_methods`` is
+    set only for the heterogeneous MR loop path. ``decided`` records how
+    ``method`` was fixed: ``'forced'`` (caller named it),
+    ``'cost_model'``, or ``'empty'`` (degenerate inputs, nothing to
+    score). ``features``/``scores`` are the probe and per-candidate
+    predictions when the cost model ran.
+    """
+
+    method: str
+    requested: str = "auto"
+    driver: str = "device"
+    measure: str = "jaccard"
+    emit: str = "pairs"
+    r_block: int | None = None
+    row_tile: int | None = None
+    pad: str | None = None
+    schedule: str | None = None
+    pair_capacity: int | None = None
+    double_buffer: bool | None = None
+    shard_methods: tuple[str, ...] | None = None
+    decided: str = "forced"
+    features: Mapping[str, Any] = dataclasses.field(default_factory=dict)
+    scores: Mapping[str, Any] = dataclasses.field(default_factory=dict)
+
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["features"] = dict(self.features)
+        d["scores"] = {k: dict(v) for k, v in self.scores.items()}
+        if self.shard_methods is not None:
+            d["shard_methods"] = list(self.shard_methods)
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "JoinPlan":
+        kw = {f.name: d[f.name] for f in dataclasses.fields(cls)
+              if f.name in d}
+        if kw.get("shard_methods") is not None:
+            kw["shard_methods"] = tuple(kw["shard_methods"])
+        return cls(**kw)
+
+
+_STAT_FIELDS = (
+    # typed views over the drivers' stats keys (aliases tried in order)
+    ("method", ("method",)),
+    ("measure", ("measure",)),
+    ("emit", ("emit",)),
+    ("result_pairs", ("result_pairs", "pair_count")),
+    ("reduce_bytes", ("reduce_bytes", "output_bytes")),
+    ("dense_mask_bytes", ("dense_mask_bytes",)),
+    ("reduce_mask_peak_bytes", ("reduce_mask_peak_bytes",)),
+    ("walk_steps", ("walk_steps",)),
+    ("early_stops", ("early_stops",)),
+    ("live_tiles", ("live_tiles",)),
+    ("total_tiles", ("total_tiles",)),
+    ("regrows", ("regrows",)),
+    ("retries", ("retries",)),
+    ("degradations", ("degradations",)),
+    ("plan", ("plan",)),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class JoinStats(Mapping):
+    """Frozen, typed view over a driver stats dict.
+
+    The drivers keep filling a plain mapping (shared with benchmarks and
+    the regression gate); this wraps it with typed attribute access
+    while ``.to_dict()`` returns the underlying mapping byte-compatibly
+    — same keys, same values, so ``benchmarks/check_regression.py`` and
+    every existing consumer that indexes by key keep working. Implements
+    the ``Mapping`` protocol for drop-in reads.
+    """
+
+    method: str | None = None
+    measure: str | None = None
+    emit: str | None = None
+    result_pairs: int | None = None
+    reduce_bytes: int | None = None
+    dense_mask_bytes: int | None = None
+    reduce_mask_peak_bytes: int | None = None
+    walk_steps: int | None = None
+    early_stops: int | None = None
+    live_tiles: int | None = None
+    total_tiles: int | None = None
+    regrows: int | None = None
+    retries: int | None = None
+    degradations: tuple = ()
+    plan: Mapping[str, Any] | None = None
+    raw: Mapping[str, Any] = dataclasses.field(default_factory=dict,
+                                               repr=False)
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "JoinStats":
+        kw: dict[str, Any] = {"raw": dict(d)}
+        for field, aliases in _STAT_FIELDS:
+            for key in aliases:
+                if key in d:
+                    val = d[key]
+                    kw[field] = (tuple(val) if field == "degradations"
+                                 and val is not None else val)
+                    break
+        return cls(**kw)
+
+    def to_dict(self) -> dict:
+        return dict(self.raw)
+
+    # Mapping protocol: reads hit the raw driver dict untouched
+    def __getitem__(self, key: str) -> Any:
+        return self.raw[key]
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self.raw)
+
+    def __len__(self) -> int:
+        return len(self.raw)
+
+
+# ---------------------------------------------------------------------- #
+# the kwarg lattice (single validation point)
+# ---------------------------------------------------------------------- #
+def validate_join_args(*, method: str, emit: str,
+                       pair_capacity: int | None = None) -> None:
+    """Validate the single-device driver's kwarg lattice in one place.
+
+    Raises :class:`PlannerError` (a ``ValueError``) with the reference's
+    message text (pinned in ``tests/test_torch_join.py``).
+    """
+    if emit not in ("pairs", "mask"):
+        raise PlannerError(f"unknown emit mode {emit!r}")
+    if method != "auto" and method not in KNOWN_METHODS:
+        raise PlannerError(f"unknown method {method!r}")
+    if pair_capacity is not None and emit == "mask":
+        raise PlannerError(
+            f"pair_capacity={pair_capacity!r} has no effect with "
+            "emit='mask' (the dense mask path never compacts pairs); "
+            "drop it or use emit='pairs'")
+
+
+# ---------------------------------------------------------------------- #
+# plan construction
+# ---------------------------------------------------------------------- #
+def build_plan(R=None, S=None, t: float | None = None, *,
+               method: str = "auto", measure: str = "jaccard",
+               emit: str = "pairs", pair_capacity: int | None = None,
+               r_block: int | None = None, row_tile: int | None = None,
+               double_buffer: bool | None = None) -> JoinPlan:
+    """Validate the kwarg lattice and resolve ``method='auto'`` into a
+    concrete :class:`JoinPlan` for the single-device driver.
+
+    With a forced method the cost model never runs — the plan just
+    records the request plus the resolved tuning knobs.
+    """
+    validate_join_args(method=method, emit=emit,
+                       pair_capacity=pair_capacity)
+    requested = method
+    decided = "forced"
+    features: dict[str, Any] = {}
+    scores: dict[str, Any] = {}
+    if method == "auto":
+        if R is None or S is None or not len(R) or not len(S):
+            method, decided = "popcount", "empty"
+        else:
+            features = probe_features(R, S, t, measure)
+            scores = score_methods(features)
+            method = choose_method(scores)
+            decided = "cost_model"
+    return JoinPlan(
+        method=method, requested=requested, driver="device",
+        measure=measure, emit=emit,
+        r_block=int(r_block if r_block else global_config.r_block),
+        row_tile=int(row_tile if row_tile else global_config.row_tile),
+        pair_capacity=pair_capacity,
+        double_buffer=(bool(global_config.double_buffer)
+                       if double_buffer is None else bool(double_buffer)),
+        decided=decided, features=features, scores=scores)
