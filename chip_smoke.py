@@ -10,33 +10,51 @@ through these phases, in order; any failure raises and exits non-zero:
   1. print the card (``nvidia-smi`` name and power limit) and build every
      CUDA kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
      source, all at once);
-  2. join phase: ``repro_torch.join(R, S, 0.8, method="lfvt")`` on the
+  2. measures phase: at |R| = |S| = 4 000, all 4 measures x
+     t in {0.5, 0.7, 0.9, 2/3} x both emit modes, for ``lfvt``
+     (``dblp``-shaped) and for ``popcount``, ``onehot``,
+     ``kernel_bitmap`` and ``kernel_onehot`` (``kosarak``-shaped),
+     through the port's driver on the card and, meanwhile, in CPU worker
+     processes (one of which makes the livej data first); the two must
+     give identical pairs (compared as sorted int64 keys) and counters.
+     For each measure and emit mode one of the four bitmap methods also
+     runs through ``repro_torch.join`` on the card at t = 0.9, and its
+     pairs (and mask) must equal the CPU driver's. The pool is done
+     before any timed phase starts;
+  3. join phase: ``repro_torch.join(R, S, 0.8, method="lfvt")`` on the
      card with the ``livej``-shaped dataset (|R| = |S| = 100 000), the K1
      launch count read around it, and its pairs for 64 sampled R rows
      (half at random, half among rows with pairs) held against exact
      overlaps computed here with numpy; then the join repeated, once on
      the host clock and once under ``torch.profiler`` (device-busy time,
      K1's share, the idle share);
-  3. kernel phase: the 1024-row R block, as the driver cuts it, that
-     holds the most paired rows of the join, size-sorted and tile-padded
-     as the dispatch makes it, against the full S, at t = 0.8 and at
-     t = 0.5: K1 and its plain PyTorch version on the card must give
-     bit-equal masks, counts, ``walk_steps`` and ``early_stops``, with at
-     least one pair at each threshold; both are timed with CUDA events at
-     t = 0.8, and the lane steps and counters are checked against a numpy
-     count written here;
-  4. measures phase: at |R| = |S| = 4 000 (``dblp``-shaped), all 4
-     measures x t in {0.5, 0.7, 0.9, 2/3} x both emit modes, the port on
-     the card and the port on the CPU (in worker processes) must give
-     identical pairs and walk counters;
-  5. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+  4. front-door phase: ``repro_torch.join(R, S, 0.8)`` with no method
+     (``method="auto"``; it picks ``popcount``, kernel K3) at the same
+     size, cold, warm and profiled; then ``kernel_bitmap`` and
+     ``kernel_onehot`` with ``emit="pairs"`` (K2, K4) and ``onehot``
+     (K5). Every launch count is set to 0 just before each of these runs
+     and read just after; each run must launch its kernel and give the
+     lfvt join's pairs;
+  5. kernel phase: the 1024-row R block, as the driver cuts it, that
+     holds the most paired rows of the join, against the full S, at
+     t = 0.8 and t = 0.5: K1 (size-sorted and tile-padded as its dispatch
+     makes it) and K2-K5 (tile-padded as theirs do) must be bit-equal to
+     their plain PyTorch versions on the card, with pairs at both
+     thresholds (K1) and at t = 0.5 (K2-K5), plus a small-tile case for
+     K2-K5; all are timed with CUDA events at t = 0.8, beside their bound
+     and, for K4/K5, one bf16 ``torch.matmul`` of the block's unpacked
+     membership matrices;
+  6. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Exits 2 without a result when torch sees no CUDA device.
 """
 from __future__ import annotations
 
+import hashlib
+import itertools
 import json
 import multiprocessing
+import os
 import subprocess
 import sys
 import time
@@ -54,38 +72,145 @@ MAIN_T = 0.8
 WIDE_T = 0.5               # a second kernel check with many more pairs
 MAIN_SCALE = 20 / 3        # livej: 15 000 x 20/3 = 100 000 sets a side
 BLOCK_ROWS = 1024          # the driver's default r_block
+# CPU processes of the measures phase: all cores but the one that
+# drives the card
+POOL_WORKERS = max(1, min(7, (os.cpu_count() or 2) - 1))
 ORACLE_ROWS = 64
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 # int32 scalar ops: the data sheet's 67 TFLOP/s of float32 counts an FMA
 # as two operations on 128 float32 lanes per SM; Hopper has 64 int32
 # lanes per SM, one operation each
 INT32_OPS_PER_S = 67e12 / 4
+INT8_OPS_PER_S = 1979e12   # dense int8 tensor-core rate (data sheet)
 COUNTERS = ("pair_count", "live_tiles", "total_tiles", "walk_steps",
-            "early_stops", "regrows", "r_blocks")
+            "early_stops", "regrows", "r_blocks", "output_bytes")
+BITMAP_METHODS = ("popcount", "onehot", "kernel_bitmap", "kernel_onehot")
+# the measures phase: (dataset, methods), |R| = |S| = 4 000 each
+MEASURE_SETS = (("dblp", ("lfvt",)), ("kosarak", BITMAP_METHODS))
+# the CPU workers take the slowest joins first (the plain popcount is
+# ~4x the one-hot product on the CPU), so that none is left to run alone
+CPU_ORDER = ("popcount", "kernel_bitmap", "lfvt", "kernel_onehot", "onehot")
+FRONT_DOOR_T = 0.9         # the measures phase's front-door calls
+CSRC = "src/repro_torch/kernels/csrc"
+# id -> (module, wrapper, plain version, source, TPU kernel it replaces)
+KERNELS = {
+    "K1": ("lfvt_walk", "lfvt_walk_live_tiled", "lfvt_walk_live_tiled_ref",
+           f"{CSRC}/lfvt_walk.cu", "src/repro/kernels/lfvt_walk.py:426"),
+    "K2": ("bitmap_join", "bitmap_join_live_tiled",
+           "bitmap_join_live_tiled_ref", f"{CSRC}/bitmap_join.cu",
+           "src/repro/kernels/bitmap_join.py:157"),
+    "K3": ("bitmap_join", "bitmap_join_tiled", "bitmap_join_tiled_ref",
+           f"{CSRC}/bitmap_join.cu", "src/repro/kernels/bitmap_join.py:94"),
+    "K4": ("onehot_join", "onehot_join_live_tiled",
+           "onehot_join_live_tiled_ref", f"{CSRC}/onehot_join.cu",
+           "src/repro/kernels/onehot_join.py:145"),
+    "K5": ("onehot_join", "onehot_join_tiled", "onehot_join_tiled_ref",
+           f"{CSRC}/onehot_join.cu", "src/repro/kernels/onehot_join.py:87"),
+}
+# the main-path run of each kernel: the method whose full-size join it
+# carries (K3 runs under the front door's default call)
+MAIN_RUN = {"K1": "lfvt", "K2": "kernel_bitmap", "K3": "auto",
+            "K4": "kernel_onehot", "K5": "onehot"}
 NOT_PORTED = [
-    ("K2", "bitmap_join_live_tiled", "src/repro/kernels/bitmap_join.py:157"),
-    ("K3", "bitmap_join_tiled", "src/repro/kernels/bitmap_join.py:94"),
-    ("K4", "onehot_join_live_tiled", "src/repro/kernels/onehot_join.py:145"),
-    ("K5", "onehot_join_tiled", "src/repro/kernels/onehot_join.py:87"),
     ("K6", "lfvt_walk_planned", "src/repro/kernels/lfvt_walk.py:510"),
     ("K7", "flash_attention_bhld",
      "src/repro/kernels/flash_attention.py:82"),
 ]
 
 
+T_START = time.perf_counter()
+
+
 def log(*args) -> None:
-    print(*args, flush=True)
+    """Print one progress line, stamped with the seconds since start."""
+    print(f"[{time.perf_counter() - T_START:7.1f}s]", *args, flush=True)
+
+
+_WORKER_DATA: dict = {}
+
+
+def measures_data(name: str):
+    """The measures phase's |R| = |S| = 4 000 dataset ``name``."""
+    from repro_torch.data.synth import make_join_dataset
+    return make_join_dataset(name, scale=0.8, seed=0)
+
+
+def init_worker() -> None:
+    """Pool initializer: each worker makes the measures datasets once."""
+    torch.set_num_threads(1)
+    for name, _ in MEASURE_SETS:
+        _WORKER_DATA[name] = measures_data(name)
+
+
+def pair_digest(r_ids, s_ids) -> tuple[int, str]:
+    """(count, SHA-256 of the sorted int64 keys r_id * 2^32 + s_id) of a
+    join's pairs: equal for equal pair sets in every process, whatever
+    order the blocks gave them in, at the cost of one sort (the kosarak
+    overlap joins return 12 M pairs)."""
+    keys = np.sort((np.asarray(r_ids, np.int64) << 32)
+                   | (np.asarray(s_ids, np.int64) & 0xFFFFFFFF))
+    return len(keys), hashlib.sha256(keys.tobytes()).hexdigest()
+
+
+def port_join(R, S, method, measure, t, emit, device=None):
+    """One join through the port's single-device driver, with the pairs
+    as arrays -> (pair digest, counters)."""
+    from repro_torch.core.tile_join import cf_rs_join_device_ids
+    st: dict = {}
+    r_ids, s_ids = cf_rs_join_device_ids(R, S, t, method=method,
+                                         measure=measure, emit=emit,
+                                         device=device, stats=st)
+    return pair_digest(r_ids, s_ids), {k: st.get(k) for k in COUNTERS}
+
+
+def front_door_join(R, S, method, measure, t, emit):
+    """One join through ``repro_torch.join`` on the card -> (pair digest,
+    counters), as ``port_join``; with ``emit='mask'`` the dense mask must
+    hold exactly the pairs."""
+    import repro_torch
+    st: dict = {}
+    res = repro_torch.join(R, S, t, method=method, measure=measure,
+                           emit=emit, stats=st)
+    pr = np.fromiter(itertools.chain.from_iterable(res.pairs), np.int64,
+                     count=2 * len(res.pairs)).reshape(-1, 2)
+    if emit == "mask":
+        rows, cols = np.nonzero(res.mask)
+        if not np.array_equal(np.sort(pr[:, 0] << 32 | pr[:, 1]),
+                              np.sort(R.ids[rows].astype(np.int64) << 32
+                                      | S.ids[cols].astype(np.int64))):
+            raise AssertionError(f"the front door's mask is not its pairs "
+                                 f"at {(method, measure, t, emit)}")
+    return pair_digest(pr[:, 0], pr[:, 1]), {k: st.get(k) for k in COUNTERS}
 
 
 def cpu_join(task):
-    """Pool worker: one port join on the CPU -> (pairs, counters)."""
-    import repro_torch
-    torch.set_num_threads(1)
-    R, S, measure, t, emit = task
-    st: dict = {}
-    res = repro_torch.join(R, S, t, method="lfvt", measure=measure,
-                           emit=emit, device="cpu", stats=st)
-    return sorted(res.pairs), {k: st[k] for k in COUNTERS}
+    """Pool worker: one port join on the CPU -> (pairs, counters, the
+    seconds it took)."""
+    name, method, measure, t, emit = task
+    t0 = time.perf_counter()
+    out = port_join(*_WORKER_DATA[name], method, measure, t, emit, "cpu")
+    return out, time.perf_counter() - t0
+
+
+def wrappers() -> dict:
+    """Kernel id -> (wrapper, plain version)."""
+    import importlib
+    out = {}
+    for kid, (mod, name, plain, _, _) in KERNELS.items():
+        m = importlib.import_module(f"repro_torch.kernels.{mod}")
+        out[kid] = (getattr(m, name), getattr(m, plain))
+    return out
+
+
+def counted(fn):
+    """Run ``fn()`` with every kernel's launch count set to 0 just before
+    -> (its result, {kernel id: launches during the run})."""
+    ws = wrappers()
+    for w, _ in ws.values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {kid: w.launches for kid, (w, _) in ws.items()}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -157,12 +282,13 @@ def oracle_pairs(R, S, rows, t):
     return got
 
 
-def device_profile(fn):
+def device_profile(fn, keys):
     """Run ``fn()`` under ``torch.profiler`` -> (wall s, device-busy s,
-    K1 s, the five kernels with the most device time). Only device-side
-    events (kernels, copies, memsets) count, never the CPU ops that
-    issue them; device-busy time is the union of their intervals. 0.0
-    when the profiler saw no device events."""
+    seconds of the kernels whose name holds one of ``keys``, the five
+    kernels with the most device time). Only device-side events
+    (kernels, copies, memsets) count, never the CPU ops that issue them;
+    device-busy time is the union of their intervals. 0.0 when the
+    profiler saw no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -183,9 +309,19 @@ def device_profile(fn):
         if end > reach:
             busy += end - max(start, reach)
             reach = end
-    k1 = sum(v for k, v in per.items() if "lfvt_walk_kernel" in k)
+    mine = sum(v for k, v in per.items() if any(key in k for key in keys))
     top = sorted(per.items(), key=lambda kv: -kv[1])[:5]
-    return wall, busy / 1e6, k1, top
+    return wall, busy / 1e6, mine, top
+
+
+def log_profile(label, prof, kernel_id):
+    wall, busy, mine, top = prof
+    log(f"[profile] {label} under torch.profiler: wall_s={wall:.3f} "
+        f"device_busy_s={busy:.3f} {kernel_id.lower()}_device_s={mine:.3f} "
+        f"{kernel_id.lower()}_share_of_busy="
+        f"{mine / busy if busy else 'not measured'} idle_share="
+        f"{1 - busy / wall if busy else 'not measured'} top="
+        + json.dumps([[k[:60], round(v, 6)] for k, v in top]))
 
 
 def kernel_check(Ss, flat, R, block, t, dev):
@@ -208,8 +344,6 @@ def kernel_check(Ss, flat, R, block, t, dev):
     got = k1()
     torch.cuda.synchronize()
     ms = cuda_ms(k1, 3)
-    lfvt_walk.lfvt_walk_live_tiled_ref(ti[:1], *operands, **kw)  # warm
-    torch.cuda.synchronize()
     ev = (torch.cuda.Event(enable_timing=True),
           torch.cuda.Event(enable_timing=True))
     ev[0].record()
@@ -262,6 +396,198 @@ def k1_bound(operands, got, lanes):
             else "operations", moved, ops_n)
 
 
+def tiled_operands(R, Ss, rows, t, family, tiles, dev, s_bm):
+    """K2-K5's operands for the R rows ``rows`` against all of ``Ss`` at
+    ``t``, padded as the dispatch pads them -> (operands, skip, live
+    tiles, tiles, in-window cells)."""
+    from repro_torch.core.tile_join import window_bounds
+    from repro_torch.kernels import bitmap_join, onehot_join, ops
+    defaults = (bitmap_join if family == "bitmap"
+                else onehot_join).DEFAULT_TILES
+    W = s_bm.shape[1]
+    r_sz = R.sizes()[rows]
+    lo, hi = window_bounds(r_sz, Ss.sizes(), t)
+    r_bm = torch.tensor(R.bitmaps(W).view(np.int32)[rows], device=dev)
+    rb, r_szp, sb, s_szp, lo_p, hi_p, skip, tls, _, _ = ops._prepare(
+        r_bm, r_sz, s_bm, Ss.sizes(), lo, hi, tiles, defaults)
+    TM, TN, _ = tls
+    ti, tj = ops._live_tiles(ops._host_rows(lo, TM), ops._host_rows(hi, TM),
+                             rb.shape[0] // TM, sb.shape[0] // TN, TM, TN)
+    live = (torch.tensor(ti, device=dev), torch.tensor(tj, device=dev))
+    cells = int(np.maximum(hi - lo, 0).sum())
+    return (rb, r_szp, sb, s_szp, lo_p, hi_p), skip, live, tls, cells
+
+
+def tiled_check(kid, args, t, timed):
+    """Kernel ``kid`` (K2-K5) against its plain version on the card ->
+    (kernel outputs, max_abs_err, kernel ms, plain ms, pairs); the times
+    only when ``timed``."""
+    wrap, plain = wrappers()[kid]
+    ops_, skip, live, tls, _ = args
+    lead = (ops_ + (skip,)) if kid in ("K3", "K5") else (live + ops_)
+
+    def call(fn):
+        out = fn(*lead, t=t, measure="jaccard", tiles=tls)
+        return out if isinstance(out, tuple) else (out,)
+
+    got = call(wrap)
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: call(wrap), 3) if timed else None
+    ev = (torch.cuda.Event(enable_timing=True),
+          torch.cuda.Event(enable_timing=True))
+    ev[0].record()
+    want = call(plain)
+    ev[1].record()
+    torch.cuda.synchronize()
+    err = 0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{kid} at t={t}: {g.shape}/{g.dtype} vs "
+                                 f"plain {w.shape}/{w.dtype}")
+        err = max(err, int((g.long() - w.long()).abs().max())
+                  if g.numel() else 0)
+    if err:
+        raise AssertionError(f"{kid} disagrees with its plain version at "
+                             f"t={t}: max_abs_err={err}")
+    pairs = int(got[0].sum())
+    if len(got) > 1 and int(got[1].sum()) != pairs:
+        raise AssertionError(f"{kid}'s counts do not sum to its mask")
+    return got, err, ms, (ev[0].elapsed_time(ev[1]) if timed else None), \
+        pairs
+
+
+def tiled_bound(kid, args, got):
+    """(bound ms, bound_by, bytes, operations) of one K2-K5 call: every
+    input read once and every output written once at the HBM rate,
+    against the in-window work — per cell and word an AND, a POPC and an
+    ADD at the int32 rate (K2/K3), or per cell and universe bit 2 int8
+    operations at the tensor-core rate (K4/K5)."""
+    ops_, skip, live, _, cells = args
+    ins = list(ops_) + ([skip] if kid in ("K3", "K5") else list(live))
+    moved = sum(x.numel() * x.element_size() for x in ins + list(got))
+    W = ops_[0].shape[1]
+    if kid in ("K2", "K3"):
+        ops_n, rate = 3 * cells * W, INT32_OPS_PER_S
+    else:
+        ops_n, rate = 2 * cells * 32 * W, INT8_OPS_PER_S
+    byte_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops_n / rate * 1e3
+    return (max(byte_ms, ops_ms), "bytes" if byte_ms >= ops_ms
+            else "operations", moved, ops_n)
+
+
+def membership_matmul_ms(r_bm, s_bm):
+    """ms of one bf16 ``torch.matmul`` of the unpacked (rows, 32W)
+    membership matrices of ``r_bm`` and ``s_bm`` (the product alone: no
+    predicate, no window, a bf16 result)."""
+    from repro_torch.kernels.onehot_join import _membership
+
+    def unpack(x):
+        out = torch.empty((x.shape[0], 32 * x.shape[1]),
+                          dtype=torch.bfloat16, device=x.device)
+        for w0 in range(0, x.shape[1], 64):
+            out[:, 32 * w0:32 * (w0 + 64)] = _membership(
+                x[:, w0:w0 + 64], torch.bfloat16)
+        return out
+
+    br, bs = unpack(r_bm), unpack(s_bm)
+    ms = cuda_ms(lambda: torch.matmul(br, bs.T), 3)
+    del br, bs
+    torch.cuda.empty_cache()
+    return ms
+
+
+def small_tile_case(dev):
+    """K2-K5 against their plain versions at m = 20, n = 300, W = 3 with
+    (32, 128, 2) tiles -> the pairs each found."""
+    from repro_torch.core.sets import SetCollection
+    rng = np.random.default_rng(3)
+    r = [rng.choice(96, size=int(rng.integers(1, 30)), replace=False)
+         for _ in range(20)]
+    s = r[:8] + [rng.choice(96, size=int(rng.integers(1, 30)),
+                            replace=False) for _ in range(292)]
+    R = SetCollection.from_ragged(r, universe=96)
+    Ss = SetCollection.from_ragged(s, universe=96).sort_by_size()
+    s_bm = torch.tensor(Ss.bitmaps(3).view(np.int32), device=dev)
+    found = {}
+    for family, kids in (("bitmap", ("K2", "K3")), ("onehot", ("K4", "K5"))):
+        args = tiled_operands(R, Ss, slice(0, 20), 0.5, family, (32, 128, 2),
+                              dev, s_bm)
+        for kid in kids:
+            found[kid] = tiled_check(kid, args, 0.5, False)[4]
+    if min(found.values()) <= 0:
+        raise AssertionError(f"the small-tile case found no pair: {found}")
+    return found
+
+
+def measures_configs():
+    """Every (dataset, method, measure, threshold, emit) of the measures
+    phase."""
+    return [(name, method, m, t, e) for name, methods in MEASURE_SETS
+            for method in methods for m in MEASURES for t in THRESHOLDS
+            for e in ("pairs", "mask")]
+
+
+def front_door_configs():
+    """The measures phase's front-door calls: each measure and emit mode
+    once at ``FRONT_DOOR_T``, the four bitmap methods in turn."""
+    return [("kosarak", BITMAP_METHODS[k % len(BITMAP_METHODS)], m,
+             FRONT_DOOR_T, e)
+            for k, (m, e) in enumerate((m, e) for m in MEASURES
+                                       for e in ("pairs", "mask"))]
+
+
+def measures_cuda(configs):
+    """The measures phase's card side -> (driver results, front-door
+    results, |R| per dataset)."""
+    t0 = time.perf_counter()
+    data = {name: measures_data(name) for name, _ in MEASURE_SETS}
+    out = []
+    for cfg in configs:
+        out.append(port_join(*data[cfg[0]], *cfg[1:]))
+        if cfg[2:] == (MEASURES[-1], THRESHOLDS[-1], "mask"):
+            log(f"[measures] cuda {cfg[0]} {cfg[1]} done")
+    log(f"[measures] cuda driver side s={time.perf_counter() - t0:.3f}")
+    t0 = time.perf_counter()
+    fronts = [front_door_join(*data[cfg[0]], *cfg[1:])
+              for cfg in front_door_configs()]
+    log(f"[measures] cuda front-door calls={len(fronts)} "
+        f"s={time.perf_counter() - t0:.3f}")
+    return out, fronts, {name: len(data[name][0]) for name in data}
+
+
+def measures_compare(configs, cuda_out, fronts, sizes, cpu_async) -> None:
+    """Hold the card's results (driver and front door) against the CPU
+    workers': identical pairs and counters."""
+    t0 = time.perf_counter()
+    cpu_res = cpu_async.get()
+    log(f"[measures] waited for the cpu workers s="
+        f"{time.perf_counter() - t0:.3f}")
+    per = {}
+    for cfg, (_, sec) in zip(configs, cpu_res):
+        per[cfg[:2]] = per.get(cfg[:2], 0.0) + sec
+    log("[measures] cpu worker seconds per dataset/method: " + json.dumps(
+        {f"{k[0]}/{k[1]}": round(v, 1) for k, v in per.items()}))
+    for cfg, a, (b, _) in zip(configs, cuda_out, cpu_res):
+        if a != b:
+            raise AssertionError(f"cuda and cpu differ at {cfg}: {a} vs {b}")
+    cpu_of = {cfg: b for cfg, (b, _) in zip(configs, cpu_res)}
+    for cfg, a in zip(front_door_configs(), fronts):
+        if a != cpu_of[cfg]:
+            raise AssertionError(f"the front door on the card and the cpu "
+                                 f"driver differ at {cfg}: {a} vs "
+                                 f"{cpu_of[cfg]}")
+    log(f"[measures] front door == cpu driver at t={FRONT_DOOR_T}: "
+        + ", ".join(f"{c[1]}/{c[2]}/{c[4]} pairs={a[0][0]}"
+                    for c, a in zip(front_door_configs(), fronts)))
+    for name, methods in MEASURE_SETS:
+        for method in methods:
+            n_pairs = [a[0][0] for c, a in zip(configs, cuda_out)
+                       if c[:2] == (name, method) and c[4] == "pairs"]
+            log(f"[measures] {name} {method} |R|=|S|={sizes[name]} "
+                f"configs={2 * len(n_pairs)} cuda==cpu pairs={n_pairs}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script needs "
@@ -269,7 +595,7 @@ def main() -> int:
         return 2
     import repro_torch
     from repro_torch.data.synth import make_join_dataset
-    from repro_torch.kernels import _build, lfvt_walk
+    from repro_torch.kernels import _build
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -286,136 +612,227 @@ def main() -> int:
     took = _build.build(extra_flags=("-Xptxas", "-v"))
     log(f"[build] {json.dumps(took)} total_s={time.perf_counter() - t0:.3f}")
 
-    # the measures phase's CPU side runs in worker processes meanwhile
-    R4, S4 = make_join_dataset("dblp", scale=0.8, seed=0)
-    configs = [(m, t, e) for m in MEASURES for t in THRESHOLDS
-               for e in ("pairs", "mask")]
-    pool = multiprocessing.get_context("spawn").Pool(6)
+    # worker processes make the livej data and run the measures phase's
+    # CPU side while this process drives the card; it keeps to one CPU
+    # thread meanwhile, or its CPU ops wait on OpenMP threads that the
+    # workers have descheduled. The pool is done before the timed phases.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    pool = multiprocessing.get_context("spawn").Pool(
+        POOL_WORKERS, initializer=init_worker)
     try:
-        cpu_async = pool.map_async(
-            cpu_join, [(R4, S4, m, t, e) for m, t, e in configs])
-
-        # ---- data --------------------------------------------------- #
         t0 = time.perf_counter()
-        R, S = make_join_dataset("livej", scale=MAIN_SCALE, seed=0)
+        livej_async = pool.apply_async(make_join_dataset,
+                                       ("livej", MAIN_SCALE, 0))
+        configs = sorted(measures_configs(),
+                         key=lambda c: CPU_ORDER.index(c[1]))
+        cpu_async = pool.map_async(cpu_join, configs, chunksize=1)
+
+        # ---- phase 2: the measures phase ----------------------------- #
+        cuda_out, fronts, sizes = measures_cuda(configs)
+        measures_compare(configs, cuda_out, fronts, sizes, cpu_async)
+        R, S = livej_async.get()
         gen_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        Ss = S.sort_by_size()
-        flat = Ss.flat_lfvt()
-        enc_s = time.perf_counter() - t0
-        log(f"[data] livej |R|={len(R)} |S|={len(S)} "
-            f"elements={R.total_elements()}+{S.total_elements()} "
-            f"gen_s={gen_s:.3f} encode_s={enc_s:.3f} "
-            f"seq_tuples={len(flat.seq_row)} max_seq_len={flat.max_seq_len}")
-
-        # ---- phase 2: the join at full size ------------------------- #
-        lfvt_walk.lfvt_walk_live_tiled.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        st: dict = {}
-        t0 = time.perf_counter()
-        res = repro_torch.join(R, Ss, MAIN_T, method="lfvt", stats=st)
-        join_s = time.perf_counter() - t0
-        launches = lfvt_walk.lfvt_walk_live_tiled.launches
-        if launches <= 0:
-            raise AssertionError("the join never launched K1")
-        peak = torch.cuda.max_memory_allocated()
-        t0 = time.perf_counter()
-        again = repro_torch.join(R, Ss, MAIN_T, method="lfvt")
-        warm_s = time.perf_counter() - t0
-        if again.pairs != res.pairs:
-            raise AssertionError("a repeated join gave other pairs")
-        prof_wall, busy, k1_dev, top = device_profile(
-            lambda: repro_torch.join(R, Ss, MAIN_T, method="lfvt"))
-        log(f"[profile] warm join under torch.profiler: wall_s="
-            f"{prof_wall:.3f} device_busy_s={busy:.3f} k1_device_s="
-            f"{k1_dev:.3f} idle_share="
-            f"{1 - busy / prof_wall if busy else 'not measured'} top="
-            + json.dumps([[k[:60], round(v, 6)] for k, v in top]))
-        # half the oracle rows at random, half among rows with pairs (at
-        # t = 0.8 most rows have none)
-        rng = np.random.default_rng(0)
-        row_of = {int(i): k for k, i in enumerate(R.ids)}
-        paired = np.unique([row_of[a] for a, _ in res.pairs])
-        rows = np.unique(np.concatenate([
-            rng.choice(len(R), ORACLE_ROWS // 2, replace=False),
-            rng.permutation(paired)[:ORACLE_ROWS // 2]]).astype(np.int64))
-        want_pairs = oracle_pairs(R, S, rows, MAIN_T)
-        sampled = {int(R.ids[i]) for i in rows}
-        got_pairs = {p for p in res.pairs if p[0] in sampled}
-        if got_pairs != want_pairs:
-            raise AssertionError(
-                f"join pairs of the sampled rows differ from the oracle: "
-                f"{len(got_pairs)} vs {len(want_pairs)}")
-        log(f"[join] pairs={len(res.pairs)} wall_s={join_s:.3f} "
-            f"warm_wall_s={warm_s:.3f} r_blocks={st['r_blocks']} "
-            f"live_tiles={st['live_tiles']}/{st['total_tiles']} "
-            f"walk_steps={st['walk_steps']} early_stops={st['early_stops']} "
-            f"regrows={st['regrows']} s_flat_bytes={st['s_flat_bytes']} "
-            f"max_memory_allocated={peak} k1_launches={launches} "
-            f"oracle_rows={len(rows)} oracle_pairs={len(want_pairs)}")
-
-        # ---- phase 3: K1 against its plain version ------------------ #
-        # the driver's block (rows cut in input order) with the most rows
-        # that the join paired, so the main threshold's mask is not empty
-        block = int(np.bincount(paired // BLOCK_ROWS).argmax()
-                    if len(paired) else 0)
-        checks = {t: kernel_check(Ss, flat, R, block, t, dev)
-                  for t in (MAIN_T, WIDE_T)}
-        got, operands, lanes, _, ms, plain_ms = checks[MAIN_T]
-        err = max(c[3] for c in checks.values())
-        bound_ms, bound_by, moved, ops_n = k1_bound(operands, got, lanes)
-        lane_steps, win_steps = int(lanes[:, 0].sum()), int(lanes[:, 1].sum())
-        # the walk's dependent-gather traffic (8 B of seq_row/seq_next per
-        # lane step, a 4 B count update per in-window step): what K1 moves
-        # through the caches, beside the bytes the function must move
-        step_bytes = 8 * lane_steps + 4 * win_steps
-        for t, c in checks.items():
-            log(f"[kernel] t={t} block={block} K1 vs plain bit-equal: "
-                f"live_tiles={len(c[1][0])} Lr={c[1][1].shape[1]} "
-                f"NP={c[1][5].shape[1]} pairs={int(c[0][1].sum())} "
-                f"walk_steps={int(c[0][2].sum())} "
-                f"early_stops={int(c[0][3].sum())} "
-                f"lane_steps={int(c[2][:, 0].sum())} "
-                f"window_steps={int(c[2][:, 1].sum())} ms={c[4]:.4f} "
-                f"plain_ms={c[5]:.4f}")
-        log(f"[bound] t={MAIN_T} bound_ms={bound_ms:.6f} bound_by={bound_by} "
-            f"bytes={moved} int32_ops={ops_n} k1_over_bound="
-            f"{ms / bound_ms:.1f} step_traffic_bytes={step_bytes} "
-            f"step_traffic_gb_per_s={step_bytes / ms / 1e6:.1f}")
-
-        # ---- phase 4: every measure, cuda vs cpu -------------------- #
-        t0 = time.perf_counter()
-        cuda_out = []
-        for m, t, e in configs:
-            st4: dict = {}
-            r4 = repro_torch.join(R4, S4, t, method="lfvt", measure=m,
-                                  emit=e, stats=st4)
-            cuda_out.append((sorted(r4.pairs),
-                             {k: st4[k] for k in COUNTERS}))
-        cpu_out = cpu_async.get()
-        for (m, t, e), a, b in zip(configs, cuda_out, cpu_out):
-            if a != b:
-                raise AssertionError(f"cuda and cpu differ at measure={m} "
-                                     f"t={t} emit={e}")
-        log(f"[measures] |R|=|S|={len(R4)} configs={len(configs)} "
-            f"cuda==cpu pairs={[len(a[0]) for a in cuda_out[::2]]} "
-            f"s={time.perf_counter() - t0:.3f}")
     finally:
         pool.terminate()
         pool.join()
+    torch.set_num_threads(threads)
+    runs: dict = {}   # main-path run -> launches per kernel id
 
-    kernels = [{
-        "name": "lfvt_walk_live_tiled", "id": "K1", "status": "ported",
-        "route": "cuda", "source": "src/repro_torch/kernels/csrc/lfvt_walk.cu",
-        "replaces": "src/repro/kernels/lfvt_walk.py:426",
-        "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None,
-        "check": (f"bit-equal to lfvt_walk_live_tiled_ref on the card at "
-                  f"t={MAIN_T} and t={WIDE_T}")}]
+    # ---- data ----------------------------------------------------------- #
+    t0 = time.perf_counter()
+    Ss = S.sort_by_size()
+    flat = Ss.flat_lfvt()
+    enc_s = time.perf_counter() - t0
+    log(f"[data] livej |R|={len(R)} |S|={len(S)} "
+        f"elements={R.total_elements()}+{S.total_elements()} "
+        f"ready_after_s={gen_s:.3f} (made in a worker) "
+        f"encode_s={enc_s:.3f} "
+        f"seq_tuples={len(flat.seq_row)} max_seq_len={flat.max_seq_len}")
+
+    # ---- phase 3: the lfvt join at full size ------------------------- #
+    torch.cuda.reset_peak_memory_stats()
+    st: dict = {}
+    t0 = time.perf_counter()
+    res, runs["lfvt"] = counted(lambda: repro_torch.join(
+        R, Ss, MAIN_T, method="lfvt", stats=st))
+    join_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    again = repro_torch.join(R, Ss, MAIN_T, method="lfvt")
+    warm_s = time.perf_counter() - t0
+    if again.pairs != res.pairs:
+        raise AssertionError("a repeated join gave other pairs")
+    log_profile("warm lfvt join", device_profile(
+        lambda: repro_torch.join(R, Ss, MAIN_T, method="lfvt"),
+        ("lfvt_walk_kernel",)), "K1")
+    # half the oracle rows at random, half among rows with pairs (at
+    # t = 0.8 most rows have none)
+    rng = np.random.default_rng(0)
+    row_of = {int(i): k for k, i in enumerate(R.ids)}
+    paired = np.unique([row_of[a] for a, _ in res.pairs])
+    rows = np.unique(np.concatenate([
+        rng.choice(len(R), ORACLE_ROWS // 2, replace=False),
+        rng.permutation(paired)[:ORACLE_ROWS // 2]]).astype(np.int64))
+    want_pairs = oracle_pairs(R, S, rows, MAIN_T)
+    sampled = {int(R.ids[i]) for i in rows}
+    got_pairs = {p for p in res.pairs if p[0] in sampled}
+    if got_pairs != want_pairs:
+        raise AssertionError(
+            f"join pairs of the sampled rows differ from the oracle: "
+            f"{len(got_pairs)} vs {len(want_pairs)}")
+    log(f"[join] pairs={len(res.pairs)} wall_s={join_s:.3f} "
+        f"warm_wall_s={warm_s:.3f} r_blocks={st['r_blocks']} "
+        f"live_tiles={st['live_tiles']}/{st['total_tiles']} "
+        f"walk_steps={st['walk_steps']} early_stops={st['early_stops']} "
+        f"regrows={st['regrows']} s_flat_bytes={st['s_flat_bytes']} "
+        f"max_memory_allocated={peak} launches={runs['lfvt']} "
+        f"oracle_rows={len(rows)} oracle_pairs={len(want_pairs)}")
+
+    # ---- phase 4: the front door's default call, and the other
+    # families, at the same size ----------------------------------------- #
+    def front_door(label, **kw):
+        stx: dict = {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, runs[label] = counted(lambda: repro_torch.join(
+            R, Ss, MAIN_T, stats=stx, **kw))
+        wall = time.perf_counter() - t0
+        if out.pairs != res.pairs:
+            raise AssertionError(
+                f"{label} join: {len(out.pairs)} pairs, the lfvt join "
+                f"{len(res.pairs)}")
+        log(f"[join {label}] plan.method={out.plan.method} "
+            f"decided={out.plan.decided} pairs={len(out.pairs)} "
+            f"(== lfvt) wall_s={wall:.3f} r_blocks={stx['r_blocks']} "
+            f"live_tiles={stx.get('live_tiles')}/"
+            f"{stx.get('total_tiles')} regrows={stx['regrows']} "
+            f"output_bytes={stx['output_bytes']} max_memory_allocated="
+            f"{torch.cuda.max_memory_allocated()} "
+            f"launches={runs[label]}")
+        return out
+
+    auto = front_door("auto")
+    log(f"[auto] scores={json.dumps(auto.plan.scores)}")
+    if auto.plan.method != "popcount":
+        log(f"[auto] picked {auto.plan.method!r}, not 'popcount'; "
+            "running method='popcount' as well")
+        front_door("popcount", method="popcount")
+        MAIN_RUN["K3"] = "popcount"
+    t0 = time.perf_counter()
+    repro_torch.join(R, Ss, MAIN_T)
+    log(f"[auto] warm_wall_s={time.perf_counter() - t0:.3f}")
+    log_profile("warm auto join", device_profile(
+        lambda: repro_torch.join(R, Ss, MAIN_T),
+        ("bitmap_join_kernel<false>", "bitmap_join_kernelILb0E")), "K3")
+    for method in ("kernel_bitmap", "kernel_onehot", "onehot"):
+        front_door(method, method=method)
+    for kid, label in MAIN_RUN.items():
+        if runs[label][kid] <= 0:
+            raise AssertionError(f"the {label} join never launched {kid}")
+
+    # ---- phase 5: kernels against their plain versions -------------- #
+    # the driver's block (rows cut in input order) with the most rows
+    # that the join paired, so the main threshold's mask is not empty
+    block = int(np.bincount(paired // BLOCK_ROWS).argmax()
+                if len(paired) else 0)
+    checks = {t: kernel_check(Ss, flat, R, block, t, dev)
+              for t in (MAIN_T, WIDE_T)}
+    got, operands, lanes, _, ms, plain_ms = checks[MAIN_T]
+    err = max(c[3] for c in checks.values())
+    bound_ms, bound_by, moved, ops_n = k1_bound(operands, got, lanes)
+    lane_steps, win_steps = int(lanes[:, 0].sum()), int(lanes[:, 1].sum())
+    # the walk's dependent-gather traffic (8 B of seq_row/seq_next per
+    # lane step, a 4 B count update per in-window step): what K1 moves
+    # through the caches, beside the bytes the function must move
+    step_bytes = 8 * lane_steps + 4 * win_steps
+    for t, c in checks.items():
+        log(f"[kernel K1] t={t} block={block} K1 vs plain bit-equal: "
+            f"live_tiles={len(c[1][0])} Lr={c[1][1].shape[1]} "
+            f"NP={c[1][5].shape[1]} pairs={int(c[0][1].sum())} "
+            f"walk_steps={int(c[0][2].sum())} "
+            f"early_stops={int(c[0][3].sum())} "
+            f"lane_steps={int(c[2][:, 0].sum())} "
+            f"window_steps={int(c[2][:, 1].sum())} ms={c[4]:.4f} "
+            f"plain_ms={c[5]:.4f}")
+    log(f"[bound K1] t={MAIN_T} bound_ms={bound_ms:.6f} "
+        f"bound_by={bound_by} bytes={moved} int32_ops={ops_n} "
+        f"k1_over_bound={ms / bound_ms:.1f} step_traffic_bytes="
+        f"{step_bytes} step_traffic_gb_per_s="
+        f"{step_bytes / ms / 1e6:.1f}")
+    kernels = {"K1": dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None,
+        library_note="no single PyTorch call computes the walk with "
+                     "its counters",
+        check=f"bit-equal to its plain version on the card at "
+              f"t={MAIN_T} and t={WIDE_T}")}
+
+    rows_blk = slice(block * BLOCK_ROWS, (block + 1) * BLOCK_ROWS)
+    W = max((max(R.universe, Ss.universe) + 31) // 32, 1)
+    s_bm = torch.tensor(Ss.bitmaps(W).view(np.int32), device=dev)
+    tiled_err = dict.fromkeys(("K2", "K3", "K4", "K5"), 0)
+    for family, kids in (("bitmap", ("K2", "K3")),
+                         ("onehot", ("K4", "K5"))):
+        for t in (MAIN_T, WIDE_T):
+            args = tiled_operands(R, Ss, rows_blk, t, family, None, dev,
+                                  s_bm)
+            for kid in kids:
+                kgot, kerr, kms, kplain, kpairs = tiled_check(
+                    kid, args, t, t == MAIN_T)
+                tiled_err[kid] = max(tiled_err[kid], kerr)
+                if t == WIDE_T and kpairs <= 0:
+                    raise AssertionError(f"{kid} found no pair in block "
+                                         f"{block} at t={t}")
+                line = (f"[kernel {kid}] t={t} block={block} "
+                        f"tiles={args[3]} live_tiles={len(args[2][0])} "
+                        f"in_window_cells={args[4]} pairs={kpairs} "
+                        "bit-equal to plain")
+                if t == MAIN_T:
+                    b_ms, b_by, b_bytes, b_ops = tiled_bound(kid, args,
+                                                             kgot)
+                    kernels[kid] = dict(
+                        ms=kms, plain_ms=kplain, bound_ms=b_ms,
+                        bound_by=b_by)
+                    line += (f" ms={kms:.4f} plain_ms={kplain:.4f} "
+                             f"bound_ms={b_ms:.6f} bound_by={b_by} "
+                             f"bytes={b_bytes} ops={b_ops} "
+                             f"over_bound={kms / b_ms:.1f}")
+                log(line)
+            if family == "onehot" and t == MAIN_T:
+                lib = membership_matmul_ms(args[0][0], args[0][2])
+                log(f"[library K4/K5] bf16 torch.matmul of the block's "
+                    f"unpacked membership matrices (product only) "
+                    f"ms={lib:.4f}")
+                for kid in kids:
+                    kernels[kid].update(
+                        library_ms=lib, library_note=(
+                            "one bf16 torch.matmul of the pre-unpacked "
+                            "membership matrices: the product only, no "
+                            "predicate, window or mask"))
+    for kid in ("K2", "K3"):
+        kernels[kid].update(library_ms=None, library_note=(
+            "no single PyTorch call computes AND-popcount-sum"))
+    for kid in ("K2", "K3", "K4", "K5"):
+        kernels[kid].update(
+            max_abs_err=tiled_err[kid],
+            check=f"bit-equal to its plain version on the card at "
+                  f"t={MAIN_T} and t={WIDE_T}, and at m=20, n=300, "
+                  f"W=3 with tiles (32, 128, 2)")
+    del s_bm
+    log(f"[kernel small] m=20 n=300 W=3 tiles=(32, 128, 2) "
+        f"bit-equal to plain, pairs={small_tile_case(dev)}")
+
+    out = []
+    for kid, (_, name, _, source, replaces) in KERNELS.items():
+        out.append({"name": name, "id": kid, "status": "ported",
+                    "route": "cuda", "source": source, "replaces": replaces,
+                    "launches": runs[MAIN_RUN[kid]][kid],
+                    "main_run": MAIN_RUN[kid], **kernels[kid]})
     not_ported = [{"id": k, "name": n, "status": "not_ported", "replaces": r}
                   for k, n, r in NOT_PORTED]
-    print(json.dumps({"kernels": kernels, "not_ported": not_ported}))
+    log(f"[total] s={time.perf_counter() - T_START:.3f}")
+    print(json.dumps({"kernels": out, "not_ported": not_ported}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,7 +3,7 @@
 The public surface mirrors the JAX package's front door::
 
     import repro_torch
-    result = repro_torch.join(R, S, 0.8, method="lfvt")   # on the GPU
+    result = repro_torch.join(R, S, 0.8)   # on the GPU, method="auto"
     result.pairs, result.stats, result.plan
 
 The port imports torch and numpy, never jax, and nothing of ``repro``.

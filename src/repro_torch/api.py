@@ -7,11 +7,12 @@ passes ``device="cpu"``, and raises
 :class:`~repro_torch.errors.DeviceUnavailableError` when no GPU is
 present and the CPU was not asked for.
 
-This slice runs the single-device driver with the LFVT methods
-(``'lfvt'``, ``'lfvt_ref'``). What is not ported yet raises
-:class:`~repro_torch.errors.NotPortedError`: the MapReduce driver
-(``n_shards=``/``mesh=``), the resilience kwargs, and a ``method='auto'``
-pick of the popcount or one-hot family.
+The port runs the single-device driver with every method of the
+reference's: ``'auto'`` (the default), ``'popcount'``, ``'onehot'``,
+``'kernel_bitmap'``, ``'kernel_onehot'``, ``'lfvt'`` and ``'lfvt_ref'``.
+What is not ported yet raises :class:`~repro_torch.errors.NotPortedError`:
+the MapReduce driver (``n_shards=``/``mesh=``) and the resilience kwargs
+(``fault_plan=``/``checkpoint_dir=``/``REPRO_FAULT``).
 
 Inputs may be :class:`~repro_torch.core.sets.SetCollection` instances or
 plain sequences of integer element arrays (coerced with ``np.unique``,
@@ -102,9 +103,9 @@ def join(R, S, threshold: float, *, measure: str = "jaccard",
     threshold: similarity threshold ``t`` for ``measure`` ('jaccard' |
         'cosine' | 'dice' | 'overlap').
     method: 'auto' (default) — the cost model probes the inputs and
-        picks the cheapest rep family (DESIGN.md §14); the port runs the
-        pick when it is 'lfvt' or 'lfvt_ref' and raises NotPortedError
-        naming it otherwise. Or force 'lfvt' | 'lfvt_ref'.
+        picks the cheapest rep family (DESIGN.md §14). Or force
+        'popcount' | 'onehot' | 'kernel_bitmap' | 'kernel_onehot' |
+        'lfvt' | 'lfvt_ref' (see ``cf_rs_join_device``).
     emit: 'pairs' returns the compacted pair set only; 'mask' also
         materializes the dense ``(|R|, |S|)`` bool matrix in
         ``result.mask``.

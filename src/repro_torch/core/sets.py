@@ -204,6 +204,33 @@ class SetCollection:
 
         return self._memo("csr", build)
 
+    def bitmaps(self, words: int | None = None) -> np.ndarray:
+        """(n, W) uint32 membership bitmaps; bit ``a%32`` of word ``a//32``.
+
+        Memoized per word width ``W``. The device paths upload the sheet
+        as an int32 tensor with the same bits (``.view(np.int32)``): torch
+        has almost no uint32 arithmetic, and the kernels read the words
+        as ``uint32_t``.
+        """
+        W = words if words is not None else max((self.universe + 31) // 32, 1)
+
+        def build():
+            out = np.zeros((len(self), W), dtype=np.uint32)
+            if not len(self):
+                return out
+            sizes = self.sizes().astype(np.int64)
+            elems = (np.concatenate(self.sets).astype(np.int64)
+                     if sizes.sum() else np.zeros(0, np.int64))
+            rows = np.repeat(np.arange(len(self), dtype=np.int64), sizes)
+            # elements are unique within a set, so OR-ing each bit once
+            # is the whole sheet
+            np.bitwise_or.at(out.reshape(-1), rows * W + elems // 32,
+                             np.left_shift(np.uint32(1),
+                                           (elems % 32).astype(np.uint32)))
+            return out
+
+        return self._memo(("bitmaps", W), build)
+
     def flat_lfvt(self):
         """Flat-array LFVT encoding of this collection (``FlatLFVT``).
 

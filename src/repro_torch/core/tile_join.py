@@ -1,19 +1,25 @@
-"""Single-device candidate-free join driver (the LFVT methods).
+"""Single-device candidate-free join driver (every single-device method).
 
-The port of the JAX package's ``core/tile_join.py`` for ``method`` in
-``('lfvt', 'lfvt_ref')``. S is sorted by set size descending (the FVT
-"bigger nearer the root" invariant), so the Lemma-3.1 window of any
-``R_i`` is a contiguous column range ``[lo_i, hi_i)`` found by binary
-search. S is encoded once into a ``FlatLFVT`` whose walk arrays stay on
-the device (cached per collection and device); R streams through in
-blocks of ``r_block`` rows, and only the packed qualifying pairs (or, for
-``emit='mask'``, the staged tile masks) come back to the host.
+The port of the JAX package's ``core/tile_join.py``. S is sorted by set
+size descending (the FVT "bigger nearer the root" invariant), so the
+Lemma-3.1 window of any ``R_i`` is a contiguous column range
+``[lo_i, hi_i)`` found by binary search. S is staged on the device once
+per collection (the ``FlatLFVT`` walk arrays for the LFVT methods, the
+``(n, W)`` membership bitmaps for the popcount and one-hot methods); R
+streams through in blocks of ``r_block`` rows, and only the packed
+qualifying pairs (or, for ``emit='mask'``, the block masks) come back to
+the host.
+
+This module also holds the plain PyTorch counting and qualify primitives
+(``popcount_counts``, ``qualify``, ``_popcount_qualify``) behind the
+popcount kernels, and the dense-mask compaction (``_mask_total``,
+``_compact_mask``).
 
 Blocks are double-buffered: block k+1 is dispatched before block k's
 counts are synchronised. CUDA launches are asynchronous on the current
 stream, so no second stream is needed for the overlap; the one
-device-to-host copy of a block's per-tile counts is its only sync before
-its pairs are fetched.
+device-to-host copy of a block's pair count is its only sync before its
+pairs are fetched.
 """
 from __future__ import annotations
 
@@ -29,17 +35,123 @@ from .planner import build_plan
 from .resilience import (PairCapacityError, check_unmanaged, fault_point,
                          resilience_stats)
 from .sets import SetCollection
-from ..errors import NotPortedError
 
 __all__ = [
+    "popcount_row_block",
+    "popcount_counts",
+    "qualify",
     "window_bounds",
     "cf_rs_join_device",
+    "cf_rs_join_device_ids",
     "round_capacity",
-    "PORTED_METHODS",
 ]
 
-#: the methods the port runs so far; the rest raise NotPortedError
-PORTED_METHODS = ("lfvt", "lfvt_ref")
+#: byte budget of a plain version's staged intermediate (the popcount's
+#: (rows, cols, words) int64 AND, the one-hot product's unpacked float32
+#: chunk), per device type: a few MB on the CPU, where larger stages run
+#: slower; on a GPU large enough that launches do not dominate, and never
+#: more than a few GB with the temporaries
+STAGE_BYTES = {"cpu": 1 << 22, "cuda": 1 << 30}
+
+
+def stage_budget(device: torch.device) -> int:
+    """``STAGE_BYTES`` for ``device``'s type (256 MiB for another type)."""
+    return STAGE_BYTES.get(device.type, 1 << 28)
+
+
+# ---------------------------------------------------------------------- #
+# device-side primitives (plain torch; the popcount kernels mirror these)
+# ---------------------------------------------------------------------- #
+def popcount_row_block(m: int, n: int) -> int:
+    """R-row block size bounding ``popcount_counts``' (mb, n, W) staged
+    intermediate (the reference's rule; ``popcount_counts`` also caps the
+    block by ``stage_budget``)."""
+    return max(1, min(m, 4096 // max(1, n // 1024 + 1)))
+
+
+def _words64(bitmaps: torch.Tensor) -> torch.Tensor:
+    """(rows, W) int32 words -> (rows, ceil(W/2)) int64 holding the same
+    bits, two words per lane (a zero word pads an odd W). Popcounts of
+    ANDs do not depend on how the words are paired."""
+    x = bitmaps.to(torch.int32)
+    if x.shape[1] % 2:
+        x = torch.cat([x, x.new_zeros((x.shape[0], 1))], dim=1)
+    return x.contiguous().view(torch.int64)
+
+
+def _popcount_sum(x: torch.Tensor) -> torch.Tensor:
+    """SWAR bit count of the int64 lanes of ``x`` (..., w), summed over
+    the last axis -> (...) int32. ``x`` is scratch: it is overwritten.
+
+    Bit 63 is counted apart (as ``x < 0``), so the shifts and adds run on
+    non-negative values, where an arithmetic right shift is a logical one
+    and nothing overflows. The per-byte counts are summed over groups of
+    ``g <= 18`` lanes (the largest divisor of ``w`` up to 18) before the
+    bytes of each group are folded: a byte then holds at most 8 * 18 =
+    144 and the top byte (bit 63 cleared) at most 7 * 18 = 126, so no
+    byte carries into the next and no sum leaves the non-negative int64s.
+    """
+    neg = (x < 0).sum(-1, dtype=torch.int32)
+    x &= 0x7FFFFFFFFFFFFFFF
+    y = x >> 1
+    y &= 0x5555555555555555
+    x -= y
+    y = x >> 2
+    y &= 0x3333333333333333
+    x &= 0x3333333333333333
+    x += y
+    x += x >> 4
+    x &= 0x0F0F0F0F0F0F0F0F
+    w = x.shape[-1]
+    g = max(d for d in range(1, 19) if w % d == 0) if w else 1
+    b = x.unflatten(-1, (w // g, g)).sum(-1)
+    b = (b & 0x00FF00FF00FF00FF) + ((b >> 8) & 0x00FF00FF00FF00FF)
+    b += b >> 16
+    b += b >> 32
+    return neg + (b & 0xFFFF).sum(-1, dtype=torch.int32)
+
+
+def popcount_counts(r_bitmaps: torch.Tensor,
+                    s_bitmaps: torch.Tensor) -> torch.Tensor:
+    """(m, W) x (n, W) int32-held uint32 words -> (m, n) int32
+    intersection sizes.
+
+    Blocked over R rows (``popcount_row_block``) and S rows so that the
+    staged (mb, nb, W/2) int64 AND never exceeds the device's
+    ``stage_budget``."""
+    r, s = _words64(r_bitmaps), _words64(s_bitmaps)
+    m, n, w = r.shape[0], s.shape[0], r.shape[1]
+    out = torch.empty((m, n), dtype=torch.int32, device=r.device)
+    if not m or not n:
+        return out
+    cells = max(1, stage_budget(r.device) // (8 * max(w, 1)))
+    nb = min(n, cells)
+    mb = max(1, min(popcount_row_block(m, n), cells // nb))
+    for a in range(0, m, mb):
+        for b in range(0, n, nb):
+            out[a:a + mb, b:b + nb] = _popcount_sum(
+                r[a:a + mb, None, :] & s[None, b:b + nb, :])
+    return out
+
+
+def qualify(counts: torch.Tensor, r_sizes: torch.Tensor,
+            s_sizes: torch.Tensor, t: float,
+            measure: str = "jaccard") -> torch.Tensor:
+    """``sim >= t`` as a boolean tile via the integer-exact
+    cross-multiplied predicate (DESIGN.md §8); f > 0 required. Sizes are
+    1-D: ``r_sizes`` (m,), ``s_sizes`` (n,)."""
+    return measures.device_qualify(counts, r_sizes[:, None],
+                                   s_sizes[None, :], t, measure)
+
+
+def _popcount_qualify(r_bm, r_sz, s_bm, s_sz, col_lo, col_hi, *, t,
+                      measure="jaccard") -> torch.Tensor:
+    """Popcount counts, the measure predicate and the [lo, hi) window ->
+    (m, n) bool: the popcount join of m R rows against n S columns."""
+    counts = popcount_counts(r_bm, s_bm)
+    cols = torch.arange(s_bm.shape[0], device=counts.device)[None, :]
+    in_window = (cols >= col_lo[:, None]) & (cols < col_hi[:, None])
+    return qualify(counts, r_sz, s_sz, t, measure) & in_window
 
 
 def window_bounds(r_sizes: np.ndarray, s_sizes_desc: np.ndarray, t: float,
@@ -84,25 +196,48 @@ def round_capacity(n: int) -> int:
     return min(cap, ceiling)
 
 
+def _mask_total(mask: torch.Tensor) -> torch.Tensor:
+    """Device-side pair count of a dense bool mask (0-d int32)."""
+    return mask.sum(dtype=torch.int32)
+
+
+def _compact_mask(mask: torch.Tensor, *, size: int) -> torch.Tensor:
+    """Device-side segment compaction of a dense bool mask.
+
+    An (m, n) mask packs to (size, 2) (row, col) int32, row-major;
+    entries past the true count are -1: the capacity padding of the
+    reference's ``jnp.nonzero(size=, fill_value=-1)``, kept so that
+    ``pair_bytes = size * 8`` means the same buffer.
+    """
+    return torch.nonzero_static(mask, size=size, fill_value=-1).to(
+        torch.int32)
+
+
 # ------------------------------------------------------------------ #
 # device-resident S representation cache: the size-sorted collection and
-# its FlatLFVT (whose walk arrays are uploaded once per device) live as
-# long as the source collection. WeakKeyDictionary -> entries die with
-# the collection (collections are immutable by convention).
+# its device reps (the FlatLFVT, whose walk arrays are uploaded once per
+# device, or the (n, W) bitmap sheet) live as long as the source
+# collection. WeakKeyDictionary -> entries die with the collection
+# (collections are immutable by convention).
 # ------------------------------------------------------------------ #
 _S_REP_CACHE: "weakref.WeakKeyDictionary[SetCollection, dict]" = (
     weakref.WeakKeyDictionary())
 
 
-def _s_device_rep(S: SetCollection, device: torch.device,
-                  stats: dict | None = None):
-    """-> (sorted collection, FlatLFVT uploaded to ``device``, np sizes)."""
+def _s_device_rep(S: SetCollection, family: str, W: int,
+                  device: torch.device, stats: dict | None = None):
+    """-> (sorted collection, device rep, device sizes, np sizes).
+
+    family 'bitmap' -> the (n, W) bitmap sheet as an int32 tensor with
+    the uint32 bits; 'lfvt' -> the ``FlatLFVT`` uploaded to ``device``.
+    """
     fault_point("device_upload")
     entry = _S_REP_CACHE.get(S)
     if entry is None:
         entry = {}
         _S_REP_CACHE[S] = entry
-    key = ("lfvt", str(device))
+    dev = str(device)
+    key = ("bitmap", W, dev) if family == "bitmap" else ("lfvt", dev)
     hit = "sorted" in entry and key in entry
     if "sorted" not in entry:
         # None = "the key itself is already sorted": the cache value must
@@ -111,18 +246,26 @@ def _s_device_rep(S: SetCollection, device: torch.device,
         entry["sorted"] = Ss
         entry["sizes_np"] = (S if Ss is None else Ss).sizes()
     Ss = entry["sorted"] if entry["sorted"] is not None else S
+    if ("sizes", dev) not in entry:
+        entry[("sizes", dev)] = torch.tensor(entry["sizes_np"],
+                                             dtype=torch.int32, device=device)
     if key not in entry:
-        flat = Ss.flat_lfvt()    # memoized on the collection
-        flat.to_device(device)   # one upload per device, cached on it
-        entry[key] = flat
+        if family == "bitmap":
+            entry[key] = torch.tensor(Ss.bitmaps(W).view(np.int32),
+                                      device=device)
+        else:
+            flat = Ss.flat_lfvt()    # memoized on the collection
+            flat.to_device(device)   # one upload per device, cached on it
+            entry[key] = flat
     if stats is not None:
         stats["s_rep_cache_hit"] = hit
-    return Ss, entry[key], entry["sizes_np"]
+    return Ss, entry[key], entry[("sizes", dev)], entry["sizes_np"]
 
 
 # ------------------------------------------------------------------ #
-# device-resident R-block cache: (device, block range) -> the uploaded
-# (mb, Lr) -1-padded element lists, per source collection (weakly)
+# device-resident R-block cache: (family, device, block range) -> the
+# uploaded block rep (the (mb, Lr) -1-padded element lists, or the
+# (mb, W) bitmaps), per source collection (weakly)
 # ------------------------------------------------------------------ #
 _R_BLOCK_CACHE: "weakref.WeakKeyDictionary[SetCollection, dict]" = (
     weakref.WeakKeyDictionary())
@@ -130,28 +273,31 @@ _R_BLOCK_CACHE: "weakref.WeakKeyDictionary[SetCollection, dict]" = (
 _R_BLOCK_CACHE_MAX_ENTRIES = 64
 
 
-def _r_block_rep(R: SetCollection, device: torch.device, start: int,
-                 stop: int):
+def _r_block_rep(R: SetCollection, family: str, W: int,
+                 device: torch.device, start: int, stop: int):
     """-> (device rep of R[start:stop], cache_hit)."""
     fault_point("device_upload")
     entry = _R_BLOCK_CACHE.get(R)
     if entry is None:
         entry = {}
         _R_BLOCK_CACHE[R] = entry
-    key = ("padded", str(device), start, stop)
+    key = (("bitmap", W, str(device), start, stop) if family == "bitmap"
+           else ("padded", str(device), start, stop))
     hit = key in entry
     if hit:
         entry[key] = entry.pop(key)  # LRU: move to the fresh end
     else:
         if len(entry) >= _R_BLOCK_CACHE_MAX_ENTRIES:
             entry.pop(next(iter(entry)))  # evict least-recently used
-        host = R.padded()[0][start:stop]
-        entry[key] = torch.tensor(host, dtype=torch.int32, device=device)
+        host = (R.bitmaps(W).view(np.int32) if family == "bitmap"
+                else R.padded()[0])
+        entry[key] = torch.tensor(host[start:stop], dtype=torch.int32,
+                                  device=device)
     return entry[key], hit
 
 
 def cf_rs_join_device(R: SetCollection, S: SetCollection, t: float,
-                      method: str = "lfvt", r_block: int | None = None,
+                      method: str = "popcount", r_block: int | None = None,
                       stats: dict | None = None, emit: str = "pairs",
                       pair_capacity: int | None = None,
                       double_buffer: bool | None = None,
@@ -161,16 +307,20 @@ def cf_rs_join_device(R: SetCollection, S: SetCollection, t: float,
                       plan=None, device=None) -> set:
     """Candidate-free device join. Returns {(r_id, s_id)}.
 
-    method: 'lfvt' — the live row-tiled walk (the CUDA kernel on a GPU,
-            its plain PyTorch version on the CPU) with walk_steps /
-            early_stops / live_tiles stats; 'lfvt_ref' — the whole-block
-            walk; 'auto' — the cost-model planner, which raises
-            ``NotPortedError`` when it picks a family the port does not
-            have yet. The default is 'lfvt' (the JAX driver's legacy
-            default, 'popcount', is not ported).
+    method: 'popcount' (the default, as in the JAX driver) — bitmap
+            AND-popcount over the dense block, gated by the tile skip
+            mask (kernel K3 on a GPU); 'onehot' — the membership product
+            over the same bitmaps (kernel K5); 'kernel_bitmap' /
+            'kernel_onehot' — with emit='pairs' the live-tile schedule
+            (kernels K2 / K4: skipped tiles cost nothing, per-tile counts
+            size the pair buffer), with emit='mask' K3 / K5; 'lfvt' — the
+            live row-tiled walk (kernel K1) with walk_steps / early_stops
+            / live_tiles stats; 'lfvt_ref' — the whole-block walk;
+            'auto' — the cost-model planner's pick. Every kernel runs on
+            a GPU; on the CPU its plain PyTorch version runs instead.
     emit:   'pairs' (default) — qualifying pairs are compacted on the
             device and only the packed array comes back; 'mask' — the
-            staged tile masks come back and are scanned on the host.
+            block masks come back and are scanned on the host.
     pair_capacity: optional initial pair-buffer capacity per R block for
             emit='pairs'; regrown on overflow.
     double_buffer: dispatch block k+1 before block k's count sync.
@@ -180,6 +330,28 @@ def cf_rs_join_device(R: SetCollection, S: SetCollection, t: float,
     ``fault_plan``/``checkpoint_dir`` (the resilience ladder) raise
     ``NotPortedError``. ``r_block`` and ``double_buffer`` default to
     ``global_config`` when None.
+    """
+    r_ids, s_ids = cf_rs_join_device_ids(
+        R, S, t, method=method, r_block=r_block, stats=stats, emit=emit,
+        pair_capacity=pair_capacity, double_buffer=double_buffer,
+        measure=measure, fault_plan=fault_plan,
+        checkpoint_dir=checkpoint_dir, plan=plan, device=device)
+    return set(zip(r_ids.tolist(), s_ids.tolist()))
+
+
+def cf_rs_join_device_ids(R: SetCollection, S: SetCollection, t: float,
+                          method: str = "popcount",
+                          r_block: int | None = None,
+                          stats: dict | None = None, emit: str = "pairs",
+                          pair_capacity: int | None = None,
+                          double_buffer: bool | None = None,
+                          measure: str = "jaccard",
+                          fault_plan=None,
+                          checkpoint_dir: str | None = None,
+                          plan=None, device=None):
+    """``cf_rs_join_device`` with the pairs as two int64 arrays ``(r_ids,
+    s_ids)``, one entry per pair in block order, and no Python set: for
+    callers that handle millions of pairs. Same arguments and stats.
     """
     device = resolve_device(device)
     if plan is None:
@@ -202,24 +374,29 @@ def cf_rs_join_device(R: SetCollection, S: SetCollection, t: float,
                          r_rep_cache_hits=0, plan=plan.to_dict(),
                          device=str(device))
             resilience_stats(stats)
-        return set()
-    if method not in PORTED_METHODS:
-        raise NotPortedError(
-            f"method {method!r} ({plan.decided} pick for "
-            f"method={plan.requested!r}) is not ported to PyTorch yet; the "
-            f"port runs {PORTED_METHODS}")
+        return np.empty(0, np.int64), np.empty(0, np.int64)
     from ..kernels import ops as kops  # deferred: kernels import this
 
-    Ss, flat, s_sizes = _s_device_rep(S, device, stats)
+    family = "lfvt" if method in ("lfvt", "lfvt_ref") else "bitmap"
+    universe = max(R.universe, S.universe)
+    W = max((universe + 31) // 32, 1)
+    Ss, s_rep, s_sz, s_sizes = _s_device_rep(S, family, W, device, stats)
     r_sizes_all = R.sizes()
     # int32 exactness guard for the device predicate (DESIGN.md §8)
     measures.get_measure(measure).validate(
         t, max(int(r_sizes_all.max(initial=0)), int(s_sizes.max(initial=0))))
     lo_all, hi_all = window_bounds(r_sizes_all, s_sizes, t, measure)
-    universe = max(R.universe, S.universe)
-    W = max((universe + 31) // 32, 1)
 
-    pairs: set = set()
+    kernel_pairs = (emit == "pairs" and method in (
+        "kernel_bitmap", "kernel_onehot", "lfvt", "lfvt_ref"))
+    # the dense path's speculative per-block compaction capacity: fixed
+    # (never carried between blocks) so the byte accounting stays
+    # deterministic
+    spec_cap = round_capacity(pair_capacity) if pair_capacity else (
+        global_config.pair_cap_grain)
+
+    r_out: list = []
+    s_out: list = []
     m = len(R)
     acc = {"out_sparse": 0, "out_dense": 0, "n_pairs": 0, "live": 0,
            "total_tiles": 0, "regrows": 0, "r_rep_hits": 0,
@@ -236,48 +413,78 @@ def cf_rs_join_device(R: SetCollection, S: SetCollection, t: float,
     def dispatch(start: int, stop: int) -> dict:
         """Launch all of one R block's device work; no host syncs."""
         sl = slice(start, stop)
-        r_rep, hit = _r_block_rep(R, device, start, stop)
+        r_rep, hit = _r_block_rep(R, family, W, device, start, stop)
         acc["r_rep_hits"] += hit
         acc["out_dense"] += (stop - start) * len(Ss)
+        blk: dict = {"start": start, "mb": stop - start}
         if method == "lfvt":
             # live row-tiled walk; host np row metadata so the dispatch
             # plans tiles without syncing device arrays
-            pending = kops.lfvt_walk_join_pairs_dispatch(
-                flat, r_rep, r_sizes_all[sl], lo_all[sl], hi_all[sl], t,
+            blk["pending"] = kops.lfvt_walk_join_pairs_dispatch(
+                s_rep, r_rep, r_sizes_all[sl], lo_all[sl], hi_all[sl], t,
                 measure=measure, row_tile=plan.row_tile)
-        else:  # lfvt_ref: whole-block walk as one live tile
-            pending = kops.lfvt_join_pairs_dispatch(
-                flat, r_rep, r_sizes_all[sl], lo_all[sl], hi_all[sl], t,
+        elif method == "lfvt_ref":  # whole-block walk as one live tile
+            blk["pending"] = kops.lfvt_join_pairs_dispatch(
+                s_rep, r_rep, r_sizes_all[sl], lo_all[sl], hi_all[sl], t,
                 measure=measure)
-        return {"start": start, "mb": stop - start, "pending": pending}
+        elif kernel_pairs:
+            # live-tile schedule + in-kernel counts; count sync deferred
+            live = (kops.bitmap_join_pairs_dispatch
+                    if method == "kernel_bitmap"
+                    else kops.onehot_join_pairs_dispatch)
+            blk["pending"] = live(r_rep, r_sizes_all[sl], s_rep, s_sz,
+                                  lo_all[sl], hi_all[sl], t, measure=measure)
+        else:
+            dense = (kops.bitmap_join
+                     if method in ("popcount", "kernel_bitmap")
+                     else kops.onehot_join)
+            mask = dense(r_rep, r_sizes_all[sl], s_rep, s_sz, lo_all[sl],
+                         hi_all[sl], t, measure=measure)
+            blk["mask"] = mask
+            if emit == "pairs":
+                # speculative on-device compaction at the fixed capacity;
+                # the exact count rides along and syncs only at finalize
+                blk["total"] = _mask_total(mask)
+                blk["packed"] = _compact_mask(mask, size=spec_cap)
+        return blk
 
     def finalize(blk: dict) -> None:
         """Sync one block's counts, compact (regrowing if needed) and fold
-        its pairs into the result set."""
+        its pairs into the result."""
         start = blk["start"]
         fault_point("compact")
-        kstats: dict = {}
-        if emit == "pairs":
-            pp, n_pairs = kops.join_pairs_finalize(
-                blk["pending"], capacity=pair_capacity, stats=kstats)
-            local = pp[:n_pairs].cpu().numpy() if n_pairs else (
-                np.zeros((0, 2), np.int64))
-            acc["out_sparse"] += 8 * n_pairs + 4 + kstats.get(
-                "counts_bytes", 0)
-            acc["regrows"] += kstats.get("regrows", 0)
+        if "pending" in blk:
+            kstats: dict = {}
+            if emit == "pairs":
+                pp, n_pairs = kops.join_pairs_finalize(
+                    blk["pending"], capacity=pair_capacity, stats=kstats)
+                local = pp[:n_pairs].cpu().numpy()
+                acc["out_sparse"] += 8 * n_pairs + 4 + kstats.get(
+                    "counts_bytes", 0)
+                acc["regrows"] += kstats.get("regrows", 0)
+            else:
+                mask_np = kops.join_mask_finalize(blk["pending"], blk["mb"],
+                                                  len(Ss), kstats)
+            fold_kernel_stats(kstats)
+        elif emit == "pairs":
+            n_pairs = int(blk["total"])  # the only host sync per block
+            cap = spec_cap
+            if cap < n_pairs:  # overflow: regrow exactly once (count known)
+                fault_point("regrow")
+                cap = round_capacity(n_pairs)
+                blk["packed"] = _compact_mask(blk["mask"], size=cap)
+                acc["regrows"] += 1
+            local = blk["packed"][:n_pairs].cpu().numpy()
+            acc["out_sparse"] += 8 * n_pairs + 4
         else:
-            mask_np = kops.join_mask_finalize(blk["pending"], blk["mb"],
-                                              len(Ss), kstats)
+            mask_np = blk["mask"].cpu().numpy()
+        if emit == "mask":
             acc["out_sparse"] += mask_np.size
-            rr, ss = np.nonzero(mask_np)
-            local = np.stack([rr, ss], axis=1) if len(rr) else (
-                np.zeros((0, 2), np.int64))
+            local = np.argwhere(mask_np)
             n_pairs = len(local)
-        fold_kernel_stats(kstats)
         if len(local):
-            rid = R.ids[start + local[:, 0]]
-            sid = Ss.ids[local[:, 1]]
-            pairs.update(zip(map(int, rid), map(int, sid)))
+            r_out.append(R.ids[start + local[:, 0]].astype(np.int64))
+            s_out.append(Ss.ids[local[:, 1]].astype(np.int64))
         acc["n_pairs"] += n_pairs
 
     in_flight: dict | None = None
@@ -306,16 +513,20 @@ def cf_rs_join_device(R: SetCollection, S: SetCollection, t: float,
         stats["double_buffered"] = double_buffer
         stats["regrows"] = acc["regrows"]
         stats["r_rep_cache_hits"] = acc["r_rep_hits"]
-        stats["live_tiles"] = acc["live"]
-        stats["total_tiles"] = acc["total_tiles"]
+        if kernel_pairs or family == "lfvt":
+            stats["live_tiles"] = acc["live"]
+            stats["total_tiles"] = acc["total_tiles"]
         if method == "lfvt":
             stats["walk_steps"] = acc["walk_steps"]
             stats["early_stops"] = acc["early_stops"]
             stats["walk_vmem_tile_bytes"] = acc["walk_vmem"]
-        # the §9 memory axis: what the flat S rep holds on the device vs
-        # what the bitmap sheet would have cost at this universe
-        stats["s_flat_bytes"] = flat.nbytes()
-        stats["s_flat_seq_bytes"] = int(flat.seq_row.nbytes)
-        stats["s_bitmap_bytes_equiv"] = len(Ss) * W * 4
+        if family == "lfvt":
+            # the §9 memory axis: what the flat S rep holds on the device
+            # vs what the bitmap sheet would have cost at this universe
+            stats["s_flat_bytes"] = s_rep.nbytes()
+            stats["s_flat_seq_bytes"] = int(s_rep.seq_row.nbytes)
+            stats["s_bitmap_bytes_equiv"] = len(Ss) * W * 4
         resilience_stats(stats)
-    return pairs
+    if not r_out:
+        return np.empty(0, np.int64), np.empty(0, np.int64)
+    return np.concatenate(r_out), np.concatenate(s_out)

@@ -21,7 +21,7 @@ import time
 from pathlib import Path
 
 __all__ = ["KernelBuildError", "KERNEL_SOURCES", "BUILD_DIR", "NVCC_FLAGS",
-           "build", "load"]
+           "build", "load", "check_operand", "check_launch"]
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 #: root of the checkout (src/repro_torch/kernels/_build.py -> parents[3])
@@ -29,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 #: every kernel library of the port, by name (csrc/<name>.cu)
-KERNEL_SOURCES = ("lfvt_walk",)
+KERNEL_SOURCES = ("lfvt_walk", "bitmap_join", "onehot_join")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -54,11 +54,13 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where ``name``'s library lives: keyed by a digest of the source
-    text and the compiler flags."""
+    text, the shared headers (``csrc/*.cuh``) and the compiler flags."""
     src = CSRC / f"{name}.cu"
     if not src.exists():
         raise KernelBuildError(f"no kernel source {src}")
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -109,3 +111,25 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LOADED[name] = lib
     return lib
+
+
+def check_operand(who: str, name: str, x, shape, device, dtype) -> None:
+    """Raise ``ValueError`` unless ``x`` lies on ``device`` with ``dtype``,
+    ``shape`` and a contiguous layout: what every kernel's C entry point
+    assumes of its pointers."""
+    if x.device != device:
+        raise ValueError(f"{who}: {name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        want = str(dtype).removeprefix("torch.")
+        raise ValueError(f"{who}: {name} must be {want}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{who}: {name} has shape {tuple(x.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{who}: {name} is not contiguous")
+
+
+def check_launch(who: str, err: int) -> None:
+    """Raise unless a C entry point's ``cudaGetLastError()`` was 0."""
+    if err != 0:
+        raise RuntimeError(f"{who}: CUDA launch failed with error {err}")

@@ -40,34 +40,16 @@
 // data). Making it fast (column-split shared-memory count tiles,
 // balancing long lanes across warps) is later work.
 //
-// Integer algebra. The predicate is the reference's exact int32 algebra
-// (src/repro/core/measures.py::device_qualify): p/q is the rational of
-// the threshold, the cosine division form uses C `/` on non-negative
-// operands (= floor division), and f > 0 is required. Measure.validate
-// bounds every intermediate below 2^31 before any launch.
+// Integer algebra. The predicate is `qualify` of qualify.cuh, shared by
+// every kernel of the port: the reference's exact int32 algebra.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "qualify.cuh"
 
 namespace {
 
 constexpr int kThreads = 512;
-
-enum Measure { kJaccard = 0, kCosine = 1, kDice = 2, kOverlap = 3 };
-
-__device__ __forceinline__ bool qualify(int f, int r, int s, int measure,
-                                        int p, int q) {
-  if (f <= 0) return false;
-  switch (measure) {
-    case kJaccard:
-      return f * (p + q) >= p * (r + s);
-    case kCosine:
-      return f * f >= (p * p * (r * s) + (q * q - 1)) / (q * q);
-    case kDice:
-      return f * (2 * q) >= p * (r + s);
-    default:
-      return f * q >= p * min(r, s);
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 lfvt_walk_kernel(const int* __restrict__ ti,

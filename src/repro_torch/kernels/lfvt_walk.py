@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..core import measures
+from . import _build
 
 __all__ = ["TileShapeError",
            "plan_row_tiles", "entry_state", "walk_vmem_tile_bytes",
@@ -183,7 +184,6 @@ def lfvt_walk_live_tiled_ref(ti, lane_pos, lane_rem, nxt2d, seq2d, ssz2d,
 def _launcher():
     """The kernel's C entry point, built from ``csrc/lfvt_walk.cu`` at
     first use (``kernels/_build.py``)."""
-    from . import _build
     fn = _build.load("lfvt_walk").lfvt_walk_live_tiled_launch
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     # ti, L, lane_pos, lane_rem, Lr, nxt, seq, ssz, NP, rsz, lo, hi, tm,
@@ -192,20 +192,6 @@ def _launcher():
                     ptr, i32, i32, i32, i32, i32] + [ptr] * 6)
     fn.restype = i32
     return fn
-
-
-def _check_operand(name: str, x: torch.Tensor, shape, device) -> None:
-    if x.device != device:
-        raise ValueError(f"lfvt_walk_live_tiled: {name} is on {x.device}, "
-                         f"expected {device}")
-    if x.dtype != torch.int32:
-        raise ValueError(f"lfvt_walk_live_tiled: {name} must be int32, "
-                         f"got {x.dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"lfvt_walk_live_tiled: {name} has shape "
-                         f"{tuple(x.shape)}, expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"lfvt_walk_live_tiled: {name} is not contiguous")
 
 
 def lfvt_walk_live_tiled(ti, lane_pos, lane_rem, nxt2d, seq2d, ssz2d, rsz,
@@ -238,7 +224,8 @@ def lfvt_walk_live_tiled(ti, lane_pos, lane_rem, nxt2d, seq2d, ssz2d, rsz,
                            ("nxt2d", nxt2d, (1, Tp)), ("seq2d", seq2d, (1, Tp)),
                            ("ssz2d", ssz2d, (1, NP)), ("rsz", rsz, (Mp, 1)),
                            ("lo", lo, (Mp, 1)), ("hi", hi, (Mp, 1))):
-        _check_operand(name, x, shape, device)
+        _build.check_operand("lfvt_walk_live_tiled", name, x, shape,
+                             device, torch.int32)
     p, q = measures.threshold_fraction(t)
     code = measures.MEASURE_CODES[measures.get_measure(measure).name]
     masks = torch.empty((L, tm, NP), dtype=torch.bool, device=device)
@@ -255,9 +242,7 @@ def lfvt_walk_live_tiled(ti, lane_pos, lane_rem, nxt2d, seq2d, ssz2d, rsz,
              int(max_steps), code, p, q, scratch.data_ptr(),
              masks.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
              outs[2].data_ptr(), torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"lfvt_walk_live_tiled: CUDA launch failed with "
-                           f"error {err}")
+    _build.check_launch("lfvt_walk_live_tiled", err)
     lfvt_walk_live_tiled.launches += 1
     return masks, outs[0], outs[1], outs[2]
 

@@ -1,13 +1,22 @@
-"""Dispatch, pair emission and mask emission around the walk kernel.
+"""Padding, tile schedules, dispatch and pair emission around the kernels.
 
-The port of the LFVT half of the JAX package's ``kernels/ops.py``. A
-join block is dispatched (``*_dispatch``: the host plans the live row
-tiles, the device runs the walk; nothing is synchronised) and later
-finalized (``join_pairs_finalize``: one device-to-host copy of the
-per-tile counts and walk counters, then an on-device compaction of the
-qualifying pairs into a power-of-two capacity buffer whose rows past the
-true count are (-1, -1)). The ``PendingPairs`` handle between the two
-halves lets a driver launch block k+1 before it waits for block k.
+The port of the JAX package's ``kernels/ops.py``. A join block is
+dispatched (``*_dispatch``: the host plans the live tiles, the device
+runs the kernel; nothing is synchronised) and later finalized
+(``join_pairs_finalize``: one device-to-host copy of the per-tile counts
+and counters, then an on-device compaction of the qualifying pairs into a
+power-of-two capacity buffer whose rows past the true count are
+(-1, -1)). The ``PendingPairs`` handle between the two halves lets a
+driver launch block k+1 before it waits for block k.
+
+``bitmap_join`` / ``onehot_join`` take unpadded operands (the layout the
+driver stages), pad them to tile multiples, derive the tile-level skip
+mask from the per-row windows (Theorem 3.3 at tile granularity), run the
+dense kernel (K3 / K5) and slice the (m, n) bool mask back.
+``bitmap_join_pairs`` / ``onehot_join_pairs`` are the sparse path: the
+host compacts the skip criterion into live (i, j) tiles, the live-tile
+kernel (K2 / K4) computes per-tile masks and exact counts, and only the
+packed pairs come back. The LFVT walk (K1) rides the same protocol.
 """
 from __future__ import annotations
 
@@ -20,11 +29,26 @@ from ..core.config import global_config
 from ..core.resilience import fault_point
 from ..core.tile_join import round_capacity
 from ..errors import NotPortedError
+from . import bitmap_join as _bj
 from . import lfvt_walk as _lw
+from . import onehot_join as _oj
 
-__all__ = ["PendingPairs", "lfvt_join_pairs_dispatch",
-           "lfvt_walk_join_pairs_dispatch", "join_pairs_finalize",
-           "join_mask_finalize", "walk_operands"]
+__all__ = ["PendingPairs", "pick_tiles", "bitmap_join", "onehot_join",
+           "bitmap_join_pairs", "onehot_join_pairs",
+           "bitmap_join_pairs_dispatch", "onehot_join_pairs_dispatch",
+           "lfvt_join_pairs_dispatch", "lfvt_walk_join_pairs_dispatch",
+           "join_pairs_finalize", "join_mask_finalize", "walk_operands"]
+
+
+def pick_tiles(m: int, n: int, w: int, defaults) -> tuple[int, int, int]:
+    """Shrink default tiles for small problems (pads at most 2x)."""
+    TM, TN, TW = defaults
+
+    def shrink(size, tile, floor):
+        while tile > floor and tile // 2 >= size:
+            tile //= 2
+        return tile
+    return shrink(m, TM, 8), shrink(n, TN, 128), shrink(w, TW, 1)
 
 
 def _pad_to(x: torch.Tensor, axis: int, mult: int, value=0) -> torch.Tensor:
@@ -37,6 +61,159 @@ def _pad_to(x: torch.Tensor, axis: int, mult: int, value=0) -> torch.Tensor:
                                     device=x.device)], dim=axis)
 
 
+def _tile_skip_mask(lo, hi, m_tiles, n_tiles, tm, tn) -> torch.Tensor:
+    """(m_tiles, n_tiles) int32: 1 if the tile is fully outside all windows.
+
+    Tile (i, j) covers columns [j*tn, (j+1)*tn). It can be skipped iff for
+    every row in the tile, the window [lo, hi) misses that column range —
+    conservatively: min(lo) >= tile_end or max(hi) <= tile_start.
+    """
+    tile_lo = lo.reshape(m_tiles, tm).amin(dim=1)
+    tile_hi = hi.reshape(m_tiles, tm).amax(dim=1)
+    starts = torch.arange(n_tiles, dtype=torch.int32, device=lo.device) * tn
+    ends = starts + tn
+    skip = ((tile_lo[:, None] >= ends[None, :])
+            | (tile_hi[:, None] <= starts[None, :]))
+    return skip.to(torch.int32)
+
+
+def _live_tiles(lo_p, hi_p, m_tiles, n_tiles, tm, tn):
+    """Host-side skip-mask compaction -> live (i, j) tile coordinate lists.
+
+    Same conservative criterion as ``_tile_skip_mask``, evaluated in numpy
+    so the live list exists before kernel launch (it sizes the grid).
+    Returns two (L,) int32 arrays, row-major tile order. Raises
+    ``lfvt_walk.TileShapeError`` when the padded row count does not fill
+    ``m_tiles`` tiles (a ragged tail would silently mis-plan).
+    """
+    if _lw._check_tile_rows(np.shape(lo_p)[0], tm, "_live_tiles") != m_tiles:
+        raise _lw.TileShapeError(
+            f"_live_tiles: {np.shape(lo_p)[0]} window rows do not fill "
+            f"{m_tiles} row tiles of {tm}")
+    tile_lo = np.asarray(lo_p).reshape(m_tiles, tm).min(axis=1)
+    tile_hi = np.asarray(hi_p).reshape(m_tiles, tm).max(axis=1)
+    starts = np.arange(n_tiles, dtype=np.int64) * tn
+    live = (tile_lo[:, None] < starts[None, :] + tn) & (
+        tile_hi[:, None] > starts[None, :])
+    ti, tj = np.nonzero(live)
+    return ti.astype(np.int32), tj.astype(np.int32)
+
+
+def _rows(x, device) -> torch.Tensor:
+    """A 1-D host array or tensor of row values -> int32 tensor on
+    ``device``."""
+    if torch.is_tensor(x):
+        return x.to(device=device, dtype=torch.int32)
+    return torch.tensor(np.asarray(x), dtype=torch.int32, device=device)
+
+
+def _host_rows(x, mult: int) -> np.ndarray:
+    """Row values on the host (a device tensor is copied back), padded with
+    zeros to a multiple of ``mult``: the empty ``[0, 0)`` window."""
+    x = x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+    return np.concatenate([x.reshape(-1).astype(np.int64),
+                           np.zeros((-len(x)) % mult, np.int64)])
+
+
+def _pad_operands(r_bitmaps, r_sizes, s_bitmaps, s_sizes, lo, hi, tiles,
+                  defaults):
+    """Pad the operands of a tiled kernel to tile multiples (zero words,
+    zero sizes, and the empty window [0, 0) for padded rows, which can
+    never qualify) -> (rb, r_sz (M, 1), sb, s_sz (1, N), lo (M, 1),
+    hi (M, 1), tiles, m, n), all int32 on the bitmaps' device."""
+    m, w = r_bitmaps.shape
+    n = s_bitmaps.shape[0]
+    device = r_bitmaps.device
+    TM, TN, TW = tiles if tiles is not None else pick_tiles(m, n, w, defaults)
+    rb = _pad_to(_pad_to(r_bitmaps, 0, TM), 1, TW).contiguous()
+    sb = _pad_to(_pad_to(s_bitmaps, 0, TN), 1, TW).contiguous()
+    r_sz = _pad_to(_rows(r_sizes, device), 0, TM).reshape(-1, 1)
+    s_sz = _pad_to(_rows(s_sizes, device), 0, TN).reshape(1, -1)
+    lo_p = _pad_to(_rows(lo, device), 0, TM).reshape(-1, 1)
+    hi_p = _pad_to(_rows(hi, device), 0, TM).reshape(-1, 1)
+    return rb, r_sz, sb, s_sz, lo_p, hi_p, (TM, TN, TW), m, n
+
+
+def _prepare(r_bitmaps, r_sizes, s_bitmaps, s_sizes, lo, hi, tiles, defaults):
+    rb, r_sz, sb, s_sz, lo_p, hi_p, tls, m, n = _pad_operands(
+        r_bitmaps, r_sizes, s_bitmaps, s_sizes, lo, hi, tiles, defaults)
+    TM, TN, _ = tls
+    m_tiles, n_tiles = rb.shape[0] // TM, sb.shape[0] // TN
+    skip = _tile_skip_mask(lo_p[:, 0], hi_p[:, 0], m_tiles, n_tiles, TM, TN)
+    return rb, r_sz, sb, s_sz, lo_p, hi_p, skip, tls, m, n
+
+
+def _pack_bitmaps(padded: torch.Tensor, universe: int) -> torch.Tensor:
+    """(rows, L) int32 element lists (-1 pad) -> (rows, W) bitmaps as int32
+    tensors holding the uint32 bits.
+
+    Elements within a set are unique, so each (word, bit) target is hit at
+    most once and a scatter-add of single-bit values equals a scatter-or.
+    """
+    W = max((universe + 31) // 32, 1)
+    padded = padded.long()
+    valid = padded >= 0
+    word = torch.where(valid, padded // 32, 0)
+    bit = torch.where(valid, torch.ones_like(padded) << (padded % 32), 0)
+    out = torch.zeros((padded.shape[0], W), dtype=torch.int64,
+                      device=padded.device)
+    out.scatter_add_(1, word, bit)
+    return torch.where(out >= 2 ** 31, out - 2 ** 32, out).to(torch.int32)
+
+
+def _coerce_bitmaps(r_in, s_in, universe):
+    """Both operands as bitmaps of one word width.
+
+    The reference tells element lists from bitmaps by dtype (int32 against
+    uint32); the port holds bitmap words in int32 tensors, so the caller
+    says which: with ``universe`` given, the operands are -1-padded
+    element lists over [0, universe) and are packed first.
+    """
+    if universe is not None:
+        r_in = _pack_bitmaps(r_in, universe)
+        s_in = _pack_bitmaps(s_in, universe)
+    W = max(r_in.shape[1], s_in.shape[1])
+    return _pad_to(r_in, 1, W), _pad_to(s_in, 1, W)
+
+
+# ---------------------------------------------------------------------- #
+# dense-mask path
+# ---------------------------------------------------------------------- #
+def bitmap_join(r_bitmaps, r_sizes, s_bitmaps, s_sizes, lo, hi, t: float,
+                tiles=None, measure: str = "jaccard") -> torch.Tensor:
+    """(m, n) bool qualifying-pair matrix via the popcount kernel (K3).
+
+    ``r_bitmaps`` (m, W) and ``s_bitmaps`` (n, W) are int32 tensors with
+    the uint32 bits on one device; sizes and windows are host arrays or
+    tensors. The result lies on the bitmaps' device.
+    """
+    rb, r_sz, sb, s_sz, lo_p, hi_p, skip, tls, m, n = _prepare(
+        r_bitmaps, r_sizes, s_bitmaps, s_sizes, lo, hi, tiles,
+        _bj.DEFAULT_TILES)
+    out = _bj.bitmap_join_tiled(rb, r_sz, sb, s_sz, lo_p, hi_p, skip, t=t,
+                                measure=measure, tiles=tls)
+    return out[:m, :n]
+
+
+def onehot_join(r_bitmaps_or_padded, r_sizes, s_bitmaps, s_sizes, lo, hi,
+                t: float, universe: int | None = None, tiles=None,
+                measure: str = "jaccard") -> torch.Tensor:
+    """(m, n) bool qualifying-pair matrix via the one-hot kernel (K5).
+
+    Takes bitmaps as ``bitmap_join`` does, or -1-padded element lists
+    when ``universe`` is given (see ``_coerce_bitmaps``).
+    """
+    r_in, s_in = _coerce_bitmaps(r_bitmaps_or_padded, s_bitmaps, universe)
+    rb, r_sz, sb, s_sz, lo_p, hi_p, skip, tls, m, n = _prepare(
+        r_in, r_sizes, s_in, s_sizes, lo, hi, tiles, _oj.DEFAULT_TILES)
+    out = _oj.onehot_join_tiled(rb, r_sz, sb, s_sz, lo_p, hi_p, skip, t=t,
+                                measure=measure, tiles=tls)
+    return out[:m, :n]
+
+
+# ---------------------------------------------------------------------- #
+# sparse pair emission (live-tile schedule + on-device compaction)
+# ---------------------------------------------------------------------- #
 def _compact_live(mask_tiles: torch.Tensor, tile_i: torch.Tensor,
                   tile_j: torch.Tensor, *, tm: int, tn: int,
                   size: int) -> torch.Tensor:
@@ -177,6 +354,86 @@ def join_mask_finalize(pending: PendingPairs, m: int, n: int,
     valid = rm >= 0
     out[rm[valid]] = full[valid][:, :n]
     return out
+
+
+def _join_pairs_dispatch(live_fn, defaults, r_bitmaps, r_sizes, s_bitmaps,
+                         s_sizes, lo, hi, t, tiles,
+                         measure="jaccard") -> PendingPairs:
+    """Launch the live-tile kernel ``live_fn``; return the device handles
+    without syncing. The live tiles are planned from host copies of the
+    windows (the driver passes host arrays, so nothing syncs)."""
+    fault_point("walk_dispatch")
+    rb, r_sz, sb, s_sz, lo_p, hi_p, tls, m, n = _pad_operands(
+        r_bitmaps, r_sizes, s_bitmaps, s_sizes, lo, hi, tiles, defaults)
+    TM, TN, _ = tls
+    m_tiles, n_tiles = rb.shape[0] // TM, sb.shape[0] // TN
+    ti, tj = _live_tiles(_host_rows(lo, TM), _host_rows(hi, TM), m_tiles,
+                         n_tiles, TM, TN)
+    L = len(ti)
+    if L == 0:
+        return PendingPairs(None, None, None, None, TM, TN, 0,
+                            m_tiles * n_tiles, m * n)
+    ti_d = torch.as_tensor(ti, device=rb.device)
+    tj_d = torch.as_tensor(tj, device=rb.device)
+    masks, counts = live_fn(ti_d, tj_d, rb, r_sz, sb, s_sz, lo_p, hi_p, t=t,
+                            measure=measure, tiles=tls)
+    return PendingPairs(masks, counts, ti_d, tj_d, TM, TN, L,
+                        m_tiles * n_tiles, m * n)
+
+
+def _join_pairs(live_fn, defaults, r_bitmaps, r_sizes, s_bitmaps, s_sizes,
+                lo, hi, t, tiles, capacity, stats, measure="jaccard"):
+    pending = _join_pairs_dispatch(live_fn, defaults, r_bitmaps, r_sizes,
+                                   s_bitmaps, s_sizes, lo, hi, t, tiles,
+                                   measure)
+    return join_pairs_finalize(pending, capacity, stats)
+
+
+def bitmap_join_pairs(r_bitmaps, r_sizes, s_bitmaps, s_sizes, lo, hi,
+                      t: float, tiles=None, capacity: int | None = None,
+                      stats: dict | None = None, measure: str = "jaccard"):
+    """Sparse popcount join (K2) -> (pairs (P, 2) int32 device tensor,
+    n_pairs).
+
+    ``pairs[:n_pairs]`` are the qualifying (row, col) indices into the
+    unpadded operands; later rows are (-1, -1) capacity padding. P is
+    ``capacity`` rounded up (regrown on overflow — the per-tile counts
+    make the retry exact, never a second kernel pass).
+    """
+    return _join_pairs(_bj.bitmap_join_live_tiled, _bj.DEFAULT_TILES,
+                       r_bitmaps, r_sizes, s_bitmaps, s_sizes, lo, hi, t,
+                       tiles, capacity, stats, measure)
+
+
+def onehot_join_pairs(r_bitmaps_or_padded, r_sizes, s_bitmaps, s_sizes, lo,
+                      hi, t: float, universe: int | None = None, tiles=None,
+                      capacity: int | None = None, stats: dict | None = None,
+                      measure: str = "jaccard"):
+    """Sparse one-hot join (K4); the contract of ``bitmap_join_pairs``."""
+    r_in, s_in = _coerce_bitmaps(r_bitmaps_or_padded, s_bitmaps, universe)
+    return _join_pairs(_oj.onehot_join_live_tiled, _oj.DEFAULT_TILES, r_in,
+                       r_sizes, s_in, s_sizes, lo, hi, t, tiles, capacity,
+                       stats, measure)
+
+
+def bitmap_join_pairs_dispatch(r_bitmaps, r_sizes, s_bitmaps, s_sizes, lo,
+                               hi, t: float, tiles=None,
+                               measure: str = "jaccard") -> PendingPairs:
+    """Async half of ``bitmap_join_pairs``: launch, don't sync."""
+    return _join_pairs_dispatch(_bj.bitmap_join_live_tiled, _bj.DEFAULT_TILES,
+                                r_bitmaps, r_sizes, s_bitmaps, s_sizes, lo,
+                                hi, t, tiles, measure)
+
+
+def onehot_join_pairs_dispatch(r_bitmaps_or_padded, r_sizes, s_bitmaps,
+                               s_sizes, lo, hi, t: float,
+                               universe: int | None = None, tiles=None,
+                               measure: str = "jaccard") -> PendingPairs:
+    """Async half of ``onehot_join_pairs``: launch, don't sync."""
+    r_in, s_in = _coerce_bitmaps(r_bitmaps_or_padded, s_bitmaps, universe)
+    return _join_pairs_dispatch(_oj.onehot_join_live_tiled, _oj.DEFAULT_TILES,
+                                r_in, r_sizes, s_in, s_sizes, lo, hi, t,
+                                tiles, measure)
 
 
 def lfvt_join_pairs_dispatch(flat, r_padded: torch.Tensor, r_sizes, lo, hi,

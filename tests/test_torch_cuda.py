@@ -1,4 +1,4 @@
-"""The port's CUDA kernel K1 against its plain PyTorch version, on a GPU.
+"""The port's CUDA kernels K1-K5 against their plain PyTorch versions.
 
 Marked ``cuda``: every test skips (with a reason) where torch sees no
 CUDA device. The file imports neither jax nor the JAX package, so it runs
@@ -7,7 +7,8 @@ on a machine that has only the port's dependencies::
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Inputs are made from a seed with numpy; masks, counts, walk_steps and
-early_stops must be bit-equal (integers and booleans, tolerance 0).
+early_stops must be bit-equal (integers and booleans, tolerance 0), and
+so must every method's join on the card and on the CPU.
 """
 import numpy as np
 import pytest
@@ -16,7 +17,7 @@ import torch
 import repro_torch
 from repro_torch.core.sets import SetCollection
 from repro_torch.core.tile_join import window_bounds
-from repro_torch.kernels import lfvt_walk, ops
+from repro_torch.kernels import bitmap_join, lfvt_walk, onehot_join, ops
 
 pytestmark = pytest.mark.cuda
 
@@ -97,3 +98,104 @@ def test_join_on_cuda_matches_cpu(cuda, emit):
         for key in ("pair_count", "walk_steps", "early_stops", "live_tiles",
                     "regrows"):
             assert st_g[key] == st_c[key], (measure, key)
+
+
+def tiled_inputs(device, seed, m, n, universe, defaults, tiles=None):
+    """Padded bitmap operands of an (m, n) block over a size-sorted S with
+    its Lemma-3.1 windows at t = 0.5, plus the live tiles."""
+    R = skewed(seed, m, universe, 64)
+    Ss = skewed(seed + 1, n, universe, 64).sort_by_size()
+    W = max((universe + 31) // 32, 1)
+    lo, hi = window_bounds(R.sizes(), Ss.sizes(), 0.5)
+    rb, r_sz, sb, s_sz, lo_p, hi_p, skip, tls, _, _ = ops._prepare(
+        torch.tensor(R.bitmaps(W).view(np.int32), device=device), R.sizes(),
+        torch.tensor(Ss.bitmaps(W).view(np.int32), device=device),
+        Ss.sizes(), lo, hi, tiles, defaults)
+    TM, TN, _ = tls
+    ti, tj = ops._live_tiles(ops._host_rows(lo, TM), ops._host_rows(hi, TM),
+                             rb.shape[0] // TM, sb.shape[0] // TN, TM, TN)
+    live = (torch.tensor(ti, device=device), torch.tensor(tj, device=device))
+    return (rb, r_sz, sb, s_sz, lo_p, hi_p), skip, live, tls
+
+
+FAMILIES = {
+    "bitmap": (bitmap_join.DEFAULT_TILES, bitmap_join.bitmap_join_tiled,
+               bitmap_join.bitmap_join_tiled_ref,
+               bitmap_join.bitmap_join_live_tiled,
+               bitmap_join.bitmap_join_live_tiled_ref),
+    "onehot": (onehot_join.DEFAULT_TILES, onehot_join.onehot_join_tiled,
+               onehot_join.onehot_join_tiled_ref,
+               onehot_join.onehot_join_live_tiled,
+               onehot_join.onehot_join_live_tiled_ref),
+}
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+@pytest.mark.parametrize("m,n,universe,tiles,measure,t", [
+    (20, 300, 90, None, "jaccard", 0.5),          # (32, 256, 4)
+    (20, 300, 90, (32, 128, 2), "cosine", 0.5),
+    (37, 300, 200, (8, 128, 1), "dice", 0.7),
+    (300, 600, 3000, None, "jaccard", 0.5),       # the default tiles
+    (300, 600, 3000, None, "overlap", 0.9),
+    (300, 600, 3000, None, "jaccard", 2 / 3),
+])
+def test_tiled_kernels_match_plain(cuda, family, m, n, universe, tiles,
+                                   measure, t):
+    defaults, dense, dense_ref, live, live_ref = FAMILIES[family]
+    ops_, skip, (ti, tj), tls = tiled_inputs(cuda, m + n, m, n, universe,
+                                             defaults, tiles)
+    kw = dict(t=t, measure=measure, tiles=tls)
+    before = (dense.launches, live.launches)
+    got = dense(*ops_, skip, **kw)
+    got_m, got_c = live(ti, tj, *ops_, **kw)
+    torch.cuda.synchronize()
+    assert (dense.launches, live.launches) == (before[0] + 1,
+                                               before[1] + (len(ti) > 0))
+    assert torch.equal(got.cpu(), dense_ref(*ops_, skip, **kw).cpu())
+    want_m, want_c = live_ref(ti, tj, *ops_, **kw)
+    assert torch.equal(got_m.cpu(), want_m.cpu())
+    assert torch.equal(got_c.cpu(), want_c.cpu())
+    assert int(got_c.sum()) == int(got.sum())
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_tiled_kernels_check_operands(cuda, family):
+    defaults, dense, _, live, _ = FAMILIES[family]
+    ops_, skip, (ti, tj), tls = tiled_inputs(cuda, 3, 40, 300, 300, defaults)
+    kw = dict(t=0.5, measure="jaccard", tiles=tls)
+    bad = list(ops_)
+    bad[0] = bad[0].long()
+    with pytest.raises(ValueError, match="r_bitmaps must be int32"):
+        dense(*bad, skip, **kw)
+    bad = list(ops_)
+    bad[4] = bad[4][:-1]
+    with pytest.raises(ValueError, match="lo has shape"):
+        live(ti, tj, *bad, **kw)
+    with pytest.raises(ValueError, match="skip has shape"):
+        dense(*ops_, skip[:, :1], **kw)
+    with pytest.raises(ValueError, match="tile_j is on cpu"):
+        live(ti, tj.cpu(), *ops_, **kw)
+    with pytest.raises(ValueError, match="not padded"):
+        dense(*ops_, skip, t=0.5, measure="jaccard",
+              tiles=(tls[0], tls[1], 3))
+
+
+@pytest.mark.parametrize("method", ["popcount", "onehot", "kernel_bitmap",
+                                    "kernel_onehot"])
+@pytest.mark.parametrize("emit", ["pairs", "mask"])
+def test_bitmap_methods_on_cuda_match_cpu(cuda, method, emit):
+    R, S = skewed(9, 700, 300, 40), skewed(10, 600, 300, 40)
+    for measure in ("jaccard", "cosine", "dice", "overlap"):
+        st_g: dict = {}
+        st_c: dict = {}
+        got = repro_torch.join(R, S, 0.6, method=method, measure=measure,
+                               emit=emit, stats=st_g, r_block=256)
+        want = repro_torch.join(R, S, 0.6, method=method, measure=measure,
+                                emit=emit, stats=st_c, r_block=256,
+                                device="cpu")
+        assert st_g["device"].startswith("cuda")
+        assert got.pairs == want.pairs and got.pairs, measure
+        for key in ("pair_count", "live_tiles", "total_tiles", "regrows",
+                    "output_bytes"):
+            assert st_g.get(key) == st_c.get(key), (measure, key)
+

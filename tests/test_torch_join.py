@@ -6,9 +6,13 @@ and so must the counters the algorithm defines (pair_count, live_tiles,
 total_tiles, walk_steps, early_stops, regrows, r_blocks, output_bytes,
 s_flat_bytes), for both LFVT methods x 4 measures x 4 thresholds x both
 emit modes, at an ``r_block``/``row_tile`` small enough that several
-blocks and tiles occur. Also: the regrow protocol, empty inputs, the
-planner's ``JoinPlan``, the port's import hygiene, and every error the
-port raises for what it does not run yet.
+blocks and tiles occur; and for the popcount and one-hot families
+(``popcount``, ``onehot``, ``kernel_bitmap``, ``kernel_onehot``) x 4
+measures x 2 thresholds x both emits, where the whole stats mapping and
+the plan must be equal. Also: the regrow protocol, empty inputs, the
+planner's ``JoinPlan`` and ``method="auto"``, the driver's default
+method, the port's import hygiene, and every error the port raises for
+what it does not run yet.
 """
 import os
 import pathlib
@@ -37,6 +41,9 @@ COUNTERS = ("pair_count", "live_tiles", "total_tiles", "walk_steps",
             "early_stops", "regrows", "r_blocks", "output_bytes",
             "s_flat_bytes")
 TUNING = dict(r_block=24, row_tile=8)
+BITMAP_METHODS = ("popcount", "onehot", "kernel_bitmap", "kernel_onehot")
+# stats that say what a cache held before the call, not what the join did
+CACHE_STATS = ("device", "s_rep_cache_hit", "r_rep_cache_hits")
 
 
 def sample_sets(seed=5, n_r=60, n_s=44, universe=90):
@@ -88,6 +95,30 @@ def test_join_matches_reference(collections, method, measure, t, emit):
         assert b.stats.raw["total_tiles"] > b.stats.raw["r_blocks"]
 
 
+@pytest.mark.parametrize("emit", ["pairs", "mask"])
+@pytest.mark.parametrize("t", [0.5, 2 / 3])
+@pytest.mark.parametrize("measure", MEASURES)
+@pytest.mark.parametrize("method", BITMAP_METHODS)
+def test_bitmap_methods_match_reference(collections, method, measure, t,
+                                        emit):
+    R, S, Rt, St = collections
+    a = repro.join(R, S, t, method=method, measure=measure, emit=emit,
+                   r_block=TUNING["r_block"])
+    b = repro_torch.join(Rt, St, t, method=method, measure=measure,
+                         emit=emit, device="cpu", r_block=TUNING["r_block"])
+    assert b.pairs == a.pairs and b.pairs
+    assert b.plan.to_dict() == a.plan.to_dict()
+    want = {k: v for k, v in a.stats.raw.items() if k not in CACHE_STATS}
+    got = {k: v for k, v in b.stats.raw.items() if k not in CACHE_STATS}
+    assert got == want
+    assert b.stats.raw["r_blocks"] > 1
+    # live_tiles/total_tiles only on the kernels' live-tile pair path
+    assert ("live_tiles" in got) == (method.startswith("kernel_")
+                                     and emit == "pairs")
+    if emit == "mask":
+        np.testing.assert_array_equal(b.mask, a.mask)
+
+
 def test_join_has_pairs_at_every_measure(collections):
     R, S, Rt, St = collections
     for measure in MEASURES:
@@ -95,7 +126,7 @@ def test_join_has_pairs_at_every_measure(collections):
                                 device="cpu").pairs, measure
 
 
-@pytest.mark.parametrize("method", ["lfvt", "lfvt_ref"])
+@pytest.mark.parametrize("method", ["lfvt", "lfvt_ref", *BITMAP_METHODS])
 def test_tiny_pair_capacity_regrows(collections, monkeypatch, method):
     R, S, Rt, St = collections
     for cfg in (ref_config, port_config):  # capacity 1, not one grain
@@ -112,7 +143,7 @@ def test_empty_inputs(side):
     r, s = sample_sets(n_r=10, n_s=9)
     r = [] if side in ("R", "both") else r
     s = [] if side in ("S", "both") else s
-    for method in ("lfvt", "lfvt_ref"):
+    for method in ("lfvt", "lfvt_ref", *BITMAP_METHODS):
         a = repro.join(repro.as_collection(r), repro.as_collection(s), 0.5,
                        method=method)
         b = repro_torch.join(repro_torch.as_collection(r),
@@ -154,26 +185,61 @@ def test_auto_plan_matches_reference(monkeypatch, universe):
     b = port_build_plan(repro_torch.as_collection(r),
                         repro_torch.as_collection(s), *args, method="auto")
     assert a.to_dict() == b.to_dict()
-    if universe == 2 ** 21:
-        # the lfvt pick runs end to end and equals the reference
-        assert b.method == "lfvt"
-        ra = repro.join(r, s, 0.5)
-        rb = repro_torch.join(r, s, 0.5, device="cpu")
-        assert rb.plan.to_dict() == ra.plan.to_dict()
-        assert rb.pairs == ra.pairs
-    else:
-        assert b.method == "popcount"
-        with pytest.raises(NotPortedError, match="'popcount'"):
-            repro_torch.join(r, s, 0.5, device="cpu")
+    # the pick (lfvt on the large universe, popcount on the small one)
+    # runs end to end and equals the reference
+    assert b.method == ("lfvt" if universe == 2 ** 21 else "popcount")
+    ra = repro.join(r, s, 0.5)
+    rb = repro_torch.join(r, s, 0.5, device="cpu")
+    assert rb.plan.to_dict() == ra.plan.to_dict()
+    assert rb.plan.method == b.method and rb.plan.decided == "cost_model"
+    assert rb.pairs == ra.pairs and rb.pairs
+
+
+def test_driver_default_method_is_popcount(collections):
+    """``cf_rs_join_device`` with no method runs popcount, as the
+    reference's driver does, and says the pick was forced."""
+    R, S, Rt, St = collections
+    st: dict = {}
+    want: dict = {}
+    got = repro_torch.cf_rs_join_device(Rt, St, 0.5, device="cpu", stats=st)
+    assert st["method"] == "popcount"
+    assert st["plan"]["decided"] == "forced"
+    from repro.core.tile_join import cf_rs_join_device as ref_driver
+    assert got == ref_driver(R, S, 0.5, stats=want)
+    assert st["plan"] == want["plan"]
+
+
+@pytest.mark.parametrize("method", ["popcount", "kernel_onehot", "lfvt"])
+@pytest.mark.parametrize("emit", ["pairs", "mask"])
+def test_driver_ids_are_the_pair_set(collections, method, emit):
+    """``cf_rs_join_device_ids`` gives the driver's pairs as two int64
+    arrays, one entry per pair, with the same stats."""
+    from repro_torch.core.tile_join import cf_rs_join_device_ids
+    _, _, Rt, St = collections
+    st_set: dict = {}
+    st_ids: dict = {}
+    want = repro_torch.cf_rs_join_device(Rt, St, 0.5, method=method,
+                                         emit=emit, device="cpu",
+                                         stats=st_set)
+    r_ids, s_ids = cf_rs_join_device_ids(Rt, St, 0.5, method=method,
+                                         emit=emit, device="cpu",
+                                         stats=st_ids)
+    assert r_ids.dtype == s_ids.dtype == np.int64
+    assert len(r_ids) == len(s_ids) == len(want) > 0
+    assert set(zip(r_ids.tolist(), s_ids.tolist())) == want
+    assert ({k: v for k, v in st_ids.items() if k not in CACHE_STATS}
+            == {k: v for k, v in st_set.items() if k not in CACHE_STATS})
 
 
 def test_port_never_loads_jax_or_repro():
     """A port join in a fresh interpreter leaves jax and repro unloaded,
     and no source line of the port imports either."""
     code = ("import sys; import numpy as np; import repro_torch\n"
-            "r = repro_torch.join([np.arange(5), np.arange(3)], "
-            "[np.arange(4)], 0.5, method='lfvt', device='cpu')\n"
-            "assert r.pairs == {(0, 0), (1, 0)}, r.pairs\n"
+            "for m in ('lfvt', 'popcount', 'onehot', 'kernel_bitmap', "
+            "'kernel_onehot'):\n"
+            "    r = repro_torch.join([np.arange(5), np.arange(3)], "
+            "[np.arange(4)], 0.5, method=m, device='cpu')\n"
+            "    assert r.pairs == {(0, 0), (1, 0)}, (m, r.pairs)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"
@@ -206,8 +272,6 @@ def test_default_device_without_gpu_raises(monkeypatch):
     (dict(fault_plan=""), "fault_plan"),
     (dict(fault_plan="compact:transient"), "fault_plan"),
     (dict(checkpoint_dir="ckpt"), "checkpoint_dir"),
-    (dict(method="popcount"), "'popcount'"),
-    (dict(method="kernel_onehot"), "'kernel_onehot'"),
 ])
 def test_not_ported_paths_raise(kwargs, match):
     r, s = sample_sets(n_r=8, n_s=6)
