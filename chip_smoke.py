@@ -35,7 +35,25 @@ through these phases, in order; any failure raises and exits non-zero:
      (K5). Every launch count is set to 0 just before each of these runs
      and read just after; each run must launch its kernel and give the
      lfvt join's pairs;
-  5. kernel phase: the 1024-row R block, as the driver cuts it, that
+  5. serve phase: ``repro_torch.DedupServeEngine`` on the card, with the
+     livej S side (100 000 sets) as its corpus, at t = 0.8. Stream A:
+     4 096 requests (half exact copies of corpus sets, half livej R
+     sets) in 256-request batches, once with ``schedule="device"`` (K6,
+     which must launch once per batch) and once with ``"host"`` (K1);
+     both must give the same results, equal to the per-request pairs of
+     ``repro_torch.join(R_req, corpus, 0.8, method="lfvt")``; then a warm
+     pass under ``torch.profiler``. Stream B: A's first 256 requests at
+     the default micro-batch (16). Stream C: 1 024 requests, a quarter of
+     them repeats, with ``admit="survivors"`` under both schedules
+     (identical results, duplicates caught within and across batches),
+     then ``compact()``, after which a 256-row probe must give the same
+     pairs as on the grown corpus. Then K6 on a partial batch of A's last
+     200 requests (its padding tiles dead) and on a copy with every other
+     tile's windows emptied: bit-equal to its plain version and to K1 on
+     the live tiles, zeros elsewhere, its plan and launch run under
+     ``torch.cuda.set_sync_debug_mode("error")``, timed beside K1 and its
+     bound. Wall time, requests/s and p50/p99 latency for each stream;
+  6. kernel phase: the 1024-row R block, as the driver cuts it, that
      holds the most paired rows of the join, against the full S, at
      t = 0.8 and t = 0.5: K1 (size-sorted and tile-padded as its dispatch
      makes it) and K2-K5 (tile-padded as theirs do) must be bit-equal to
@@ -44,7 +62,7 @@ through these phases, in order; any failure raises and exits non-zero:
      K2-K5; all are timed with CUDA events at t = 0.8, beside their bound
      and, for K4/K5, one bf16 ``torch.matmul`` of the block's unpacked
      membership matrices;
-  6. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+  7. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Exits 2 without a result when torch sees no CUDA device.
 """
@@ -91,6 +109,12 @@ MEASURE_SETS = (("dblp", ("lfvt",)), ("kosarak", BITMAP_METHODS))
 # ~4x the one-hot product on the CPU), so that none is left to run alone
 CPU_ORDER = ("popcount", "kernel_bitmap", "lfvt", "kernel_onehot", "onehot")
 FRONT_DOOR_T = 0.9         # the measures phase's front-door calls
+# the serve phase, on the livej S side as the corpus, at t = MAIN_T
+SERVE_REQUESTS = 4096      # stream A: half corpus copies, half R sets
+SERVE_BATCH = 256          # streams A and C: requests per micro-batch
+SERVE_DEFAULT_REQUESTS = 256   # stream B, at the default micro-batch
+ADMIT_REQUESTS = 1024      # stream C: a quarter repeats, admit survivors
+PARTIAL_REQUESTS = 200     # K6's check: a partial batch (56 padding rows)
 CSRC = "src/repro_torch/kernels/csrc"
 # id -> (module, wrapper, plain version, source, TPU kernel it replaces)
 KERNELS = {
@@ -106,13 +130,15 @@ KERNELS = {
            "src/repro/kernels/onehot_join.py:145"),
     "K5": ("onehot_join", "onehot_join_tiled", "onehot_join_tiled_ref",
            f"{CSRC}/onehot_join.cu", "src/repro/kernels/onehot_join.py:87"),
+    "K6": ("lfvt_walk", "lfvt_walk_planned", "lfvt_walk_planned_ref",
+           f"{CSRC}/lfvt_walk.cu", "src/repro/kernels/lfvt_walk.py:510"),
 }
 # the main-path run of each kernel: the method whose full-size join it
-# carries (K3 runs under the front door's default call)
+# carries (K3 runs under the front door's default call), or the served
+# stream (K6: stream A under schedule="device")
 MAIN_RUN = {"K1": "lfvt", "K2": "kernel_bitmap", "K3": "auto",
-            "K4": "kernel_onehot", "K5": "onehot"}
+            "K4": "kernel_onehot", "K5": "onehot", "K6": "serve_device"}
 NOT_PORTED = [
-    ("K6", "lfvt_walk_planned", "src/repro/kernels/lfvt_walk.py:510"),
     ("K7", "flash_attention_bhld",
      "src/repro/kernels/flash_attention.py:82"),
 ]
@@ -375,17 +401,18 @@ def kernel_check(Ss, flat, R, block, t, dev):
             ev[0].elapsed_time(ev[1]))
 
 
-def k1_bound(operands, got, lanes):
-    """(bound ms, bound_by, bytes, operations) of one K1 call: every input
-    read once and every output written once at the HBM rate, against the
-    integer work these inputs need at the int32 rate (per lane step a
-    window compare and a step count, per in-window step one count add,
-    per in-window mask cell ~4 ops of the predicate)."""
-    moved = (sum(x.numel() * x.element_size() for x in operands)
+def walk_bound(inputs, got, live_ti, lo, hi, lanes):
+    """(bound ms, bound_by, bytes, operations) of one walk call (K1 or
+    K6): every input read once and every output written once at the HBM
+    rate, against the integer work these inputs need on the live tiles
+    ``live_ti`` at the int32 rate (per lane step a window compare and a
+    step count, per in-window step one count add, per in-window mask
+    cell ~4 ops of the predicate)."""
+    moved = (sum(x.numel() * x.element_size() for x in inputs)
              + sum(x.numel() * x.element_size() for x in got))
-    lo, hi = operands[7].long(), operands[8].long()
+    lo, hi = lo.long(), hi.long()
     tm = got[0].shape[1]
-    live_rows = (operands[0].long()[:, None] * tm
+    live_rows = (live_ti.long()[:, None] * tm
                  + torch.arange(tm, device=lo.device)).reshape(-1)
     cells = int((hi[live_rows] - lo[live_rows]).clamp(min=0).sum())
     lane_steps, win_steps = int(lanes[:, 0].sum()), int(lanes[:, 1].sum())
@@ -518,6 +545,364 @@ def small_tile_case(dev):
     if min(found.values()) <= 0:
         raise AssertionError(f"the small-tile case found no pair: {found}")
     return found
+
+
+def serve_streams(R, S):
+    """Stream A (half exact copies of corpus sets, half livej R sets, in
+    a random order) and stream C (A's first three quarters of
+    ``ADMIT_REQUESTS`` plus a quarter repeats of earlier requests, each
+    inserted at a random later place), from seeds 0 and 1."""
+    rng = np.random.default_rng(0)
+    half = SERVE_REQUESTS // 2
+    reqs = ([S.sets[i] for i in rng.choice(len(S), half, replace=False)]
+            + [R.sets[i] for i in rng.choice(len(R), half, replace=False)])
+    reqs = [reqs[i] for i in rng.permutation(len(reqs))]
+    rng = np.random.default_rng(1)
+    admit = list(reqs[:ADMIT_REQUESTS * 3 // 4])
+    for _ in range(ADMIT_REQUESTS // 4):
+        src = int(rng.integers(0, len(admit)))
+        admit.insert(int(rng.integers(src + 1, len(admit) + 1)), admit[src])
+    return reqs, admit
+
+
+def result_key(r):
+    """Every field of a DedupResult but its latency."""
+    return (r.rid, r.is_dup, r.matches, r.admitted, r.corpus_id,
+            sorted(r.stats.items()))
+
+
+def serve_stream(corpus, reqs, *, schedule, micro_batch=None,
+                 admit="none"):
+    """Serve ``reqs`` through a new ``DedupServeEngine`` on the card ->
+    (engine, results, launches, wall s, construction s, seconds spent
+    in admission appends)."""
+    import repro_torch
+    t0 = time.perf_counter()
+    eng = repro_torch.DedupServeEngine(corpus, threshold=MAIN_T, admit=admit,
+                                       micro_batch=micro_batch,
+                                       schedule=schedule)
+    build_s = time.perf_counter() - t0
+    appends = []
+    append = eng.encoder.append
+
+    def timed_append(sets):
+        t1 = time.perf_counter()
+        out = append(sets)
+        appends.append(time.perf_counter() - t1)
+        return out
+
+    eng.encoder.append = timed_append
+
+    def run():
+        for r in reqs:
+            eng.submit(r)
+        return eng.drain()
+
+    t0 = time.perf_counter()
+    res, launches = counted(run)
+    return (eng, res, launches, time.perf_counter() - t0, build_s,
+            sum(appends))
+
+
+def latency_line(res, wall):
+    lat = np.asarray([r.latency_s for r in res])
+    p50, p99 = np.percentile(lat, [50, 99])
+    return (f"wall_s={wall:.3f} requests_per_s={len(res) / wall:.1f} "
+            f"p50_latency_s={p50:.4f} p99_latency_s={p99:.4f}")
+
+
+def pad_sets(sets, rows=None):
+    """Requests padded as the engine pads a micro-batch: a (rows, lane)
+    -1-padded int32 block, lane a power-of-two multiple of the lane
+    grain -> (block, sizes)."""
+    from repro_torch import global_config
+    rows = rows or len(sets)
+    lane = global_config.serve_lane_grain
+    while lane < max(len(a) for a in sets):
+        lane <<= 1
+    r_pad = np.full((rows, lane), -1, np.int32)
+    sizes = np.zeros(rows, np.int64)
+    for i, a in enumerate(sets):
+        r_pad[i, :len(a)] = a
+        sizes[i] = len(a)
+    return r_pad, sizes
+
+
+def walk_block(enc, sets, dev, rows=None):
+    """The walk's device-schedule operands for ``sets`` padded into one
+    micro-batch of ``rows`` rows as the engine pads it -> (ti_sorted,
+    n_live, operands, row_map, static arguments)."""
+    from repro_torch import global_config
+    from repro_torch.core.device import upload
+    from repro_torch.kernels import ops
+    r_pad, sizes = pad_sets(sets, rows)
+    lo, hi = enc.window_bounds(sizes, MAIN_T)
+    tm = global_config.row_tile
+    (ti_sorted, n_live), operands, row_map = ops.walk_operands(
+        enc.flat, upload(r_pad, dev), sizes, lo, hi, tm, schedule="device")
+    kw = dict(t=MAIN_T, measure="jaccard",
+              max_steps=int(enc.flat.max_seq_len), tm=tm)
+    return ti_sorted, n_live, list(operands), row_map, kw
+
+
+def k6_check(label, ti_sorted, n_live, operands, kw, plain=True):
+    """K6 against K1 on the live tiles, zeros elsewhere, and (``plain``)
+    against its plain version -> (K6's outputs, max_abs_err, plain ms or
+    None, live tiles)."""
+    from repro_torch.kernels import lfvt_walk
+    got = lfvt_walk.lfvt_walk_planned(ti_sorted, n_live, *operands, **kw)
+    torch.cuda.synchronize()
+    err, plain_ms = 0, None
+    if plain:
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        want = lfvt_walk.lfvt_walk_planned_ref(ti_sorted, n_live, *operands,
+                                               **kw)
+        ev[1].record()
+        torch.cuda.synchronize()
+        plain_ms = ev[0].elapsed_time(ev[1])
+        for name, g, w in zip(("masks", "counts", "walk_steps",
+                               "early_stops"), got, want):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                raise AssertionError(f"K6 {name} ({label}): {g.shape}/"
+                                     f"{g.dtype} vs plain {w.shape}/{w.dtype}")
+            err = max(err, int((g.long() - w.long()).abs().max()))
+        if err:
+            raise AssertionError(f"K6 disagrees with its plain version "
+                                 f"({label}): max_abs_err={err}")
+    nl = int(n_live)
+    live = ti_sorted[:nl].contiguous()
+    k1 = lfvt_walk.lfvt_walk_live_tiled(live, *operands, **kw)
+    dead = ti_sorted[nl:].long()
+    for name, g, w in zip(("masks", "counts", "walk_steps", "early_stops"),
+                          got, k1):
+        if not torch.equal(g[live.long()], w) or g[dead].any():
+            raise AssertionError(f"K6 {name} ({label}) is not K1's on the "
+                                 "live tiles and zero on the dead ones")
+    return got, err, plain_ms, live
+
+
+def serve_phase(R, Ss, runs, dev):
+    """The dedup service on the card -> K6's kernels-line entry."""
+    import repro_torch
+    from repro_torch.core.device import upload
+    from repro_torch.core.sets import SetCollection
+    from repro_torch.kernels import lfvt_walk, ops
+    reqs, admit_reqs = serve_streams(R, Ss)
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- stream A: admit="none", both schedules ---------------------- #
+    streams = {}
+    for schedule in ("device", "host"):
+        eng, res, runs[f"serve_{schedule}"], wall, build_s, _ = serve_stream(
+            Ss, reqs, schedule=schedule, micro_batch=SERVE_BATCH)
+        streams[schedule] = (eng, res)
+        st = eng.stats
+        log(f"[serve A] schedule={schedule} requests={len(reqs)} "
+            f"micro_batch={SERVE_BATCH} batches={st['batches']} "
+            f"{latency_line(res, wall)} engine_build_s={build_s:.3f} "
+            f"dups={st['dups']} pair_count={st['pair_count']} "
+            f"live_tiles={st['live_tiles']} walk_steps={st['walk_steps']} "
+            f"early_stops={st['early_stops']} "
+            f"launches={runs[f'serve_{schedule}']}")
+    eng_a, res_a = streams["device"]
+    if ([result_key(r) for r in res_a]
+            != [result_key(r) for r in streams["host"][1]]):
+        raise AssertionError("stream A: schedule='device' and 'host' gave "
+                             "different results")
+    n_batches = -(-len(reqs) // SERVE_BATCH)
+    if (runs["serve_device"]["K6"] != n_batches
+            or runs["serve_device"]["K1"]):
+        raise AssertionError(f"stream A under schedule='device' launched "
+                             f"{runs['serve_device']}, not K6 once per "
+                             f"batch ({n_batches})")
+    if runs["serve_host"]["K6"] or runs["serve_host"]["K1"] <= 0:
+        raise AssertionError("stream A under schedule='host' did not run "
+                             f"K1 alone: {runs['serve_host']}")
+    Rq = SetCollection.from_ragged(reqs, universe=Ss.universe)
+    t0 = time.perf_counter()
+    joined = repro_torch.join(Rq, Ss, MAIN_T, method="lfvt")
+    join_s = time.perf_counter() - t0
+    want = [[] for _ in reqs]
+    for r, s in joined.pairs:
+        want[r].append(s)
+    bad = [i for i, r in enumerate(res_a)
+           if r.matches != tuple(sorted(want[i]))]
+    if bad:
+        raise AssertionError(f"stream A: {len(bad)} requests differ from "
+                             f"repro_torch.join's pairs, first {bad[:5]}")
+    log(f"[serve A] device == host == repro_torch.join(R_req, corpus, "
+        f"{MAIN_T}, method='lfvt') for all {len(reqs)} requests: "
+        f"pairs={len(joined.pairs)} join_wall_s={join_s:.3f} "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    # a warm second pass on the same engine, under the profiler
+    for r in reqs:
+        eng_a.submit(r)
+    log_profile("warm stream A (schedule='device')", device_profile(
+        eng_a.drain, ("lfvt_walk_planned_kernel",)), "K6")
+
+    # ---- stream B: the defaults a user who sets nothing gets ------- #
+    eng_b, res_b, launches_b, wall_b, _, _ = serve_stream(
+        Ss, reqs[:SERVE_DEFAULT_REQUESTS], schedule="device")
+    if ([(r.is_dup, r.matches) for r in res_b]
+            != [(r.is_dup, r.matches) for r in res_a[:len(res_b)]]):
+        raise AssertionError("stream B differs from stream A's requests")
+    log(f"[serve B] schedule=device requests={len(res_b)} micro_batch="
+        f"{eng_b.micro_batch} (default) batches={eng_b.stats['batches']} "
+        f"{latency_line(res_b, wall_b)} launches={launches_b}")
+
+    # ---- stream C: admit="survivors", both schedules --------------- #
+    streams = {}
+    for schedule in ("device", "host"):
+        eng, res, launches, wall, build_s, append_s = serve_stream(
+            Ss, admit_reqs, schedule=schedule, micro_batch=SERVE_BATCH,
+            admit="survivors")
+        streams[schedule] = (eng, res)
+        st, es = eng.stats, eng.encoder.stats
+        log(f"[serve C] schedule={schedule} requests={len(admit_reqs)} "
+            f"{latency_line(res, wall)} admission_append_s={append_s:.3f} "
+            f"dups={st['dups']} admitted={st['admitted']} "
+            f"intra_batch_dups={st['intra_batch_dups']} corpus_rows="
+            f"{eng.corpus_rows} append_work={eng.encoder.append_work} "
+            f"merged_chains={es['merged_chains']} prepend_fast_path="
+            f"{es['prepend_fast_path']} regrows={es['regrows']} "
+            f"seq_slots={eng.encoder.t_live} launches={launches}")
+    eng_c, res_c = streams["device"]
+    if ([result_key(r) for r in res_c]
+            != [result_key(r) for r in streams["host"][1]]):
+        raise AssertionError("stream C: schedule='device' and 'host' gave "
+                             "different results")
+    batch_of = {r.corpus_id: r.rid // SERVE_BATCH for r in res_c
+                if r.admitted}
+    cross = sum(any(batch_of.get(m, len(res_c)) < r.rid // SERVE_BATCH
+                    for m in r.matches) for r in res_c)
+    if eng_c.stats["intra_batch_dups"] <= 0 or cross <= 0:
+        raise AssertionError(f"stream C: intra-batch dups "
+                             f"{eng_c.stats['intra_batch_dups']}, cross-batch "
+                             f"dups {cross}; both must occur")
+    enc = eng_c.encoder
+    probe = admit_reqs[:SERVE_BATCH]
+
+    def probe_pairs():
+        r_pad, r_sz = pad_sets(probe)
+        lo, hi = enc.window_bounds(r_sz, MAIN_T)
+        pending = ops.lfvt_walk_join_pairs_dispatch(
+            enc.flat, upload(r_pad, dev), r_sz, lo, hi, MAIN_T,
+            schedule="device")
+        pairs, n = ops.join_pairs_finalize(pending)
+        return {(int(r), int(enc.flat.s_ids[c]))
+                for r, c in pairs[:n].cpu().numpy()}
+
+    before = probe_pairs()
+    t0 = time.perf_counter()
+    enc.compact()
+    compact_s = time.perf_counter() - t0
+    after = probe_pairs()
+    if before != after or not before:
+        raise AssertionError(f"stream C: the probe's {len(before)} pairs on "
+                             f"the grown view are not its {len(after)} on "
+                             "the compacted one")
+    log(f"[serve C] device == host; cross_batch_dups={cross}; compact_s="
+        f"{compact_s:.3f} corpus_rows={enc.n_live}; a {len(probe)}-row "
+        f"probe gives the same {len(before)} pairs on the grown and the "
+        "compacted corpus")
+
+    # ---- K6 against its plain version and K1 ------------------------ #
+    part = reqs[-PARTIAL_REQUESTS:]
+    ti_s, nl, operands, row_map, kw = walk_block(eng_a.encoder, part, dev,
+                                                 SERVE_BATCH)
+    m_tiles = ti_s.shape[0]
+    if not 0 < int(nl) < m_tiles:
+        raise AssertionError(f"the partial batch has {int(nl)} live of "
+                             f"{m_tiles} tiles; its padding should be dead")
+    got, err, plain_ms, live = k6_check("partial batch", ti_s, nl, operands,
+                                        kw)
+    # the whole device-schedule dispatch, as the engine makes it for this
+    # batch (the corpus is on the card already), never waits for the card
+    r_pad, r_sz = pad_sets(part, SERVE_BATCH)
+    lo, hi = eng_a.encoder.window_bounds(r_sz, MAIN_T)
+    eng_a.encoder.flat.to_device(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = ops.lfvt_walk_join_pairs_dispatch(
+            eng_a.encoder.flat, upload(r_pad, dev), r_sz, lo, hi, MAIN_T,
+            schedule="device")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if ops.join_pairs_finalize(pending)[1] != int(got[1].sum()):
+        raise AssertionError("the dispatch under sync debug mode gave "
+                             "another pair count than K6 on its operands")
+    crafted = list(operands)
+    hi_c = crafted[7].clone()
+    for k in range(0, m_tiles, 2):  # tile 0 dies: not the identity
+        hi_c[k * kw["tm"]:(k + 1) * kw["tm"]] = crafted[6][
+            k * kw["tm"]:(k + 1) * kw["tm"]]
+    crafted[7] = hi_c
+    ti_c, nl_c = lfvt_walk.plan_row_tiles_device(crafted[6], hi_c, kw["tm"])
+    if torch.equal(ti_c.cpu(), torch.arange(m_tiles, dtype=torch.int32)):
+        raise AssertionError("the crafted plan is the identity")
+    # a non-identity plan: K6 against K1 on the live tiles is enough here
+    k6_check("crafted", ti_c, nl_c, crafted, kw, plain=False)
+    ms = cuda_ms(lambda: lfvt_walk.lfvt_walk_planned(ti_s, nl, *operands,
+                                                     **kw), 3)
+    k1_ms = cuda_ms(lambda: lfvt_walk.lfvt_walk_live_tiled(live, *operands,
+                                                           **kw), 3)
+    # the CTA's threads take lanes row-major, so with Lr a power of two
+    # every row's longest lane (column 0) falls to the same two threads;
+    # the same operands with 8 parked lanes appended (identical outputs)
+    # show what that mapping costs
+    wide = list(operands)
+    for k in (0, 1):
+        wide[k] = torch.nn.functional.pad(operands[k], (0, 8))
+    got_w = lfvt_walk.lfvt_walk_planned(ti_s, nl, *wide, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(got, got_w)):
+        raise AssertionError("K6 with 8 parked lanes appended differs")
+    wide_ms = cuda_ms(lambda: lfvt_walk.lfvt_walk_planned(ti_s, nl, *wide,
+                                                          **kw), 3)
+    order = row_map.cpu().numpy()
+    rows_sets = part + [np.zeros(0, np.int32)] * (SERVE_BATCH - len(part))
+    lanes = lane_counts(Ss, rows_sets, order[order >= 0],
+                        operands[6][:, 0].cpu().numpy(),
+                        operands[7][:, 0].cpu().numpy(), live.cpu().numpy(),
+                        kw["tm"])
+    live_l = live.long()
+    if not (np.array_equal(lanes[:, 2], got[2][live_l, 0].cpu().numpy())
+            and np.array_equal(lanes[:, 3],
+                               got[3][live_l, 0].cpu().numpy())):
+        raise AssertionError("K6 walk_steps/early_stops disagree with the "
+                             "numpy lane count")
+    bound_ms, bound_by, moved, ops_n = walk_bound(
+        [ti_s, nl, *operands], got, live, operands[6], operands[7], lanes)
+    log(f"[kernel K6] partial batch of A: requests={len(part)} rows="
+        f"{SERVE_BATCH} live_tiles={int(nl)}/{m_tiles} Lr="
+        f"{operands[0].shape[1]} NP={operands[4].shape[1]} pairs="
+        f"{int(got[1].sum())} walk_steps={int(got[2].sum())} K6 vs plain "
+        f"and vs K1 bit-equal; crafted copy live_tiles={int(nl_c)}/{m_tiles}"
+        f" bit-equal to K1 there; lfvt_walk_join_pairs_dispatch("
+        f"schedule='device') ran under set_sync_debug_mode('error'); "
+        f"ms={ms:.4f} k1_ms={k1_ms:.4f} ms_lanes_plus8={wide_ms:.4f} "
+        f"plain_ms={plain_ms:.1f} "
+        f"bound_ms={bound_ms:.6f} bound_by={bound_by} bytes={moved} "
+        f"int32_ops={ops_n} k6_over_bound={ms / bound_ms:.1f}")
+    full = walk_block(eng_a.encoder, reqs[:SERVE_BATCH], dev)
+    f_live = full[0][:int(full[1])].contiguous()
+    f_ms = cuda_ms(lambda: lfvt_walk.lfvt_walk_planned(
+        full[0], full[1], *full[2], **full[4]), 3)
+    f_k1 = cuda_ms(lambda: lfvt_walk.lfvt_walk_live_tiled(
+        f_live, *full[2], **full[4]), 3)
+    log(f"[kernel K6] full batch 0 of A: live_tiles={int(full[1])}/"
+        f"{full[0].shape[0]} ms={f_ms:.4f} k1_ms={f_k1:.4f}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                library_note="no single PyTorch call computes the walk "
+                             "with its counters",
+                check="bit-equal to its plain version and to K1 on the "
+                      "live tiles, zeros elsewhere, on stream A's last "
+                      "requests as a partial batch; bit-equal to K1 and "
+                      "zeros on a copy with every other tile's windows "
+                      "emptied")
 
 
 def measures_configs():
@@ -727,11 +1112,16 @@ def main() -> int:
         ("bitmap_join_kernel<false>", "bitmap_join_kernelILb0E")), "K3")
     for method in ("kernel_bitmap", "kernel_onehot", "onehot"):
         front_door(method, method=method)
+
+    # ---- phase 5: the dedup service on the livej corpus -------------- #
+    t0 = time.perf_counter()
+    k6 = serve_phase(R, Ss, runs, dev)
+    log(f"[serve] phase_s={time.perf_counter() - t0:.3f}")
     for kid, label in MAIN_RUN.items():
         if runs[label][kid] <= 0:
-            raise AssertionError(f"the {label} join never launched {kid}")
+            raise AssertionError(f"the {label} run never launched {kid}")
 
-    # ---- phase 5: kernels against their plain versions -------------- #
+    # ---- phase 6: kernels against their plain versions -------------- #
     # the driver's block (rows cut in input order) with the most rows
     # that the join paired, so the main threshold's mask is not empty
     block = int(np.bincount(paired // BLOCK_ROWS).argmax()
@@ -740,7 +1130,8 @@ def main() -> int:
               for t in (MAIN_T, WIDE_T)}
     got, operands, lanes, _, ms, plain_ms = checks[MAIN_T]
     err = max(c[3] for c in checks.values())
-    bound_ms, bound_by, moved, ops_n = k1_bound(operands, got, lanes)
+    bound_ms, bound_by, moved, ops_n = walk_bound(
+        operands, got, operands[0], operands[7], operands[8], lanes)
     lane_steps, win_steps = int(lanes[:, 0].sum()), int(lanes[:, 1].sum())
     # the walk's dependent-gather traffic (8 B of seq_row/seq_next per
     # lane step, a 4 B count update per in-window step): what K1 moves
@@ -766,7 +1157,7 @@ def main() -> int:
         library_note="no single PyTorch call computes the walk with "
                      "its counters",
         check=f"bit-equal to its plain version on the card at "
-              f"t={MAIN_T} and t={WIDE_T}")}
+              f"t={MAIN_T} and t={WIDE_T}"), "K6": k6}
 
     rows_blk = slice(block * BLOCK_ROWS, (block + 1) * BLOCK_ROWS)
     W = max((max(R.universe, Ss.universe) + 31) // 32, 1)

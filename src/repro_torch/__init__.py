@@ -6,6 +6,9 @@ The public surface mirrors the JAX package's front door::
     result = repro_torch.join(R, S, 0.8)   # on the GPU, method="auto"
     result.pairs, result.stats, result.plan
 
+    engine = repro_torch.DedupServeEngine(corpus, threshold=0.8)
+    rid = engine.submit([3, 17, 4096])   # then engine.drain() / step()
+
 The port imports torch and numpy, never jax, and nothing of ``repro``.
 Everything re-exported here resolves lazily (PEP 562), so ``import
 repro_torch`` stays cheap until a symbol is touched.
@@ -26,6 +29,10 @@ _EXPORTS = {
     "SetCollection": "repro_torch.core.sets",
     "cf_rs_join_device": "repro_torch.core.tile_join",
     "global_config": "repro_torch.core.config",
+    "DedupServeEngine": "repro_torch.serve.dedup",
+    "DedupResult": "repro_torch.serve.dedup",
+    "IncrementalLFVT": "repro_torch.core.lfvt_flat",
+    "DedupPipeline": "repro_torch.data.pipeline",
     "NotPortedError": "repro_torch.errors",
     "DeviceUnavailableError": "repro_torch.errors",
 }

@@ -48,6 +48,12 @@ class GlobalConfig:
         # (REPRO_FAULT); not ported, so a non-empty value raises
         self.fault = ""
 
+        ########## dedup serving (serve/dedup.py) ##########
+        # requests per padded walk micro-batch of the dedup serve engine
+        self.serve_micro_batch = 16
+        # pow-2 grain of the padded request lane width (Lr)
+        self.serve_lane_grain = 8
+
         ########## cost-model planner (core/planner.py) ##########
         # Zipf head-mass probe: fraction of distinct elements counted as
         # the "head" (top-k by S-side frequency)

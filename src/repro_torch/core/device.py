@@ -1,11 +1,12 @@
-"""Device resolution for the port's entry points."""
+"""Device resolution for the port's entry points, and host uploads."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..errors import DeviceUnavailableError
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "upload"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -22,3 +23,13 @@ def resolve_device(device=None) -> torch.device:
         raise ValueError(f"unsupported device {str(dev)!r}; use 'cuda' or "
                          "'cpu'")
     return dev
+
+
+def upload(x: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor on ``device``. To a GPU it goes through
+    pinned memory with ``non_blocking=True``, so the host does not wait
+    for the device's queue (the copy stays ordered on the stream)."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

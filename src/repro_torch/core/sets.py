@@ -20,7 +20,7 @@ from typing import Sequence
 
 import numpy as np
 
-__all__ = ["SetCollection", "CollectionValidationError"]
+__all__ = ["SetCollection", "CollectionValidationError", "similarity"]
 
 
 class CollectionValidationError(ValueError):
@@ -247,3 +247,11 @@ class SetCollection:
 
     def total_elements(self) -> int:
         return int(self.sizes().sum())
+
+
+def similarity(a: np.ndarray, b: np.ndarray,
+               measure: str = "jaccard") -> float:
+    """Float64 reference similarity of two element-sorted sets."""
+    from .measures import get_measure  # deferred: sets is a leaf module
+    inter = len(np.intersect1d(a, b, assume_unique=True))
+    return get_measure(measure).similarity(inter, len(a), len(b))

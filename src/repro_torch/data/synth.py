@@ -4,7 +4,8 @@ A copy of the JAX package's generators, so the same ``seed`` yields the
 same collections in both packages. Table-1 statistics drive them:
 per-dataset (collection size, mean/max set length, universe size, Zipf
 exponent). ``scale`` multiplies the collection size only; universe,
-length distribution and skew stay as specified.
+length distribution and skew stay as specified. ``docs_to_sets`` turns
+token documents into element sets for the dedup pipeline.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import numpy as np
 
 from ..core.sets import SetCollection
 
-__all__ = ["DATASETS", "make_join_dataset"]
+__all__ = ["DATASETS", "make_join_dataset", "docs_to_sets"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,3 +114,23 @@ def make_join_dataset(name: str, scale: float = 1.0, seed: int = 0):
     R = SetCollection.from_ragged(r_sets, universe=spec.universe)
     S = SetCollection.from_ragged(s_sets, universe=spec.universe)
     return R, S
+
+
+def docs_to_sets(token_batches: np.ndarray, shingle: int = 1,
+                 universe: int | None = None) -> SetCollection:
+    """Token sequences (n, L) -> element sets (optionally w-shingles,
+    hashed into ``8 * universe`` ids) for dedup."""
+    n, L = token_batches.shape
+    if shingle <= 1:
+        sets = [np.unique(row) for row in token_batches]
+        uni = universe or int(token_batches.max()) + 1
+    else:
+        base = universe or int(token_batches.max()) + 1
+        sets = []
+        for row in token_batches:
+            acc = np.zeros(L - shingle + 1, np.int64)
+            for k in range(shingle):
+                acc = acc * 31 + row[k: L - shingle + 1 + k]
+            sets.append(np.unique(acc % (base * 8)))
+        uni = base * 8
+    return SetCollection.from_ragged(sets, universe=uni)

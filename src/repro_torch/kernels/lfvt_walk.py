@@ -1,24 +1,29 @@
-"""The flat-LFVT array walk over live row tiles (K1), on a CUDA GPU.
+"""The flat-LFVT array walk over row tiles (K1, K6), on a CUDA GPU.
 
 The port of the JAX package's ``kernels/lfvt_walk.py``. The R block is
 sorted by set size (rows with near-identical Lemma-3.1 windows share a
 tile) and cut into ``row_tile``-row tiles; tiles whose windows exclude
-every S column never launch (``plan_row_tiles``). Each live tile owns a
-``(row_tile, NP)`` int32 count tile for its whole walk, and only the
-qualifying boolean sub-mask, the exact pair count and the
-``walk_steps``/``early_stops`` counters leave it.
+every S column are dead. Each live tile owns a ``(row_tile, NP)`` int32
+count tile for its whole walk, and only the qualifying boolean sub-mask,
+the exact pair count and the ``walk_steps``/``early_stops`` counters
+leave it.
 
-Two implementations of one function, chosen by where the tensors lie:
+Two schedules, each with a plain PyTorch version and a CUDA kernel of
+``csrc/lfvt_walk.cu`` chosen by where the tensors lie (CPU: the plain
+version; CUDA: the kernel, counted in the wrapper's ``launches``):
 
-  * ``lfvt_walk_live_tiled_ref`` — the plain PyTorch version: every
-    tile's lanes batched into one list that steps in lockstep, a
-    scatter-add per step, dead lanes dropped as they die. The CPU path,
-    and the kernel's oracle on the card.
-  * ``lfvt_walk_live_tiled`` — the wrapper. On CPU tensors it calls the
-    plain version; on CUDA tensors it launches the hand-written kernel
-    of ``csrc/lfvt_walk.cu`` and counts the launch in
-    ``lfvt_walk_live_tiled.launches``. There is no fallback from the
-    CUDA path: a failed build or launch raises.
+  * host plan (K1): ``plan_row_tiles`` lists the live tiles on the host
+    and only those launch — ``lfvt_walk_live_tiled`` /
+    ``lfvt_walk_live_tiled_ref``. The plain version batches every
+    tile's lanes into one list that steps in lockstep, a scatter-add per
+    step, dead lanes dropped as they die;
+  * device plan (K6): ``plan_row_tiles_device`` partitions the tile ids
+    on the device and leaves the live count there, so nothing waits for
+    the device before the launch — ``lfvt_walk_planned`` /
+    ``lfvt_walk_planned_ref``. Every tile gets a CTA; the dead ones
+    write zeros.
+
+There is no fallback from the CUDA path: a failed build or launch raises.
 """
 from __future__ import annotations
 
@@ -32,8 +37,10 @@ from ..core import measures
 from . import _build
 
 __all__ = ["TileShapeError",
-           "plan_row_tiles", "entry_state", "walk_vmem_tile_bytes",
-           "lfvt_walk_live_tiled", "lfvt_walk_live_tiled_ref"]
+           "plan_row_tiles", "plan_row_tiles_device", "entry_state",
+           "walk_vmem_tile_bytes",
+           "lfvt_walk_live_tiled", "lfvt_walk_live_tiled_ref",
+           "lfvt_walk_planned", "lfvt_walk_planned_ref"]
 
 def walk_vmem_tile_bytes(tm: int, lr: int, npad: int, tp: int) -> int:
     """Per-tile working set of the walk, by the reference's accounting.
@@ -78,6 +85,26 @@ def plan_row_tiles(lo: np.ndarray, hi: np.ndarray, tm: int) -> np.ndarray:
     live = (np.asarray(lo).reshape(m_tiles, tm)
             < np.asarray(hi).reshape(m_tiles, tm)).any(axis=1)
     return np.nonzero(live)[0].astype(np.int32)
+
+
+def plan_row_tiles_device(lo: torch.Tensor, hi: torch.Tensor, tm: int):
+    """Device twin of ``plan_row_tiles``: the same live criterion
+    (``any(lo < hi)`` per row tile), computed on the windows' device,
+    with no copy back to the host.
+
+    Returns ``(ti_sorted (m_tiles,) int32, n_live () int32)``, both on
+    that device: the tile ids stable-partitioned so the live ones come
+    first in ascending order (the key ``dead * m_tiles + tile_id`` is
+    unique, so any sort keeps that order) and ``ti_sorted[:n_live] ==
+    plan_row_tiles(lo, hi, tm)``; the dead tail is ascending too.
+    """
+    lo1, hi1 = lo.reshape(-1), hi.reshape(-1)
+    m_tiles = _check_tile_rows(lo1.shape[0], tm, "plan_row_tiles_device")
+    live = (lo1.reshape(m_tiles, tm) < hi1.reshape(m_tiles, tm)).any(dim=1)
+    ids = torch.arange(m_tiles, dtype=torch.int32, device=lo.device)
+    key = torch.where(live, 0, m_tiles).to(torch.int32) + ids
+    return (ids[torch.argsort(key)].contiguous(),
+            live.sum(dtype=torch.int32))
 
 
 def entry_state(dev, r_padded: torch.Tensor):
@@ -177,9 +204,61 @@ def lfvt_walk_live_tiled_ref(ti, lane_pos, lane_rem, nxt2d, seq2d, ssz2d,
             stops.to(torch.int32).reshape(L, 1))
 
 
+def lfvt_walk_planned_ref(ti_sorted, n_live, lane_pos, lane_rem, nxt2d,
+                          seq2d, ssz2d, rsz, lo, hi, *, t: float,
+                          measure: str, max_steps: int, tm: int):
+    """Plain PyTorch version of ``lfvt_walk_planned``: walk only the live
+    prefix of a ``plan_row_tiles_device`` schedule.
+
+    The live prefix ``ti_sorted[:n_live]`` is walked in one
+    ``lfvt_walk_live_tiled_ref`` call and its outputs are scattered into
+    the zeroed full tile range. (The reference walks it in fixed-size
+    chunks because its grid needs static shapes; a tile's outputs depend
+    only on its own rows, so the result is the same.) Reads ``n_live``
+    on the host (this is the oracle, not the kernel).
+
+    Returns (masks (m_tiles, tm, NP) bool, counts/steps/stops
+    (m_tiles, 1) int32) over the full tile range in tile order; dead
+    tiles are all zero.
+    """
+    m_tiles = ti_sorted.shape[0]
+    NP = ssz2d.shape[1]
+    device = lane_pos.device
+    _check_tile_rows(rsz.shape[0], tm, "lfvt_walk_planned_ref")
+    masks = torch.zeros((m_tiles, tm, NP), dtype=torch.bool, device=device)
+    outs = torch.zeros((3, m_tiles, 1), dtype=torch.int32, device=device)
+    ti_l = ti_sorted[:int(n_live)].long()
+    mk, *cols = lfvt_walk_live_tiled_ref(
+        ti_l, lane_pos, lane_rem, nxt2d, seq2d, ssz2d, rsz, lo, hi, t=t,
+        measure=measure, max_steps=max_steps, tm=tm)
+    masks[ti_l] = mk
+    for k, col in enumerate(cols):
+        outs[k, ti_l] = col
+    return masks, outs[0], outs[1], outs[2]
+
+
 # ---------------------------------------------------------------------- #
-# CUDA kernel wrapper
+# CUDA kernel wrappers
 # ---------------------------------------------------------------------- #
+_OPERANDS = ("lane_pos", "lane_rem", "nxt2d", "seq2d", "ssz2d", "rsz", "lo",
+             "hi")
+
+
+def _check_walk(who: str, lead, operands, tm: int):
+    """Raise unless the schedule tensors ``lead`` ((name, tensor, shape)
+    triples) and the walk's eight operands lie on the lanes' device as
+    contiguous int32 of consistent shapes -> (Mp, Lr, NP)."""
+    Mp, Lr = operands[0].shape
+    Tp, NP = operands[3].shape[1], operands[4].shape[1]
+    _check_tile_rows(Mp, tm, who)
+    shapes = ((Mp, Lr), (Mp, Lr), (1, Tp), (1, Tp), (1, NP), (Mp, 1),
+              (Mp, 1), (Mp, 1))
+    for name, x, shape in [*lead, *zip(_OPERANDS, operands, shapes)]:
+        _build.check_operand(who, name, x, shape, operands[0].device,
+                             torch.int32)
+    return Mp, Lr, NP
+
+
 @functools.cache
 def _launcher():
     """The kernel's C entry point, built from ``csrc/lfvt_walk.cu`` at
@@ -216,16 +295,9 @@ def lfvt_walk_live_tiled(ti, lane_pos, lane_rem, nxt2d, seq2d, ssz2d, rsz,
     if device.type != "cuda":
         raise ValueError(f"lfvt_walk_live_tiled: no kernel for {device}")
     L = ti.shape[0]
-    Mp, Lr = lane_pos.shape
-    Tp, NP = seq2d.shape[1], ssz2d.shape[1]
-    _check_tile_rows(Mp, tm, "lfvt_walk_live_tiled")
-    for name, x, shape in (("ti", ti, (L,)), ("lane_pos", lane_pos, (Mp, Lr)),
-                           ("lane_rem", lane_rem, (Mp, Lr)),
-                           ("nxt2d", nxt2d, (1, Tp)), ("seq2d", seq2d, (1, Tp)),
-                           ("ssz2d", ssz2d, (1, NP)), ("rsz", rsz, (Mp, 1)),
-                           ("lo", lo, (Mp, 1)), ("hi", hi, (Mp, 1))):
-        _build.check_operand("lfvt_walk_live_tiled", name, x, shape,
-                             device, torch.int32)
+    Mp, Lr, NP = _check_walk(
+        "lfvt_walk_live_tiled", [("ti", ti, (L,))],
+        (lane_pos, lane_rem, nxt2d, seq2d, ssz2d, rsz, lo, hi), tm)
     p, q = measures.threshold_fraction(t)
     code = measures.MEASURE_CODES[measures.get_measure(measure).name]
     masks = torch.empty((L, tm, NP), dtype=torch.bool, device=device)
@@ -248,3 +320,74 @@ def lfvt_walk_live_tiled(ti, lane_pos, lane_rem, nxt2d, seq2d, ssz2d, rsz,
 
 
 lfvt_walk_live_tiled.launches = 0
+
+
+@functools.cache
+def _planned_launcher():
+    """K6's C entry point, in the same library as K1's."""
+    fn = _build.load("lfvt_walk").lfvt_walk_planned_launch
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    # ti_sorted, n_live, m_tiles, then K1's arguments from lane_pos on
+    fn.argtypes = ([ptr, ptr, i32, ptr, ptr, i32, ptr, ptr, ptr, i32, ptr,
+                    ptr, ptr, i32, i32, i32, i32, i32] + [ptr] * 6)
+    fn.restype = i32
+    return fn
+
+
+def lfvt_walk_planned(ti_sorted, n_live, lane_pos, lane_rem, nxt2d, seq2d,
+                      ssz2d, rsz, lo, hi, *, t: float, measure: str,
+                      max_steps: int, tm: int):
+    """The walk over a device-planned schedule (K6); see
+    ops.lfvt_walk_join_pairs_dispatch with ``schedule="device"``.
+
+    ti_sorted (m_tiles,) and n_live () come from
+    ``plan_row_tiles_device`` and stay on the device: the kernel runs
+    one CTA per tile, and CTA ``l`` walks tile ``ti_sorted[l]`` when
+    ``l < n_live`` (read in the kernel) and writes zeros otherwise. The
+    other operands are K1's. Returns (mask (m_tiles, tm, NP) bool,
+    counts, walk_steps, early_stops — each (m_tiles, 1) int32) in tile
+    order. CPU tensors run the plain version; CUDA tensors launch the
+    kernel on the current stream and never wait for the device.
+    """
+    device = lane_pos.device
+    if device.type == "cpu":
+        return lfvt_walk_planned_ref(
+            ti_sorted, n_live, lane_pos, lane_rem, nxt2d, seq2d, ssz2d, rsz,
+            lo, hi, t=t, measure=measure, max_steps=max_steps, tm=tm)
+    if device.type != "cuda":
+        raise ValueError(f"lfvt_walk_planned: no kernel for {device}")
+    m_tiles = ti_sorted.shape[0]
+    Mp, Lr, NP = _check_walk(
+        "lfvt_walk_planned",
+        [("ti_sorted", ti_sorted, (m_tiles,)), ("n_live", n_live, ())],
+        (lane_pos, lane_rem, nxt2d, seq2d, ssz2d, rsz, lo, hi), tm)
+    if Mp // tm != m_tiles:
+        raise TileShapeError(
+            f"lfvt_walk_planned: {Mp} rows make {Mp // tm} row tiles of "
+            f"{tm}, but ti_sorted names {m_tiles}")
+    if NP % 16:
+        raise ValueError(f"lfvt_walk_planned: NP={NP} is not a multiple of "
+                         "16 (the dead tiles' mask rows are zeroed in "
+                         "16-byte stores)")
+    p, q = measures.threshold_fraction(t)
+    code = measures.MEASURE_CODES[measures.get_measure(measure).name]
+    masks = torch.empty((m_tiles, tm, NP), dtype=torch.bool, device=device)
+    outs = torch.empty((3, m_tiles, 1), dtype=torch.int32, device=device)
+    if m_tiles == 0:
+        return masks, outs[0], outs[1], outs[2]
+    # the live count is on the device, so every tile gets a count tile
+    scratch = torch.empty((m_tiles, tm, NP), dtype=torch.int32,
+                          device=device)
+    err = _planned_launcher()(
+        ti_sorted.data_ptr(), n_live.data_ptr(), m_tiles, lane_pos.data_ptr(),
+        lane_rem.data_ptr(), Lr, nxt2d.data_ptr(), seq2d.data_ptr(),
+        ssz2d.data_ptr(), NP, rsz.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+        tm, int(max_steps), code, p, q, scratch.data_ptr(), masks.data_ptr(),
+        outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream)
+    _build.check_launch("lfvt_walk_planned", err)
+    lfvt_walk_planned.launches += 1
+    return masks, outs[0], outs[1], outs[2]
+
+
+lfvt_walk_planned.launches = 0

@@ -16,7 +16,10 @@ dense kernel (K3 / K5) and slice the (m, n) bool mask back.
 ``bitmap_join_pairs`` / ``onehot_join_pairs`` are the sparse path: the
 host compacts the skip criterion into live (i, j) tiles, the live-tile
 kernel (K2 / K4) computes per-tile masks and exact counts, and only the
-packed pairs come back. The LFVT walk (K1) rides the same protocol.
+packed pairs come back. The LFVT walk rides the same protocol: K1 on the
+host's live-tile list, or K6 on a plan made on the device
+(``schedule="device"``), which leaves dispatch free of any wait for
+the device.
 """
 from __future__ import annotations
 
@@ -26,9 +29,9 @@ import numpy as np
 import torch
 
 from ..core.config import global_config
+from ..core.device import upload
 from ..core.resilience import fault_point
 from ..core.tile_join import round_capacity
-from ..errors import NotPortedError
 from . import bitmap_join as _bj
 from . import lfvt_walk as _lw
 from . import onehot_join as _oj
@@ -258,24 +261,29 @@ class PendingPairs:
 
 def _sync_counts(pending: PendingPairs, stats: dict | None) -> np.ndarray:
     """The one device-to-host copy of a finalize: the per-tile counts and
-    every per-tile extra counter, stacked; folds the counters and the
-    schedule into ``stats``. Returns the (L,) per-tile counts."""
+    every tensor extra (per-tile counters and scalars such as the device
+    schedule's live count), flattened into one buffer; folds each
+    extra's sum and the schedule into ``stats``. Returns the (L,)
+    per-tile counts."""
     L = pending.live_tiles
     extras = pending.extras or {}
     keys = [k for k, v in extras.items() if torch.is_tensor(v)]
-    host = np.zeros((L, 1 + len(keys)), np.int64)
-    if L:
-        host = torch.cat([pending.counts.reshape(L, 1)]
-                         + [extras[k].reshape(L, 1) for k in keys],
-                         dim=1).cpu().numpy()
+    parts = ([pending.counts] if L else []) + [extras[k] for k in keys]
+    host = (torch.cat([x.reshape(-1) for x in parts]).cpu().numpy()
+            if parts else np.zeros(0, np.int64))
     if stats is not None:
         stats["live_tiles"] = L
         stats["total_tiles"] = pending.total_tiles
         stats["dense_mask_bytes"] = pending.dense_mask_bytes
+        at = L
         for key, val in extras.items():
-            stats[key] = (int(host[:, 1 + keys.index(key)].sum())
-                          if key in keys else int(val))
-    return host[:, 0]
+            if key in keys:
+                n = val.numel()
+                stats[key] = int(host[at:at + n].sum())
+                at += n
+            else:
+                stats[key] = int(val)
+    return host[:L]
 
 
 def join_pairs_finalize(pending: PendingPairs, capacity: int | None = None,
@@ -453,15 +461,20 @@ def lfvt_join_pairs_dispatch(flat, r_padded: torch.Tensor, r_sizes, lo, hi,
     return PendingPairs(mask[None], counts, zero, zero, mb, n, 1, 1, mb * n)
 
 
-def walk_operands(flat, r_padded: torch.Tensor, r_sizes, lo, hi, tm: int):
+def walk_operands(flat, r_padded: torch.Tensor, r_sizes, lo, hi, tm: int,
+                  schedule: str = "host"):
     """The walk kernel's operands for one R block, on ``r_padded``'s
-    device: ``(ti, (lane_pos, lane_rem, nxt2d, seq2d, ssz2d, rsz, lo,
-    hi), row_map)``, or None when no row tile has a live window.
+    device: ``(plan, (lane_pos, lane_rem, nxt2d, seq2d, ssz2d, rsz, lo,
+    hi), row_map)``.
 
     The rows are sorted by set size (stable; rows with near-identical
     windows share a tile) and padded to whole ``tm``-row tiles with empty
-    ``[0, 0)`` windows; ``ti`` lists the live tiles (host plan) and
-    ``row_map[packed_row]`` is the block row (-1 for padding).
+    ``[0, 0)`` windows; ``row_map[packed_row]`` is the block row (-1 for
+    padding). With ``schedule="host"`` the plan is ``ti``, the live tiles
+    listed on the host (``plan_row_tiles``), and the result is None when
+    no row tile has a live window. With ``schedule="device"`` the plan is
+    ``(ti_sorted, n_live)`` from ``plan_row_tiles_device``, left on the
+    device: nothing here waits for the device.
     """
     device = r_padded.device
     dev = flat.to_device(device)
@@ -474,26 +487,28 @@ def walk_operands(flat, r_padded: torch.Tensor, r_sizes, lo, hi, tm: int):
         [np.asarray(hi)[order], np.zeros(pad_rows, np.int64)])
     sz_p = np.concatenate(
         [np.asarray(r_sizes)[order], np.zeros(pad_rows, np.int64)])
-    ti = _lw.plan_row_tiles(lo_p, hi_p, tm)
-    if len(ti) == 0:
-        return None
-    r_perm = _pad_to(r_padded[torch.as_tensor(order, device=device).long()],
-                     0, tm, -1)
+    if schedule == "host":
+        ti = _lw.plan_row_tiles(lo_p, hi_p, tm)
+        if len(ti) == 0:
+            return None
+    r_perm = _pad_to(r_padded[upload(order, device).long()], 0, tm, -1)
     lane_pos, lane_rem = _lw.entry_state(dev, r_perm)
     seq2d = _pad_to(dev.seq_row.reshape(1, -1), 1, global_config.col_pad)
     nxt2d = _pad_to(dev.seq_next.reshape(1, -1), 1, global_config.col_pad)
     ssz2d = _pad_to(dev.s_sizes.reshape(1, -1), 1, global_config.col_pad)
 
     def rows(x):
-        return torch.as_tensor(x.astype(np.int32).reshape(-1, 1),
-                               device=device)
+        return upload(x.astype(np.int32).reshape(-1, 1), device)
 
-    row_map = torch.as_tensor(
-        np.concatenate([order, np.full(pad_rows, -1, np.int32)]),
-        device=device)
-    return (torch.as_tensor(ti, device=device),
-            (lane_pos, lane_rem, nxt2d, seq2d, ssz2d, rows(sz_p),
-             rows(lo_p), rows(hi_p)), row_map)
+    row_map = upload(
+        np.concatenate([order, np.full(pad_rows, -1, np.int32)]), device)
+    operands = (lane_pos, lane_rem, nxt2d, seq2d, ssz2d, rows(sz_p),
+                rows(lo_p), rows(hi_p))
+    if schedule == "host":
+        plan = upload(ti, device)
+    else:
+        plan = _lw.plan_row_tiles_device(operands[-2], operands[-1], tm)
+    return plan, operands, row_map
 
 
 def lfvt_walk_join_pairs_dispatch(flat, r_padded: torch.Tensor, r_sizes,
@@ -501,22 +516,23 @@ def lfvt_walk_join_pairs_dispatch(flat, r_padded: torch.Tensor, r_sizes,
                                   measure: str = "jaccard",
                                   row_tile: int | None = None,
                                   schedule: str = "host") -> PendingPairs:
-    """Flat-LFVT walk as a live row-tiled kernel dispatch.
+    """Flat-LFVT walk as a row-tiled kernel dispatch.
 
     ``r_padded`` is the (m, Lr) -1-padded R block on the device the walk
     runs on; ``r_sizes``/``lo``/``hi`` are host numpy rows. The block is
-    sorted by set size (stable), padded to whole ``row_tile`` tiles with
-    empty ``[0, 0)`` windows, and the tiles with no live window are
-    dropped before launch. ``schedule='device'`` (the reference's traced
-    plan, kernel K6) is not ported yet and raises ``NotPortedError``.
+    sorted by set size (stable) and padded to whole ``row_tile`` tiles
+    with empty ``[0, 0)`` windows (``walk_operands``).
+
+    schedule: 'host' (default) — the host lists the live tiles and only
+          those launch (K1); 'device' — ``plan_row_tiles_device`` plans
+          on the device and the planned walk (K6) runs the full tile
+          range, dead tiles zeroed, so dispatch never waits for the
+          device; the live count rides to finalize in
+          ``extras['live_tiles']``. Masks, pairs and counters are equal
+          across schedules.
     """
     fault_point("walk_dispatch")
-    if schedule == "device":
-        raise NotPortedError(
-            "schedule='device' runs the planned walk (kernel K6 "
-            "lfvt_walk_planned), which the PyTorch port does not have yet; "
-            "use schedule='host'")
-    if schedule != "host":
+    if schedule not in ("host", "device"):
         raise ValueError(f"unknown walk schedule {schedule!r}")
     tm = row_tile or global_config.row_tile
     m, Lr = r_padded.shape
@@ -526,23 +542,30 @@ def lfvt_walk_join_pairs_dispatch(flat, r_padded: torch.Tensor, r_sizes,
             or flat.max_seq_len == 0):
         return PendingPairs(None, None, None, None, tm, max(n, 1), 0,
                             m_tiles, m * n)
-    plan = walk_operands(flat, r_padded, r_sizes, lo, hi, tm)
+    plan = walk_operands(flat, r_padded, r_sizes, lo, hi, tm, schedule)
     if plan is None:
         return PendingPairs(None, None, None, None, tm, n, 0, m_tiles, m * n)
     ti, operands, row_map = plan
-    masks, counts, steps, stops = _lw.lfvt_walk_live_tiled(
-        ti, *operands, t=t, measure=measure,
-        max_steps=int(flat.max_seq_len), tm=tm)
+    kw = dict(t=t, measure=measure, max_steps=int(flat.max_seq_len), tm=tm)
     ssz2d, seq2d = operands[4], operands[3]
     extras = {
         # host int: the per-tile working set by the reference's accounting
         "walk_vmem_tile_bytes": _lw.walk_vmem_tile_bytes(
-            tm, Lr, ssz2d.shape[1], seq2d.shape[1]),
-        "walk_steps": steps, "early_stops": stops}
-    L = len(ti)
+            tm, Lr, ssz2d.shape[1], seq2d.shape[1])}
+    if schedule == "device":
+        ti_sorted, n_live = ti
+        masks, counts, steps, stops = _lw.lfvt_walk_planned(
+            ti_sorted, n_live, *operands, **kw)
+        L = m_tiles
+        tile_i = torch.arange(L, dtype=torch.int32, device=r_padded.device)
+        extras["live_tiles"] = n_live
+    else:
+        masks, counts, steps, stops = _lw.lfvt_walk_live_tiled(
+            ti, *operands, **kw)
+        L, tile_i = len(ti), ti
+    extras.update(walk_steps=steps, early_stops=stops)
     return PendingPairs(
-        masks, counts, ti,
+        masks, counts, tile_i,
         torch.zeros(L, dtype=torch.int32, device=r_padded.device),
         tm, ssz2d.shape[1], L, m_tiles, m * n, extras=extras,
         row_map=row_map)
-

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K5 against their plain PyTorch versions.
+"""The port's CUDA kernels K1-K6 against their plain PyTorch versions.
 
 Marked ``cuda``: every test skips (with a reason) where torch sees no
 CUDA device. The file imports neither jax nor the JAX package, so it runs
@@ -8,7 +8,8 @@ on a machine that has only the port's dependencies::
 
 Inputs are made from a seed with numpy; masks, counts, walk_steps and
 early_stops must be bit-equal (integers and booleans, tolerance 0), and
-so must every method's join on the card and on the CPU.
+so must every method's join, and the dedup service's results, on the
+card and on the CPU.
 """
 import numpy as np
 import pytest
@@ -199,3 +200,129 @@ def test_bitmap_methods_on_cuda_match_cpu(cuda, method, emit):
                     "output_bytes"):
             assert st_g.get(key) == st_c.get(key), (measure, key)
 
+
+
+# ---------------------------------------------------------------------- #
+# K6: the walk over a device-planned schedule, and the dedup service
+# ---------------------------------------------------------------------- #
+def planned_inputs(device, seed, t, measure, dead_every=0):
+    """K6's operands: the walk block of ``walk_inputs`` over every row
+    tile, planned on the device; with ``dead_every`` the windows of
+    every ``dead_every``-th tile are emptied, so the plan is not the
+    identity."""
+    R = skewed(seed, 300, 200, 48)
+    flat = skewed(seed + 1, 500, 200, 48).sort_by_size().flat_lfvt()
+    r_sz = R.sizes()
+    lo, hi = window_bounds(r_sz, flat.s_sizes, t, measure)
+    _, operands, _ = ops.walk_operands(flat, torch.tensor(
+        R.padded()[0], device=device), r_sz, lo, hi, 16, schedule="device")
+    operands = list(operands)
+    if dead_every:
+        lo_p, hi_p = operands[6].clone(), operands[7].clone()
+        for k in range(0, lo_p.shape[0] // 16, dead_every):
+            hi_p[16 * k:16 * (k + 1)] = lo_p[16 * k:16 * (k + 1)]
+        operands[7] = hi_p
+    ti_sorted, n_live = lfvt_walk.plan_row_tiles_device(operands[6],
+                                                        operands[7], 16)
+    kw = dict(t=t, measure=measure, max_steps=int(flat.max_seq_len), tm=16)
+    return ti_sorted, n_live, operands, kw
+
+
+@pytest.mark.parametrize("seed", [11, 12])
+@pytest.mark.parametrize("measure,t", [("jaccard", 0.5), ("cosine", 0.7)])
+@pytest.mark.parametrize("dead_every", [0, 2])
+def test_planned_kernel_matches_plain_and_k1(cuda, seed, measure, t,
+                                             dead_every):
+    ti_sorted, n_live, operands, kw = planned_inputs(cuda, seed, t, measure,
+                                                     dead_every)
+    before = lfvt_walk.lfvt_walk_planned.launches
+    got = lfvt_walk.lfvt_walk_planned(ti_sorted, n_live, *operands, **kw)
+    torch.cuda.synchronize()
+    assert lfvt_walk.lfvt_walk_planned.launches == before + 1
+    m_tiles = ti_sorted.shape[0]
+    assert_bit_equal(got, lfvt_walk.lfvt_walk_planned_ref(
+        ti_sorted, n_live, *operands, **kw))
+    nl = int(n_live)
+    assert 0 < nl and (nl < m_tiles) == bool(dead_every)
+    live = ti_sorted[:nl].long()
+    k1 = lfvt_walk.lfvt_walk_live_tiled(ti_sorted[:nl].contiguous(),
+                                        *operands, **kw)
+    for g, w in zip(got, k1):
+        assert torch.equal(g[live].cpu(), w.cpu())
+    dead = ti_sorted[nl:].long()
+    for g in got:
+        assert not g[dead].any()
+
+
+def test_planned_kernel_checks_operands(cuda):
+    ti_sorted, n_live, operands, kw = planned_inputs(cuda, 13, 0.5,
+                                                     "jaccard")
+    with pytest.raises(ValueError, match="n_live has shape"):
+        lfvt_walk.lfvt_walk_planned(ti_sorted, n_live.reshape(1),
+                                    *operands, **kw)
+    with pytest.raises(ValueError, match="ti_sorted is on cpu"):
+        lfvt_walk.lfvt_walk_planned(ti_sorted.cpu(), n_live, *operands,
+                                    **kw)
+    with pytest.raises(ValueError, match="n_live must be int32"):
+        lfvt_walk.lfvt_walk_planned(ti_sorted, n_live.long(), *operands,
+                                    **kw)
+    with pytest.raises(lfvt_walk.TileShapeError, match="ti_sorted names"):
+        lfvt_walk.lfvt_walk_planned(ti_sorted[:-1], n_live, *operands,
+                                    **kw)
+
+
+def test_planned_dispatch_never_waits_for_the_device(cuda):
+    """The whole device-schedule dispatch (operands, uploads, plan and
+    K6) runs under sync debug mode "error" once the corpus is on the
+    card, and its pairs and counters are the host schedule's."""
+    from repro_torch.core.device import upload
+    R = skewed(14, 300, 200, 48)
+    flat = skewed(15, 500, 200, 48).sort_by_size().flat_lfvt()
+    r_pad, r_sz = R.padded()[0], R.sizes()
+    lo, hi = window_bounds(r_sz, flat.s_sizes, 0.5, "jaccard")
+    # the corpus upload is once per corpus, whichever name the card has
+    assert flat.to_device(cuda) is flat.to_device(
+        torch.device("cuda", torch.cuda.current_device()))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = ops.lfvt_walk_join_pairs_dispatch(
+            flat, upload(r_pad, cuda), r_sz, lo, hi, 0.5,
+            schedule="device")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    out = {}
+    for schedule, p in (("device", pending), ("host", None)):
+        p = p or ops.lfvt_walk_join_pairs_dispatch(
+            flat, upload(r_pad, cuda), r_sz, lo, hi, 0.5, schedule=schedule)
+        st = {}
+        pairs, n = ops.join_pairs_finalize(p, stats=st)
+        out[schedule] = (sorted(map(tuple, pairs[:n].cpu().tolist())),
+                         {k: st[k] for k in ("pair_count", "walk_steps",
+                                             "early_stops", "live_tiles")})
+    assert out["device"] == out["host"] and out["device"][0]
+
+
+@pytest.mark.parametrize("schedule", ["host", "device"])
+@pytest.mark.parametrize("admit", ["none", "survivors"])
+def test_dedup_engine_on_cuda_matches_cpu(cuda, schedule, admit):
+    corpus = skewed(15, 400, 120, 24)
+    rng = np.random.default_rng(16)
+    reqs = [corpus.sets[i] for i in rng.choice(len(corpus), 30)]
+    reqs += [np.unique(rng.integers(0, 120, int(rng.integers(1, 24))))
+             for _ in range(30)]
+    reqs += reqs[::7]
+    out = {}
+    for device in ("cuda", "cpu"):
+        eng = repro_torch.DedupServeEngine(
+            corpus, threshold=0.6, admit=admit, micro_batch=16,
+            schedule=schedule, device=device)
+        for r in reqs:
+            eng.submit(r)
+        res = eng.drain()
+        out[device] = ([(r.rid, r.is_dup, r.matches, r.admitted,
+                         r.corpus_id) for r in res], eng.stats)
+    assert out["cuda"] == out["cpu"]
+    assert out["cuda"][1]["dups"] > 0
+    if admit == "survivors":
+        assert out["cuda"][1]["admitted"] > 0

@@ -32,7 +32,6 @@ from repro_torch.core.config import global_config as port_config
 from repro_torch.core.planner import PlannerError
 from repro_torch.core.planner import build_plan as port_build_plan
 from repro_torch.errors import DeviceUnavailableError, NotPortedError
-from repro_torch.kernels import ops as port_ops
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 MEASURES = ("jaccard", "cosine", "dice", "overlap")
@@ -232,14 +231,20 @@ def test_driver_ids_are_the_pair_set(collections, method, emit):
 
 
 def test_port_never_loads_jax_or_repro():
-    """A port join in a fresh interpreter leaves jax and repro unloaded,
-    and no source line of the port imports either."""
+    """A port join and a served request in a fresh interpreter leave jax
+    and repro unloaded, and no source line of the port imports either."""
     code = ("import sys; import numpy as np; import repro_torch\n"
             "for m in ('lfvt', 'popcount', 'onehot', 'kernel_bitmap', "
             "'kernel_onehot'):\n"
             "    r = repro_torch.join([np.arange(5), np.arange(3)], "
             "[np.arange(4)], 0.5, method=m, device='cpu')\n"
             "    assert r.pairs == {(0, 0), (1, 0)}, (m, r.pairs)\n"
+            "S = repro_torch.SetCollection.from_ragged([np.arange(4)])\n"
+            "for sch in ('host', 'device'):\n"
+            "    e = repro_torch.DedupServeEngine(S, threshold=0.5, "
+            "device='cpu', schedule=sch)\n"
+            "    e.submit(np.arange(5))\n"
+            "    assert e.drain()[0].matches == (0,), sch\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"
@@ -281,14 +286,14 @@ def test_not_ported_paths_raise(kwargs, match):
 
 
 def test_not_ported_kernel_paths_raise():
+    """The dedup pipeline's static-corpus filter runs the MapReduce
+    driver, which the port does not have yet: a named error, not a
+    silent fallback."""
     R = repro_torch.as_collection(sample_sets(n_r=8, n_s=6)[0])
-    flat = R.sort_by_size().flat_lfvt()
-    r_pad = torch.from_numpy(R.padded()[0].copy())
-    r_sz = R.sizes()
-    lo, hi = np.zeros(len(R), np.int64), np.full(len(R), len(R), np.int64)
-    with pytest.raises(NotPortedError, match="K6"):
-        port_ops.lfvt_walk_join_pairs_dispatch(flat, r_pad, r_sz, lo, hi,
-                                               0.5, schedule="device")
+    pipe = repro_torch.DedupPipeline(R, threshold=0.5, device="cpu")
+    docs = np.asarray([[1, 2, 3], [4, 5, 6]])
+    with pytest.raises(NotPortedError, match="MapReduce driver"):
+        pipe.filter_batch(docs)
 
 
 def test_planner_errors_match_reference():
