@@ -53,16 +53,35 @@ through these phases, in order; any failure raises and exits non-zero:
      the live tiles, zeros elsewhere, its plan and launch run under
      ``torch.cuda.set_sync_debug_mode("error")``, timed beside K1 and its
      bound. Wall time, requests/s and p50/p99 latency for each stream;
-  6. kernel phase: the 1024-row R block, as the driver cuts it, that
-     holds the most paired rows of the join, against the full S, at
+  6. LLM serve phase: qwen2-1.5b at full width and depth (28 layers,
+     1.78 B parameters, bf16, seeded on the card, attention projections
+     rescaled to 1/sqrt of the width they contract: see
+     ``condition_attention``), built with ``attn_impl="flash"``, behind
+     ``repro_torch.ServeEngine(max_seq_len=4096)``: 8 prompts of 2 048
+     tokens (numpy, seed 0), a cold and a counted prefill (K7 must launch
+     once per layer, 28 times), then 64 greedy tokens; prefill wall,
+     decode tokens/s and peak memory. The same weights through an
+     ``attn_impl="jnp"`` build: last-token logits within
+     ``LLM_LOGIT_TOL`` and greedy tokens equal while the plain run's
+     top-2 gap exceeds it (the steps compared are printed; the weights as
+     drawn, before the rescaling, are compared too and only logged); then
+     the prefill and 3 decode steps under ``torch.profiler`` (device-busy
+     time, K7's share, the idle share, device events per step);
+  7. kernel phase: the 1024-row R block, as ``cf_rs_join_device`` cuts
+     it, that holds the most paired rows of the join, against the full S, at
      t = 0.8 and t = 0.5: K1 (size-sorted and tile-padded as its dispatch
      makes it) and K2-K5 (tile-padded as theirs do) must be bit-equal to
      their plain PyTorch versions on the card, with pairs at both
      thresholds (K1) and at t = 0.5 (K2-K5), plus a small-tile case for
      K2-K5; all are timed with CUDA events at t = 0.8, beside their bound
      and, for K4/K5, one bf16 ``torch.matmul`` of the block's unpacked
-     membership matrices;
-  7. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+     membership matrices; K7 against its plain version within the
+     reference's tolerances at the qwen2-1.5b prefill shape (B*H = 96,
+     L = 2 048, D = 128), a ragged L = 2 000, the starcoder2-3b shape with
+     its window (B*H = 24, L = 8 192, window 4 096) and two float32 cases,
+     each timed beside its bound and, without a window, beside one
+     ``scaled_dot_product_attention(is_causal=True)``;
+  8. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Exits 2 without a result when torch sees no CUDA device.
 """
@@ -132,16 +151,51 @@ KERNELS = {
            f"{CSRC}/onehot_join.cu", "src/repro/kernels/onehot_join.py:87"),
     "K6": ("lfvt_walk", "lfvt_walk_planned", "lfvt_walk_planned_ref",
            f"{CSRC}/lfvt_walk.cu", "src/repro/kernels/lfvt_walk.py:510"),
+    "K7": ("flash_attention", "flash_attention_bhld",
+           "flash_attention_bhld_ref", f"{CSRC}/flash_attention.cu",
+           "src/repro/kernels/flash_attention.py:82"),
 }
 # the main-path run of each kernel: the method whose full-size join it
-# carries (K3 runs under the front door's default call), or the served
-# stream (K6: stream A under schedule="device")
+# carries (K3 runs under the front door's default call), the served
+# stream (K6: stream A under schedule="device"), or the LLM engine's
+# prefill (K7)
 MAIN_RUN = {"K1": "lfvt", "K2": "kernel_bitmap", "K3": "auto",
-            "K4": "kernel_onehot", "K5": "onehot", "K6": "serve_device"}
-NOT_PORTED = [
-    ("K7", "flash_attention_bhld",
-     "src/repro/kernels/flash_attention.py:82"),
-]
+            "K4": "kernel_onehot", "K5": "onehot", "K6": "serve_device",
+            "K7": "llm_prefill"}
+#: TPU kernels without a counterpart on the card: none since K7
+NOT_PORTED: list = []
+# the LLM serve phase: qwen2-1.5b at full width and depth, bf16
+LLM_ARCH = "qwen2-1.5b"
+LLM_BATCH = 8              # prompts served together
+LLM_PROMPT = 2048          # tokens per prompt (numpy, seed 0)
+LLM_NEW = 64               # greedy tokens generated per prompt
+LLM_CACHE = 4096           # the engine's max_seq_len (KV cache length)
+DECODE_PROFILED = 3        # decode steps under torch.profiler
+# the flash and the plain-attention prefill's last-token logits may
+# differ by this fraction of the plain run's largest |logit| in each row.
+# bf16 keeps 8 bits (2^-8 = 3.9e-3 per rounding), and the two paths round
+# differently in each of the 28 layers (K7 rounds p after its online max;
+# the plain path rounds the scores after QK^T and the probabilities after
+# the softmax): independent errors add as a random walk, sqrt(28) x 2^-8
+# = 2.1e-2 of the logit scale; 5e-2 leaves 2.5x of headroom. Greedy
+# tokens are compared while the plain run's top-2 gap exceeds it.
+LLM_LOGIT_TOL = 5e-2
+BF16_OPS_PER_S = 989e12    # dense bf16 tensor-core rate (data sheet)
+F32_OPS_PER_S = 67e12      # float32 outside the tensor cores (data sheet)
+# K7 against its plain version: (label, B*H, L, D, window, dtype); the
+# first, the qwen2-1.5b prefill's shape, gives the kernels line's numbers
+K7_CASES = (
+    ("qwen2-1.5b prefill", 96, 2048, 128, None, torch.bfloat16),
+    ("ragged", 96, 2000, 128, None, torch.bfloat16),
+    ("starcoder2-3b prefill, window 4096", 24, 8192, 128, 4096,
+     torch.bfloat16),
+    ("float32", 4, 300, 64, None, torch.float32),
+    ("float32 windowed", 4, 300, 128, 50, torch.float32),
+)
+# the reference's tolerances for K7 (tests/test_flash_attention.py):
+# bf16 rounds p to bf16 before P.V, the plain version keeps float32;
+# float32 differs from the full softmax in summation order and exp only
+K7_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 
 
 T_START = time.perf_counter()
@@ -311,10 +365,10 @@ def oracle_pairs(R, S, rows, t):
 def device_profile(fn, keys):
     """Run ``fn()`` under ``torch.profiler`` -> (wall s, device-busy s,
     seconds of the kernels whose name holds one of ``keys``, the five
-    kernels with the most device time). Only device-side events
-    (kernels, copies, memsets) count, never the CPU ops that issue them;
-    device-busy time is the union of their intervals. 0.0 when the
-    profiler saw no device events."""
+    kernels with the most device time, the number of device events).
+    Only device-side events (kernels, copies, memsets) count, never the
+    CPU ops that launch them; device-busy time is the union of their
+    intervals. 0.0 when the profiler saw no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -337,13 +391,14 @@ def device_profile(fn, keys):
             reach = end
     mine = sum(v for k, v in per.items() if any(key in k for key in keys))
     top = sorted(per.items(), key=lambda kv: -kv[1])[:5]
-    return wall, busy / 1e6, mine, top
+    return wall, busy / 1e6, mine, top, len(spans)
 
 
 def log_profile(label, prof, kernel_id):
-    wall, busy, mine, top = prof
+    wall, busy, mine, top, events = prof
     log(f"[profile] {label} under torch.profiler: wall_s={wall:.3f} "
-        f"device_busy_s={busy:.3f} {kernel_id.lower()}_device_s={mine:.3f} "
+        f"device_busy_s={busy:.3f} device_events={events} "
+        f"{kernel_id.lower()}_device_s={mine:.3f} "
         f"{kernel_id.lower()}_share_of_busy="
         f"{mine / busy if busy else 'not measured'} idle_share="
         f"{1 - busy / wall if busy else 'not measured'} top="
@@ -905,6 +960,237 @@ def serve_phase(R, Ss, runs, dev):
                       "emptied")
 
 
+def condition_attention(params, dims, d_model) -> None:
+    """Rescale the seeded attention projections in place to 1/sqrt of the
+    width they contract. The reference's init rule takes fan_in =
+    shape[-2], which for the 4-D projections is the head axis (12 for
+    wq, 2 for wk and wv) or head_dim (wo), not d_model or H*D: scores
+    then have a standard deviation of ~300, every softmax is an argmax,
+    and any rounding difference (bf16, or float32 summation order) flips
+    argmaxes and compounds through the 28 layers. Real checkpoints are
+    not built that way."""
+    a = params["blocks"]["attn"]["attn"]
+    for name, fan_in in (("wq", dims.n_heads_p), ("wk", dims.n_kv),
+                         ("wv", dims.n_kv)):
+        a[name].mul_((fan_in / d_model) ** 0.5)
+    a["wo"].mul_((1 / dims.n_heads_p) ** 0.5)
+
+
+class GapRecorder:
+    """A model for ``ServeEngine`` (duck-typed): runs ``model`` and keeps,
+    per step and stream, the top-2 gap and the largest |logit|."""
+
+    def __init__(self, model):
+        self.model, self.gaps, self.scale = model, [], []
+
+    def _note(self, logits):
+        last = logits[:, -1].float()
+        top2 = last.topk(2, dim=-1).values
+        self.gaps.append((top2[:, 0] - top2[:, 1]).cpu().numpy())
+        self.scale.append(last.abs().amax(dim=-1).cpu().numpy())
+
+    def prefill(self, *args, **kw):
+        out = self.model.prefill(*args, **kw)
+        self._note(out[0])
+        return out
+
+    def decode_step(self, *args, **kw):
+        out = self.model.decode_step(*args, **kw)
+        self._note(out[0])
+        return out
+
+
+def llm_phase(runs, dev):
+    """LLM serving on the card: qwen2-1.5b (28 layers, full width, bf16,
+    seeded weights) through ``repro_torch.ServeEngine`` with
+    ``attn_impl="flash"``, held against an ``attn_impl="jnp"`` build; the
+    counted prefill's launches go to ``runs["llm_prefill"]``."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.models.params import init_params, tree_leaves
+    cfg = dataclasses.replace(repro_torch.get_config(LLM_ARCH),
+                              attn_impl="flash")
+    model = repro_torch.build_model(cfg)
+    plain = repro_torch.build_model(dataclasses.replace(cfg,
+                                                        attn_impl="jnp"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(model.param_specs(),
+                         torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LLM_BATCH, LLM_PROMPT)).astype(np.int32)
+    toks = torch.from_numpy(prompts).to(dev)
+    # as drawn by the reference's init rule the two builds disagree (see
+    # condition_attention); logged, not held
+    raw_rel = last_logits_rel_l2(model, plain, params, toks)
+    condition_attention(params, model.dims, cfg.d_model)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    log(f"[llm] {cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
+        f"heads={cfg.n_heads} kv_heads={cfg.n_kv_heads} head_dim="
+        f"{model.dims.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
+        f"params={n_params} weight_bytes={2 * n_params} (bf16) "
+        f"init_s={init_s:.3f} attn_impl=flash; before condition_attention "
+        f"the flash and plain builds' last-token logits differ by "
+        f"rel_l2={raw_rel:.3f}")
+    eng = repro_torch.ServeEngine(model, params, max_seq_len=LLM_CACHE)
+    t0 = time.perf_counter()
+    eng.generate(prompts, 1)
+    cold_s = time.perf_counter() - t0
+    # the main-path run of K7: one prefill (and its first token)
+    t0 = time.perf_counter()
+    first, runs["llm_prefill"] = counted(lambda: eng.generate(prompts, 1))
+    prefill_s = time.perf_counter() - t0
+    if runs["llm_prefill"]["K7"] != cfg.n_layers:
+        raise AssertionError(f"the prefill launched K7 "
+                             f"{runs['llm_prefill']['K7']} times, not once "
+                             f"per layer ({cfg.n_layers})")
+    t0 = time.perf_counter()
+    out, gen_runs = counted(lambda: eng.generate(prompts, LLM_NEW))
+    gen_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    decode_s = gen_s - prefill_s
+    if (out.shape != (LLM_BATCH, LLM_NEW) or out.min() < 0
+            or out.max() >= cfg.vocab_size
+            or not np.array_equal(out[:, :1], first)
+            or gen_runs["K7"] != cfg.n_layers):
+        raise AssertionError(f"generate gave {out.shape} tokens in "
+                             f"[{out.min()}, {out.max()}], K7 launches "
+                             f"{gen_runs['K7']}")
+    cache_bytes = (2 * cfg.n_layers * LLM_BATCH * LLM_CACHE
+                   * cfg.n_kv_heads * model.dims.head_dim * 2)
+    log(f"[llm] serve: prompts={LLM_BATCH}x{LLM_PROMPT} new_tokens="
+        f"{LLM_NEW} max_seq_len={LLM_CACHE} cold_prefill_s={cold_s:.3f} "
+        f"prefill_s={prefill_s:.4f} prefill_tokens_per_s="
+        f"{LLM_BATCH * LLM_PROMPT / prefill_s:.0f} generate_s={gen_s:.3f} "
+        f"decode_s={decode_s:.3f} decode_ms_per_step="
+        f"{decode_s / (LLM_NEW - 1) * 1e3:.2f} decode_tokens_per_s="
+        f"{LLM_BATCH * (LLM_NEW - 1) / decode_s:.1f} kv_cache_bytes="
+        f"{cache_bytes} max_memory_allocated={peak} "
+        f"launches={runs['llm_prefill']}")
+
+    # the plain-attention build on the same weights: prefill logits, then
+    # greedy tokens compared while its top-2 gap clears the tolerance
+    with torch.inference_mode():
+        lf = model.prefill(params, toks, LLM_CACHE)[0][:, -1].float()
+        lp = plain.prefill(params, toks, LLM_CACHE)[0][:, -1].float()
+    if not (torch.isfinite(lf).all() and torch.isfinite(lp).all()):
+        raise AssertionError("the prefill logits are not finite")
+    err = (lf - lp).abs().amax(dim=-1)
+    tol = LLM_LOGIT_TOL * lp.abs().amax(dim=-1)
+    rel_l2 = float((lf - lp).norm() / lp.norm())
+    if (err > tol).any():
+        raise AssertionError(f"flash and plain prefill logits differ by "
+                             f"{err.tolist()} (tolerance {tol.tolist()})")
+    rec = GapRecorder(plain)
+    want = repro_torch.ServeEngine(rec, params, max_seq_len=LLM_CACHE
+                                   ).generate(prompts, LLM_NEW)
+    gaps = np.stack(rec.gaps, axis=1)
+    margin = LLM_LOGIT_TOL * np.stack(rec.scale, axis=1)
+    compared = []
+    for i in range(LLM_BATCH):
+        k = 0
+        while k < LLM_NEW and gaps[i, k] > margin[i, k]:
+            k += 1
+        if not np.array_equal(out[i, :k], want[i, :k]):
+            raise AssertionError(f"stream {i}: flash and plain greedy tokens "
+                                 f"differ within the first {k} steps")
+        compared.append(k)
+    log(f"[llm] flash vs plain attention (same weights): last-token "
+        f"logits max_abs_err={float(err.max()):.4f} (tolerance "
+        f"{LLM_LOGIT_TOL} x max|logit| = {float(tol.min()):.4f}.."
+        f"{float(tol.max()):.4f}) max_err_over_max_logit="
+        f"{float((err / lp.abs().amax(dim=-1)).max()):.4f} rel_l2="
+        f"{rel_l2:.2e}; greedy tokens equal for the steps whose plain "
+        f"top-2 gap exceeds the tolerance: "
+        f"compared_steps={compared} of {LLM_NEW} per stream; "
+        f"streams_equal_in_full="
+        f"{int((out == want).all(axis=1).sum())}/{LLM_BATCH}")
+    prof = device_profile(lambda: eng.generate(prompts, 1),
+                          ("flash_attention_kernel",))
+    log_profile("llm prefill (generate 1 token)", prof, "K7")
+    with torch.inference_mode():
+        state = model.prefill(params, toks, LLM_CACHE)[1]
+        tok = torch.from_numpy(out[:, :1]).to(dev)
+
+        def decode_steps():
+            for step in range(DECODE_PROFILED):
+                model.decode_step(params, tok, LLM_PROMPT + step, state)
+        prof = device_profile(decode_steps, ("flash_attention_kernel",))
+    log_profile(f"llm decode ({DECODE_PROFILED} decode_steps)", prof, "K7")
+    log(f"[llm] decode: device_events_per_step="
+        f"{prof[4] / DECODE_PROFILED:.0f} host_ms_per_step="
+        f"{prof[0] / DECODE_PROFILED * 1e3:.2f} device_busy_ms_per_step="
+        f"{prof[1] / DECODE_PROFILED * 1e3:.2f}")
+    del eng, params, rec, state
+    torch.cuda.empty_cache()
+
+
+def last_logits_rel_l2(model, plain, params, toks) -> float:
+    """Relative L2 distance of the two builds' last-token prefill logits
+    (``plain``'s as the reference)."""
+    with torch.inference_mode():
+        lf = model.prefill(params, toks, LLM_CACHE)[0][:, -1].float()
+        lp = plain.prefill(params, toks, LLM_CACHE)[0][:, -1].float()
+    return float((lf - lp).norm() / lp.norm())
+
+
+def k7_pairs(l, window):
+    """(q, k) pairs K7's masks keep in one head: sum over q < l of
+    min(q + 1, window)."""
+    w = l if window is None else min(window, l)
+    return w * (w + 1) // 2 + (l - w) * w
+
+
+def k7_check(label, bh, l, d, window, dtype, dev):
+    """K7 against its plain version on seeded normal q, k, v -> a dict of
+    its numbers: error, times, bound, and SDPA's time where the case has
+    no window."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(bh + l + d)
+    q, k, v = (torch.randn((bh, l, d), generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    kw = dict(scale=d ** -0.5, window=window)
+    got = fa.flash_attention_bhld(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ev = (torch.cuda.Event(enable_timing=True),
+          torch.cuda.Event(enable_timing=True))
+    ev[0].record()
+    want = fa.flash_attention_bhld_ref(q, k, v, **kw)
+    ev[1].record()
+    torch.cuda.synchronize()
+    tol = K7_TOL[dtype]
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    if got.shape != want.shape or got.dtype != dtype or not bool(
+            (diff <= tol + tol * want.float().abs()).all()):
+        raise AssertionError(f"K7 ({label}) disagrees with its plain version:"
+                             f" max_abs_err={err} (atol = rtol = {tol})")
+    out = dict(label=label, max_abs_err=err, plain_ms=ev[0].elapsed_time(
+        ev[1]), tol=tol)
+    del want, diff
+    out["ms"] = cuda_ms(lambda: fa.flash_attention_bhld(q, k, v, **kw), 20)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4 = (x.view(1, bh, l, d) for x in (q, k, v))
+    out["library_ms"] = (cuda_ms(lambda: sdpa(q4, k4, v4, is_causal=True),
+                                 20) if window is None else None)
+    moved = 4 * q.numel() * q.element_size()
+    flops = 4 * bh * k7_pairs(l, window) * d
+    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    byte_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / rate * 1e3
+    out.update(bound_ms=max(byte_ms, ops_ms), bound_by=(
+        "bytes" if byte_ms >= ops_ms else "operations"), bytes=moved,
+        flops=flops)
+    del q, k, v, got
+    torch.cuda.empty_cache()
+    return out
+
+
 def measures_configs():
     """Every (dataset, method, measure, threshold, emit) of the measures
     phase."""
@@ -1117,11 +1403,16 @@ def main() -> int:
     t0 = time.perf_counter()
     k6 = serve_phase(R, Ss, runs, dev)
     log(f"[serve] phase_s={time.perf_counter() - t0:.3f}")
+
+    # ---- phase 6: LLM serving (qwen2-1.5b, K7) ------------------------ #
+    t0 = time.perf_counter()
+    llm_phase(runs, dev)
+    log(f"[llm] phase_s={time.perf_counter() - t0:.3f}")
     for kid, label in MAIN_RUN.items():
         if runs[label][kid] <= 0:
             raise AssertionError(f"the {label} run never launched {kid}")
 
-    # ---- phase 6: kernels against their plain versions -------------- #
+    # ---- phase 7: kernels against their plain versions -------------- #
     # the driver's block (rows cut in input order) with the most rows
     # that the join paired, so the main threshold's mask is not empty
     block = int(np.bincount(paired // BLOCK_ROWS).argmax()
@@ -1213,6 +1504,26 @@ def main() -> int:
     del s_bm
     log(f"[kernel small] m=20 n=300 W=3 tiles=(32, 128, 2) "
         f"bit-equal to plain, pairs={small_tile_case(dev)}")
+    k7 = [k7_check(*case, dev) for case in K7_CASES]
+    for case, c in zip(K7_CASES, k7):
+        line = (f"[kernel K7] {c['label']}: BH={case[1]} L={case[2]} "
+                f"D={case[3]} window={case[4]} {str(case[5])[6:]} "
+                f"max_abs_err={c['max_abs_err']:.3e} (atol = rtol = "
+                f"{c['tol']}) plain_ms={c['plain_ms']:.3f}")
+        line += (f" ms={c['ms']:.4f} bound_ms={c['bound_ms']:.6f} "
+                 f"bound_by={c['bound_by']} bytes={c['bytes']} "
+                 f"flops={c['flops']} over_bound="
+                 f"{c['ms'] / c['bound_ms']:.1f} sdpa_ms={c['library_ms']}")
+        log(line)
+    kernels["K7"] = dict(
+        max_abs_err=max(c["max_abs_err"] for c in k7), ms=k7[0]["ms"],
+        plain_ms=k7[0]["plain_ms"], bound_ms=k7[0]["bound_ms"],
+        bound_by=k7[0]["bound_by"], library_ms=k7[0]["library_ms"],
+        library_note="one torch.nn.functional.scaled_dot_product_attention("
+                     "is_causal=True) on the same q, k, v as (1, B*H, L, D)",
+        check="within the reference's tolerances of its plain version (bf16 "
+              "atol = rtol = 2e-2, float32 2e-5) at " + ", ".join(
+                  c["label"] for c in k7))
 
     out = []
     for kid, (_, name, _, source, replaces) in KERNELS.items():

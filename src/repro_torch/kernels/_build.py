@@ -29,7 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 #: every kernel library of the port, by name (csrc/<name>.cu)
-KERNEL_SOURCES = ("lfvt_walk", "bitmap_join", "onehot_join")
+KERNEL_SOURCES = ("lfvt_walk", "bitmap_join", "onehot_join",
+                  "flash_attention")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 

@@ -19,7 +19,8 @@ kernel (K2 / K4) computes per-tile masks and exact counts, and only the
 packed pairs come back. The LFVT walk rides the same protocol: K1 on the
 host's live-tile list, or K6 on a plan made on the device
 (``schedule="device"``), which leaves dispatch free of any wait for
-the device.
+the device. ``flash_attention`` takes the model's (B, L, H, D) layout to
+K7's merged (B*H, L, D) and back.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from ..core.device import upload
 from ..core.resilience import fault_point
 from ..core.tile_join import round_capacity
 from . import bitmap_join as _bj
+from . import flash_attention as _fa
 from . import lfvt_walk as _lw
 from . import onehot_join as _oj
 
@@ -40,7 +42,8 @@ __all__ = ["PendingPairs", "pick_tiles", "bitmap_join", "onehot_join",
            "bitmap_join_pairs", "onehot_join_pairs",
            "bitmap_join_pairs_dispatch", "onehot_join_pairs_dispatch",
            "lfvt_join_pairs_dispatch", "lfvt_walk_join_pairs_dispatch",
-           "join_pairs_finalize", "join_mask_finalize", "walk_operands"]
+           "join_pairs_finalize", "join_mask_finalize", "walk_operands",
+           "flash_attention", "flash_attention_ref"]
 
 
 def pick_tiles(m: int, n: int, w: int, defaults) -> tuple[int, int, int]:
@@ -569,3 +572,36 @@ def lfvt_walk_join_pairs_dispatch(flat, r_padded: torch.Tensor, r_sizes,
         torch.zeros(L, dtype=torch.int32, device=r_padded.device),
         tm, ssz2d.shape[1], L, m_tiles, m * n, extras=extras,
         row_map=row_map)
+
+
+# ---------------------------------------------------------------------- #
+# attention (K7)
+# ---------------------------------------------------------------------- #
+def flash_attention(q, k, v, window=None):
+    """Causal flash attention. q, k, v (B, L, H, D), KV pre-expanded to H.
+
+    Merges (B, H) into the kernel's leading dimension as the reference
+    does and splits it back. No padding: the kernel masks the ragged
+    edge itself. Inference only (no backward kernel)."""
+    b, l, h, d = q.shape
+
+    def merge(x):   # a copy: a view here (B = 1) would not be contiguous
+        return x.transpose(1, 2).contiguous().view(b * h, l, d)
+    o = _fa.flash_attention_bhld(merge(q), merge(k), merge(v),
+                                 scale=d ** -0.5, window=window)
+    return o.reshape(b, h, l, d).transpose(1, 2)
+
+
+def flash_attention_ref(q, k, v, window=None):
+    """Full-softmax oracle for the flash kernel (same masks, float32
+    math), in the (B, L, H, D) layout."""
+    b, l, h, d = q.shape
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (d ** -0.5)
+    qp = torch.arange(l, device=q.device)[:, None]
+    kp = torch.arange(l, device=q.device)[None, :]
+    mask = kp <= qp
+    if window is not None:
+        mask &= kp > (qp - window)
+    s = torch.where(mask[None, None], s, _fa.NEG)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K6 against their plain PyTorch versions.
+"""The port's CUDA kernels K1-K7 against their plain PyTorch versions.
 
 Marked ``cuda``: every test skips (with a reason) where torch sees no
 CUDA device. The file imports neither jax nor the JAX package, so it runs
@@ -9,7 +9,9 @@ on a machine that has only the port's dependencies::
 Inputs are made from a seed with numpy; masks, counts, walk_steps and
 early_stops must be bit-equal (integers and booleans, tolerance 0), and
 so must every method's join, and the dedup service's results, on the
-card and on the CPU.
+card and on the CPU. K7's outputs must be within the reference's float
+tolerances of its plain version, and the LLM serving engine on the card
+within a stated bfloat16 logit tolerance of the CPU's (``LOGIT_TOL``).
 """
 import numpy as np
 import pytest
@@ -19,6 +21,7 @@ import repro_torch
 from repro_torch.core.sets import SetCollection
 from repro_torch.core.tile_join import window_bounds
 from repro_torch.kernels import bitmap_join, lfvt_walk, onehot_join, ops
+from repro_torch.kernels import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
 
@@ -326,3 +329,137 @@ def test_dedup_engine_on_cuda_matches_cpu(cuda, schedule, admit):
     assert out["cuda"][1]["dups"] > 0
     if admit == "survivors":
         assert out["cuda"][1]["admitted"] > 0
+
+
+# ---------------------------------------------------------------------- #
+# K7: flash attention, and the LLM serving engine on the card
+# ---------------------------------------------------------------------- #
+# the reference's own tolerances (tests/test_flash_attention.py): float32
+# differs from the full softmax only in summation order and exp; bfloat16
+# rounds p to bfloat16 before P.V where the plain version keeps float32
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def flash_inputs(device, seed, bh, lpad, d, dtype):
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.normal(size=(bh, lpad, d)).astype(np.float32),
+                         device=device).to(dtype) for _ in range(3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l,lpad,d,window", [
+    (64, 64, 16, None), (70, 70, 32, None), (70, 128, 64, None),
+    (200, 200, 128, None), (200, 200, 64, 24), (130, 130, 16, 8),
+    (300, 300, 128, 100), (64, 64, 128, 64)])
+def test_flash_kernel_matches_plain(cuda, dtype, l, lpad, d, window):
+    """Causal, ragged (l not a multiple of 64, and l_real < Lpad),
+    windowed, at every head dim the kernel takes."""
+    q, k, v = flash_inputs(cuda, l + d, 3, lpad, d, dtype)
+    before = fa.flash_attention_bhld.launches
+    got = fa.flash_attention_bhld(q, k, v, scale=d ** -0.5, window=window,
+                                  l_real=l)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bhld.launches == before + 1
+    assert got.dtype == dtype and got.shape == (3, lpad, d)
+    want = fa.flash_attention_bhld_ref(q, k, v, scale=d ** -0.5,
+                                       window=window, l_real=l)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got[:, :l].float(), want[:, :l].float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("window", [None, 40])
+def test_flash_ops_layout_on_cuda(cuda, window):
+    """``ops.flash_attention`` in the (B, L, H, D) layout: one launch,
+    equal to the (B, L, H, D) oracle and to the CPU's plain path."""
+    rng = np.random.default_rng(9)
+    qkv = [torch.tensor(rng.normal(size=(2, 100, 3, 32)).astype(np.float32),
+                        device=cuda).to(torch.bfloat16) for _ in range(3)]
+    before = fa.flash_attention_bhld.launches
+    got = ops.flash_attention(*qkv, window=window)
+    assert fa.flash_attention_bhld.launches == before + 1
+    want = ops.flash_attention_ref(*qkv, window=window)
+    cpu = ops.flash_attention(*(x.cpu() for x in qkv), window=window)
+    for other in (want, cpu):
+        torch.testing.assert_close(got.float().cpu(), other.float().cpu(),
+                                   atol=2e-2, rtol=2e-2)
+
+
+def test_flash_kernel_checks_operands(cuda):
+    q, k, v = flash_inputs(cuda, 0, 2, 64, 32, torch.bfloat16)
+    call = fa.flash_attention_bhld
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        call(q.half(), k.half(), v.half(), scale=0.1)
+    with pytest.raises(ValueError, match="head dim"):
+        call(*flash_inputs(cuda, 0, 2, 64, 48, torch.bfloat16), scale=0.1)
+    with pytest.raises(ValueError, match="k must be bfloat16"):
+        call(q, k.float(), v, scale=0.1)
+    with pytest.raises(ValueError, match="v has shape"):
+        call(q, k, v[:, :32], scale=0.1)
+    with pytest.raises(ValueError, match="not contiguous"):
+        call(q.transpose(0, 1).contiguous().transpose(0, 1), k, v, scale=0.1)
+    buf = torch.zeros(1 + q.numel(), dtype=q.dtype, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        call(buf[1:].view(q.shape), k, v, scale=0.1)
+    with pytest.raises(ValueError, match="l_real"):
+        call(q, k, v, scale=0.1, l_real=65)
+    with pytest.raises(ValueError, match="window"):
+        call(q, k, v, scale=0.1, window=0)
+    with pytest.raises(ValueError, match="(q|k) is on"):
+        call(q, k.cpu(), v, scale=0.1)
+
+
+# teacher-forced logits of the card and the CPU agree within this (16
+# bfloat16 ulps at the smoke models' logit magnitude of 2-4: cuBLAS and
+# the CPU sum in other orders, and K7 rounds p to bfloat16 where the
+# CPU's plain version does not); greedy tokens may then differ only where
+# the top-2 gap is at most twice that
+LOGIT_TOL = 0.25
+
+
+@pytest.mark.parametrize("name", ["qwen2-1.5b", "starcoder2-3b"])
+def test_serve_engine_on_cuda_matches_cpu(cuda, name):
+    import dataclasses
+    from repro_torch.models.params import init_params
+    cfg = dataclasses.replace(repro_torch.get_config(name, smoke=True),
+                              attn_impl="flash")
+    model = repro_torch.build_model(cfg)
+    params = {dev: init_params(model.param_specs(),
+                               torch.Generator().manual_seed(0), device=dev)
+              for dev in ("cpu", "cuda")}
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (16, 14)).astype(np.int32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = repro_torch.ServeEngine(model, params[dev], max_seq_len=48)
+        assert eng.device.type == dev
+        before = fa.flash_attention_bhld.launches
+        out[dev] = eng.generate(prompts, max_new_tokens=12)
+        assert fa.flash_attention_bhld.launches - before == (
+            cfg.n_layers if dev == "cuda" else 0)
+    # teacher-forced along the CPU's tokens: logit errors and CPU gaps
+    states, logits = {}, {}
+    for dev in ("cpu", "cuda"):
+        logits[dev], states[dev] = model.prefill(
+            params[dev], torch.from_numpy(prompts).to(dev), 48)
+    gaps, err = [], 0.0
+    for step in range(12):
+        want = logits["cpu"][:, -1].float()
+        err = max(err, float((logits["cuda"][:, -1].float().cpu() - want)
+                             .abs().max()))
+        top2 = want.topk(2, dim=-1).values
+        gaps.append((top2[:, 0] - top2[:, 1]).numpy())
+        tok = torch.from_numpy(out["cpu"][:, step:step + 1])
+        for dev in ("cpu", "cuda"):
+            logits[dev], states[dev] = model.decode_step(
+                params[dev], tok.to(dev), 14 + step, states[dev])
+    assert err <= LOGIT_TOL, err
+    gaps = np.stack(gaps, axis=1)
+    compared = 0
+    for i in range(16):
+        k = 0
+        while k < 12 and gaps[i, k] > 2 * LOGIT_TOL:
+            k += 1
+        np.testing.assert_array_equal(out["cuda"][i, :k], out["cpu"][i, :k])
+        compared += k
+    assert compared > 0

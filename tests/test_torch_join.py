@@ -231,8 +231,10 @@ def test_driver_ids_are_the_pair_set(collections, method, emit):
 
 
 def test_port_never_loads_jax_or_repro():
-    """A port join and a served request in a fresh interpreter leave jax
-    and repro unloaded, and no source line of the port imports either."""
+    """A port join, a served request and a few generated tokens of a
+    smoke LLM (both attention paths) in a fresh interpreter leave jax,
+    repro and ml_dtypes unloaded, and no source line of the port imports
+    any of them."""
     code = ("import sys; import numpy as np; import repro_torch\n"
             "for m in ('lfvt', 'popcount', 'onehot', 'kernel_bitmap', "
             "'kernel_onehot'):\n"
@@ -245,9 +247,20 @@ def test_port_never_loads_jax_or_repro():
             "device='cpu', schedule=sch)\n"
             "    e.submit(np.arange(5))\n"
             "    assert e.drain()[0].matches == (0,), sch\n"
+            "import dataclasses, torch\n"
+            "from repro_torch.models.params import init_params\n"
+            "for impl in ('flash', 'jnp'):\n"
+            "    m = repro_torch.build_model(dataclasses.replace("
+            "repro_torch.get_config('qwen2-1.5b', smoke=True), "
+            "attn_impl=impl))\n"
+            "    p = init_params(m.param_specs(), "
+            "torch.Generator().manual_seed(0), device='cpu')\n"
+            "    out = repro_torch.ServeEngine(m, p, max_seq_len=16)"
+            ".generate(np.zeros((2, 5), np.int32), 3)\n"
+            "    assert out.shape == (2, 3), out.shape\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
-            "m.startswith('repro.'))\n"
+            "m.startswith('repro.') or m == 'ml_dtypes')\n"
             "print('LOADED', bad)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
@@ -255,7 +268,7 @@ def test_port_never_loads_jax_or_repro():
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout
     pat = re.compile(r"^\s*(import jax|from jax|import repro\b|"
-                     r"from repro[ .])", re.M)
+                     r"from repro[ .]|import ml_dtypes|from ml_dtypes)", re.M)
     for path in [*(ROOT / "src" / "repro_torch").rglob("*.py"),
                  ROOT / "chip_smoke.py"]:
         assert not pat.search(path.read_text()), path
