@@ -76,11 +76,16 @@ through these phases, in order; any failure raises and exits non-zero:
      K2-K5; all are timed with CUDA events at t = 0.8, beside their bound
      and, for K4/K5, one bf16 ``torch.matmul`` of the block's unpacked
      membership matrices; K7 against its plain version within the
-     reference's tolerances at the qwen2-1.5b prefill shape (B*H = 96,
-     L = 2 048, D = 128), a ragged L = 2 000, the starcoder2-3b shape with
-     its window (B*H = 24, L = 8 192, window 4 096) and two float32 cases,
-     each timed beside its bound and, without a window, beside one
-     ``scaled_dot_product_attention(is_causal=True)``;
+     reference's tolerances at the ``K7_CASES``: the qwen2-1.5b prefill
+     shape as the main path gives it (q at 12 heads, k and v at their 2
+     KV heads, read in place: B = 8, L = 2 048, D = 128), the same shape
+     in the merged (B*H, L, D) layout, a ragged L = 2 000, the
+     starcoder2-3b shape with its window (24 heads, L = 8 192, window
+     4 096; merged, and with its 2 KV heads in place) and two float32
+     cases, each timed beside its bound and, without a window, beside
+     one ``scaled_dot_product_attention(is_causal=True)`` (with
+     ``enable_gqa=True`` for the in-place cases); the bf16 kernel's
+     registers and spills as ``nvcc -Xptxas -v`` reports them;
   8. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Exits 2 without a result when torch sees no CUDA device.
@@ -182,16 +187,28 @@ DECODE_PROFILED = 3        # decode steps under torch.profiler
 LLM_LOGIT_TOL = 5e-2
 BF16_OPS_PER_S = 989e12    # dense bf16 tensor-core rate (data sheet)
 F32_OPS_PER_S = 67e12      # float32 outside the tensor cores (data sheet)
-# K7 against its plain version: (label, B*H, L, D, window, dtype); the
-# first, the qwen2-1.5b prefill's shape, gives the kernels line's numbers
+# K7 against its plain version: (label, B, L, H, KV, D, window, dtype).
+# KV heads read in place through flash_attention_blhd, or, with KV None,
+# the merged (B*H, L, D) layout of flash_attention_bhld (KV expanded).
+# The first, the qwen2-1.5b prefill as the main path gives it to K7,
+# gives the kernels line's numbers; the merged case at the same shape is
+# the like-for-like comparison with earlier runs.
 K7_CASES = (
-    ("qwen2-1.5b prefill", 96, 2048, 128, None, torch.bfloat16),
-    ("ragged", 96, 2000, 128, None, torch.bfloat16),
-    ("starcoder2-3b prefill, window 4096", 24, 8192, 128, 4096,
+    ("qwen2-1.5b prefill, GQA in place", 8, 2048, 12, 2, 128, None,
      torch.bfloat16),
-    ("float32", 4, 300, 64, None, torch.float32),
-    ("float32 windowed", 4, 300, 128, 50, torch.float32),
+    ("qwen2-1.5b prefill, merged", 8, 2048, 12, None, 128, None,
+     torch.bfloat16),
+    ("ragged, merged", 8, 2000, 12, None, 128, None, torch.bfloat16),
+    ("starcoder2-3b prefill, window 4096, merged", 1, 8192, 24, None, 128,
+     4096, torch.bfloat16),
+    ("starcoder2-3b prefill, window 4096, GQA in place", 1, 8192, 24, 2,
+     128, 4096, torch.bfloat16),
+    ("float32", 1, 300, 4, None, 64, None, torch.float32),
+    ("float32 windowed, GQA in place", 2, 300, 4, 2, 128, 50,
+     torch.float32),
 )
+#: K7's kernels as torch.profiler names them
+K7_KERNEL_NAMES = ("flash_attention_wgmma", "flash_attention_f32")
 # the reference's tolerances for K7 (tests/test_flash_attention.py):
 # bf16 rounds p to bf16 before P.V, the plain version keeps float32;
 # float32 differs from the full softmax in summation order and exp only
@@ -1111,7 +1128,7 @@ def llm_phase(runs, dev):
         f"streams_equal_in_full="
         f"{int((out == want).all(axis=1).sum())}/{LLM_BATCH}")
     prof = device_profile(lambda: eng.generate(prompts, 1),
-                          ("flash_attention_kernel",))
+                          K7_KERNEL_NAMES)
     log_profile("llm prefill (generate 1 token)", prof, "K7")
     with torch.inference_mode():
         state = model.prefill(params, toks, LLM_CACHE)[1]
@@ -1120,7 +1137,7 @@ def llm_phase(runs, dev):
         def decode_steps():
             for step in range(DECODE_PROFILED):
                 model.decode_step(params, tok, LLM_PROMPT + step, state)
-        prof = device_profile(decode_steps, ("flash_attention_kernel",))
+        prof = device_profile(decode_steps, K7_KERNEL_NAMES)
     log_profile(f"llm decode ({DECODE_PROFILED} decode_steps)", prof, "K7")
     log(f"[llm] decode: device_events_per_step="
         f"{prof[4] / DECODE_PROFILED:.0f} host_ms_per_step="
@@ -1146,21 +1163,34 @@ def k7_pairs(l, window):
     return w * (w + 1) // 2 + (l - w) * w
 
 
-def k7_check(label, bh, l, d, window, dtype, dev):
+def k7_check(label, b, l, h, kv, d, window, dtype, dev):
     """K7 against its plain version on seeded normal q, k, v -> a dict of
     its numbers: error, times, bound, and SDPA's time where the case has
-    no window."""
+    no window. ``kv`` None: the merged (B*H, L, D) layout through
+    ``flash_attention_bhld``; else q (B, L, H, D) and k, v (B, L, KV, D)
+    through ``flash_attention_blhd``."""
     from repro_torch.kernels import flash_attention as fa
-    g = torch.Generator(device=dev).manual_seed(bh + l + d)
-    q, k, v = (torch.randn((bh, l, d), generator=g, device=dev).to(dtype)
-               for _ in range(3))
+    g = torch.Generator(device=dev).manual_seed(b * h + l + d)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     kw = dict(scale=d ** -0.5, window=window)
-    got = fa.flash_attention_bhld(q, k, v, **kw)
+    if kv is None:
+        q, k, v = (torch.randn((b * h, l, d), generator=g, device=dev)
+                   .to(dtype) for _ in range(3))
+        kernel, plain = fa.flash_attention_bhld, fa.flash_attention_bhld_ref
+        q4, k4, v4 = (x.view(1, b * h, l, d) for x in (q, k, v))
+        gqa, kv_heads = False, h
+    else:
+        q, k, v = (torch.randn((b, l, n, d), generator=g, device=dev)
+                   .to(dtype) for n in (h, kv, kv))
+        kernel, plain = fa.flash_attention_blhd, fa.flash_attention_blhd_ref
+        q4, k4, v4 = (x.transpose(1, 2) for x in (q, k, v))
+        gqa, kv_heads = kv != h, kv
+    got = kernel(q, k, v, **kw)
     torch.cuda.synchronize()
     ev = (torch.cuda.Event(enable_timing=True),
           torch.cuda.Event(enable_timing=True))
     ev[0].record()
-    want = fa.flash_attention_bhld_ref(q, k, v, **kw)
+    want = plain(q, k, v, **kw)
     ev[1].record()
     torch.cuda.synchronize()
     tol = K7_TOL[dtype]
@@ -1173,13 +1203,13 @@ def k7_check(label, bh, l, d, window, dtype, dev):
     out = dict(label=label, max_abs_err=err, plain_ms=ev[0].elapsed_time(
         ev[1]), tol=tol)
     del want, diff
-    out["ms"] = cuda_ms(lambda: fa.flash_attention_bhld(q, k, v, **kw), 20)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    q4, k4, v4 = (x.view(1, bh, l, d) for x in (q, k, v))
-    out["library_ms"] = (cuda_ms(lambda: sdpa(q4, k4, v4, is_causal=True),
-                                 20) if window is None else None)
-    moved = 4 * q.numel() * q.element_size()
-    flops = 4 * bh * k7_pairs(l, window) * d
+    out["ms"] = cuda_ms(lambda: kernel(q, k, v, **kw), 20)
+    out["library_ms"] = (cuda_ms(lambda: sdpa(q4, k4, v4, is_causal=True,
+                                              enable_gqa=gqa), 20)
+                         if window is None else None)
+    # Q and O at H heads, K and V at the heads the kernel reads
+    moved = 2 * (h + kv_heads) * b * l * d * q.element_size()
+    flops = 4 * b * h * k7_pairs(l, window) * d
     rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
     byte_ms = moved / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / rate * 1e3
@@ -1188,6 +1218,27 @@ def k7_check(label, bh, l, d, window, dtype, dev):
         flops=flops)
     del q, k, v, got
     torch.cuda.empty_cache()
+    return out
+
+
+def k7_registers(log_text: str) -> list[str]:
+    """Per K7 kernel in an ``nvcc -Xptxas -v`` log: its template
+    arguments, registers at entry and spill bytes."""
+    out, name = [], None
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            name = next((k for k in K7_KERNEL_NAMES if k in line), None)
+            if name == "flash_attention_wgmma":
+                # mangled ..._wgmmaILi128EEv...: the head dim D
+                args = line.split("wgmmaI", 1)[1].split("EE", 1)[0]
+                name += "<" + ", ".join(
+                    args.replace("Li", " ").replace("E", " ").split()) + ">"
+        elif name and "spill stores" in line:
+            spills = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            regs = line.split("Used", 1)[1].split("registers")[0].strip()
+            out.append(f"{name}: registers={regs} {spills}")
+            name = None
     return out
 
 
@@ -1280,8 +1331,12 @@ def main() -> int:
 
     # ---- phase 1: build ------------------------------------------------ #
     t0 = time.perf_counter()
-    took = _build.build(extra_flags=("-Xptxas", "-v"))
+    build_logs: dict = {}
+    took = _build.build(extra_flags=("-Xptxas", "-v"), logs=build_logs)
     log(f"[build] {json.dumps(took)} total_s={time.perf_counter() - t0:.3f}")
+    k7_regs = k7_registers(build_logs.get("flash_attention", ""))
+    for line in k7_regs:
+        log(f"[build K7] {line}")
 
     # worker processes make the livej data and run the measures phase's
     # CPU side while this process drives the card; it keeps to one CPU
@@ -1506,21 +1561,26 @@ def main() -> int:
         f"bit-equal to plain, pairs={small_tile_case(dev)}")
     k7 = [k7_check(*case, dev) for case in K7_CASES]
     for case, c in zip(K7_CASES, k7):
-        line = (f"[kernel K7] {c['label']}: BH={case[1]} L={case[2]} "
-                f"D={case[3]} window={case[4]} {str(case[5])[6:]} "
-                f"max_abs_err={c['max_abs_err']:.3e} (atol = rtol = "
-                f"{c['tol']}) plain_ms={c['plain_ms']:.3f}")
-        line += (f" ms={c['ms']:.4f} bound_ms={c['bound_ms']:.6f} "
-                 f"bound_by={c['bound_by']} bytes={c['bytes']} "
-                 f"flops={c['flops']} over_bound="
-                 f"{c['ms'] / c['bound_ms']:.1f} sdpa_ms={c['library_ms']}")
-        log(line)
+        b, l, h, kv, d, window, dtype = case[1:]
+        lib = c["library_ms"]
+        log(f"[kernel K7] {c['label']}: B={b} L={l} H={h} "
+            f"KV={'merged' if kv is None else kv} D={d} window={window} "
+            f"{str(dtype)[6:]} max_abs_err={c['max_abs_err']:.3e} (atol = "
+            f"rtol = {c['tol']}) plain_ms={c['plain_ms']:.3f} "
+            f"ms={c['ms']:.4f} bound_ms={c['bound_ms']:.6f} "
+            f"bound_by={c['bound_by']} bytes={c['bytes']} "
+            f"flops={c['flops']} share_of_bound="
+            f"{c['bound_ms'] / c['ms']:.3f} tflops="
+            f"{c['flops'] / c['ms'] / 1e9:.1f} sdpa_ms={lib} over_sdpa="
+            f"{c['ms'] / lib if lib else None}")
     kernels["K7"] = dict(
         max_abs_err=max(c["max_abs_err"] for c in k7), ms=k7[0]["ms"],
         plain_ms=k7[0]["plain_ms"], bound_ms=k7[0]["bound_ms"],
         bound_by=k7[0]["bound_by"], library_ms=k7[0]["library_ms"],
         library_note="one torch.nn.functional.scaled_dot_product_attention("
-                     "is_causal=True) on the same q, k, v as (1, B*H, L, D)",
+                     "is_causal=True, enable_gqa=True) on the same q, k, v "
+                     "as (B, heads, L, D) views",
+        registers=k7_regs,
         check="within the reference's tolerances of its plain version (bf16 "
               "atol = rtol = 2e-2, float32 2e-5) at " + ", ".join(
                   c["label"] for c in k7))

@@ -66,12 +66,14 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names=KERNEL_SOURCES, extra_flags=()) -> dict[str, float]:
+def build(names=KERNEL_SOURCES, extra_flags=(),
+          logs: dict | None = None) -> dict[str, float]:
     """Compile every library of ``names`` that is not built yet, one
     ``nvcc`` per source, all started together. Returns the seconds each
     build took (0.0 for one already built). ``extra_flags`` (for example
     ``("-Xptxas", "-v")`` to print register use) are appended to the
-    compile command without changing the library's name."""
+    compile command without changing the library's name; ``logs``, when
+    given, receives each compiled source's ``nvcc`` output by name."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     procs = {}
@@ -94,6 +96,8 @@ def build(names=KERNEL_SOURCES, extra_flags=()) -> dict[str, float]:
         took[name] = time.perf_counter() - t0
         if log.strip():
             print(f"[nvcc {name}]\n{log.rstrip()}", flush=True)
+        if logs is not None:
+            logs[name] = log
         if proc.returncode != 0:
             failed.append(f"{name} (exit {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)

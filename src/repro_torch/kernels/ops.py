@@ -19,8 +19,9 @@ kernel (K2 / K4) computes per-tile masks and exact counts, and only the
 packed pairs come back. The LFVT walk rides the same protocol: K1 on the
 host's live-tile list, or K6 on a plan made on the device
 (``schedule="device"``), which leaves dispatch free of any wait for
-the device. ``flash_attention`` takes the model's (B, L, H, D) layout to
-K7's merged (B*H, L, D) and back.
+the device. ``flash_attention`` hands the model's (B, L, H, D) queries
+and (B, L, KV, D) keys and values to K7 as they are: no copy, no
+expansion of the KV heads.
 """
 from __future__ import annotations
 
@@ -578,30 +579,18 @@ def lfvt_walk_join_pairs_dispatch(flat, r_padded: torch.Tensor, r_sizes,
 # attention (K7)
 # ---------------------------------------------------------------------- #
 def flash_attention(q, k, v, window=None):
-    """Causal flash attention. q, k, v (B, L, H, D), KV pre-expanded to H.
-
-    Merges (B, H) into the kernel's leading dimension as the reference
-    does and splits it back. No padding: the kernel masks the ragged
-    edge itself. Inference only (no backward kernel)."""
-    b, l, h, d = q.shape
-
-    def merge(x):   # a copy: a view here (B = 1) would not be contiguous
-        return x.transpose(1, 2).contiguous().view(b * h, l, d)
-    o = _fa.flash_attention_bhld(merge(q), merge(k), merge(v),
-                                 scale=d ** -0.5, window=window)
-    return o.reshape(b, h, l, d).transpose(1, 2)
+    """Causal flash attention. q (B, L, H, D); k, v (B, L, KV, D) with KV
+    dividing H: query head h attends with KV head h // (H // KV), read in
+    place (no expanded copy, no merged layout). The kernel masks the
+    ragged edge itself, so nothing is padded. Inference only (no backward
+    kernel)."""
+    return _fa.flash_attention_blhd(q, k, v, scale=q.shape[-1] ** -0.5,
+                                    window=window)
 
 
 def flash_attention_ref(q, k, v, window=None):
     """Full-softmax oracle for the flash kernel (same masks, float32
-    math), in the (B, L, H, D) layout."""
-    b, l, h, d = q.shape
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (d ** -0.5)
-    qp = torch.arange(l, device=q.device)[:, None]
-    kp = torch.arange(l, device=q.device)[None, :]
-    mask = kp <= qp
-    if window is not None:
-        mask &= kp > (qp - window)
-    s = torch.where(mask[None, None], s, _fa.NEG)
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+    math), in the (B, L, H, D) layout; k, v may hold fewer (KV) heads, as
+    in ``flash_attention``."""
+    return _fa.flash_attention_blhd_ref(q, k, v, scale=q.shape[-1] ** -0.5,
+                                        window=window)

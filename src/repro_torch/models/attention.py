@@ -127,10 +127,9 @@ def _chunk_attend(q_chunk, k, v, pos_q, pos_kv, window, scale):
 def flash_attention_block(p, x, positions, dims: AttnDims,
                           theta: float) -> torch.Tensor:
     """Full-sequence attention through the flash kernel K7 (its plain
-    version on the CPU); the contract of ``attention``."""
+    version on the CPU); the contract of ``attention``. K7 reads each
+    query head's KV head in place: K and V are never expanded."""
     q, k, v = _qkv(p, x, dims, positions, theta)
-    k = _expand_kv(k, dims.n_heads_p)
-    v = _expand_kv(v, dims.n_heads_p)
     out = ops.flash_attention(q, k, v, window=dims.window)
     return _out_proj(out, p, dims)
 

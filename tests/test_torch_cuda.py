@@ -350,10 +350,13 @@ def flash_inputs(device, seed, bh, lpad, d, dtype):
 @pytest.mark.parametrize("l,lpad,d,window", [
     (64, 64, 16, None), (70, 70, 32, None), (70, 128, 64, None),
     (200, 200, 128, None), (200, 200, 64, 24), (130, 130, 16, 8),
-    (300, 300, 128, 100), (64, 64, 128, 64)])
+    (300, 300, 128, 100), (64, 64, 128, 64), (1, 64, 32, None),
+    (129, 192, 128, 5), (255, 256, 16, None), (333, 333, 32, 40),
+    (520, 640, 64, 130)])
 def test_flash_kernel_matches_plain(cuda, dtype, l, lpad, d, window):
-    """Causal, ragged (l not a multiple of 64, and l_real < Lpad),
-    windowed, at every head dim the kernel takes."""
+    """The merged layout: causal, ragged (l not a multiple of 64 or 128,
+    and l_real < Lpad), windowed (down to a window far smaller than one
+    key block), at every head dim the kernel takes."""
     q, k, v = flash_inputs(cuda, l + d, 3, lpad, d, dtype)
     before = fa.flash_attention_bhld.launches
     got = fa.flash_attention_bhld(q, k, v, scale=d ** -0.5, window=window,
@@ -368,21 +371,46 @@ def test_flash_kernel_matches_plain(cuda, dtype, l, lpad, d, window):
                                atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("window", [None, 40])
-def test_flash_ops_layout_on_cuda(cuda, window):
-    """``ops.flash_attention`` in the (B, L, H, D) layout: one launch,
-    equal to the (B, L, H, D) oracle and to the CPU's plain path."""
-    rng = np.random.default_rng(9)
-    qkv = [torch.tensor(rng.normal(size=(2, 100, 3, 32)).astype(np.float32),
-                        device=cuda).to(torch.bfloat16) for _ in range(3)]
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,l,h,kv,d,window", [
+    pytest.param(2, 100, 3, 3, 32, None, id="None"),
+    pytest.param(2, 100, 3, 3, 32, 40, id="40"),
+    (1, 300, 12, 2, 128, None), (2, 190, 4, 2, 64, 7),
+    (3, 77, 6, 1, 16, None), (1, 513, 12, 2, 128, 100),
+    (2, 64, 2, 1, 32, 200)])
+def test_flash_ops_layout_on_cuda(cuda, dtype, b, l, h, kv, d, window):
+    """``ops.flash_attention`` in the (B, L, H, D) layout, K and V at KV
+    heads (GQA groups 1, 2 and 6, read in place): one launch, equal to
+    the (B, L, H, D) oracle and to the CPU's plain path."""
+    rng = np.random.default_rng(9 + l)
+
+    def draw(heads):
+        return torch.tensor(rng.normal(size=(b, l, heads, d)).astype(
+            np.float32), device=cuda).to(dtype)
+    qkv = [draw(h), draw(kv), draw(kv)]
     before = fa.flash_attention_bhld.launches
     got = ops.flash_attention(*qkv, window=window)
     assert fa.flash_attention_bhld.launches == before + 1
+    assert got.shape == (b, l, h, d) and got.dtype == dtype
     want = ops.flash_attention_ref(*qkv, window=window)
     cpu = ops.flash_attention(*(x.cpu() for x in qkv), window=window)
+    tol = FLASH_TOL[dtype]
     for other in (want, cpu):
         torch.testing.assert_close(got.float().cpu(), other.float().cpu(),
-                                   atol=2e-2, rtol=2e-2)
+                                   atol=tol, rtol=tol)
+
+
+def test_flash_gqa_reads_strided_operands(cuda):
+    """q, k, v as views of one fused projection (B, L, H + 2 KV, D):
+    read through their strides, no copy, equal to the contiguous call."""
+    rng = np.random.default_rng(3)
+    fused = torch.tensor(rng.normal(size=(2, 150, 16, 128)).astype(
+        np.float32), device=cuda).to(torch.bfloat16)
+    q, k, v = fused[:, :, :12], fused[:, :, 12:14], fused[:, :, 14:]
+    got = ops.flash_attention(q, k, v)
+    want = ops.flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous())
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
 def test_flash_kernel_checks_operands(cuda):
@@ -407,6 +435,17 @@ def test_flash_kernel_checks_operands(cuda):
         call(q, k, v, scale=0.1, window=0)
     with pytest.raises(ValueError, match="(q|k) is on"):
         call(q, k.cpu(), v, scale=0.1)
+    # the (B, L, H, D) entry point: KV heads that do not divide H, and
+    # strides the tensor maps cannot take
+    q4, k4 = (torch.zeros(1, 64, n, 32, device=cuda, dtype=q.dtype)
+              for n in (6, 4))
+    with pytest.raises(ValueError, match="do not divide"):
+        ops.flash_attention(q4, k4, k4)
+    padded = torch.zeros(1, 64, 2, 33, device=cuda, dtype=q.dtype)[..., :32]
+    with pytest.raises(ValueError, match="16-byte strides"):
+        ops.flash_attention(q4, padded, padded)
+    with pytest.raises(ValueError, match="k must be bfloat16"):
+        ops.flash_attention(q4, k4[:, :, :2].float(), k4[:, :, :2])
 
 
 # teacher-forced logits of the card and the CPU agree within this (16

@@ -7,8 +7,13 @@ kernel runs in interpret mode here as ``tests/test_flash_attention.py``
 runs it, and against the port's own ``flash_attention_ref``, on the
 reference's cases: causal at L = 64 and 96 and the ragged L = 70, in
 float32 and bfloat16, windows 8 and 24, and the model-attention
-equivalence. Inputs are made with numpy from a seed; bfloat16 inputs are
-rounded once by JAX and carried across bit for bit.
+equivalence. Grouped-query attention is read in place by the port: its
+``ops.flash_attention`` takes the unexpanded (B, L, KV, D) keys and
+values and is held against the reference's kernel on KV expanded by the
+reference's own ``_expand_kv``, at H:KV of 12:2, 4:1 and 2:2, and its
+``flash_attention_block`` against the reference's at smoke widths. Inputs
+are made with numpy from a seed; bfloat16 inputs are rounded once by JAX
+and carried across bit for bit.
 
 Tolerances are the reference's own (``tests/test_flash_attention.py``):
 2e-5 in float32, where only the summation order differs (online against
@@ -92,6 +97,39 @@ def test_flash_bhld_plain_matches_oracle_on_real_rows():
     torch.testing.assert_close(got[:, :50], want, atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("h,kv", [(12, 2), (4, 1), (2, 2)])
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_flash_gqa_matches_reference_kernel(h, kv, window, dtype):
+    """GQA read in place, at the ragged L = 70: the port's plain K7 path
+    on the unexpanded KV heads against the reference's Pallas kernel
+    (interpret mode) on KV expanded by the reference's ``_expand_kv``."""
+    rng = np.random.default_rng(10 * h + kv)
+    l, d = 70, 16
+
+    def draw(heads):
+        return jnp.asarray((rng.normal(size=(1, l, heads, d)) * 0.3)
+                           .astype(np.float32), dtype)
+    q, k, v = draw(h), draw(kv), draw(kv)
+    want = ref_ops.flash_attention(q, ref_attn._expand_kv(k, h),
+                                   ref_attn._expand_kv(v, h), window=window,
+                                   blocks=(32, 32), interpret=True)
+    before = fa.flash_attention_bhld.launches
+    got = ops.flash_attention(to_torch(q), to_torch(k), to_torch(v),
+                              window=window)
+    assert fa.flash_attention_bhld.launches == before  # CPU: no kernel
+    assert got.dtype == to_torch(q).dtype and got.shape == (1, l, h, d)
+    close(got.float(), want, TOLS[dtype])
+    close(ops.flash_attention_ref(to_torch(q), to_torch(k), to_torch(v),
+                                  window=window).float(), want, TOLS[dtype])
+
+
+def test_flash_rejects_kv_heads_that_do_not_divide():
+    q, k = torch.zeros(1, 8, 6, 16), torch.zeros(1, 8, 4, 16)
+    with pytest.raises(ValueError, match="do not divide"):
+        ops.flash_attention(q, k, k)
+
+
 def test_flash_rejects_a_window_below_one():
     q = torch.zeros(1, 8, 16)
     with pytest.raises(ValueError, match="window"):
@@ -109,12 +147,18 @@ def _attn_params(dims, d_model, seed):
     return p
 
 
-@pytest.mark.parametrize("window", [None, 24])
-def test_flash_block_matches_model_attention(window):
+@pytest.mark.parametrize("window,heads", [
+    pytest.param(None, (4, 2), id="None"), pytest.param(24, (4, 2), id="24"),
+    pytest.param(None, (3, 1), id="qwen2-smoke-heads"),
+    pytest.param(24, (12, 2), id="12:2-24")])
+def test_flash_block_matches_model_attention(window, heads):
     """End to end: the flash block equals the chunked attention path of
-    the port, and both equal the reference's chunked attention."""
-    dims = ref_attn.AttnDims(4, 4, 2, 2, 16, window)
-    pdims = port_attn.AttnDims(4, 4, 2, 2, 16, window)
+    the port, and both equal the reference's chunked attention and its
+    flash block (the Pallas kernel in interpret mode on expanded KV); the
+    port's flash block reads the KV heads in place."""
+    h, kv = heads
+    dims = ref_attn.AttnDims(h, h, kv, kv, 16, window)
+    pdims = port_attn.AttnDims(h, h, kv, kv, 16, window)
     p = _attn_params(dims, 32, 0)
     pp = params_from_reference(jax.tree.map(np.asarray, p), device="cpu")
     rng = np.random.default_rng(0)
@@ -122,6 +166,8 @@ def test_flash_block_matches_model_attention(window):
     pos = np.arange(64, dtype=np.int32)
     want = ref_attn.attention(p, jnp.asarray(x), jnp.asarray(pos), dims,
                               1e4, chunk=16)
+    ref_flash = ref_attn.flash_attention_block(
+        p, jnp.asarray(x), jnp.asarray(pos), dims, 1e4, blocks=(16, 16))
     xt, pt = torch.from_numpy(x), torch.from_numpy(pos)
     flash = port_attn.flash_attention_block(pp, xt, pt, pdims, 1e4)
     chunked = port_attn.attention(pp, xt, pt, pdims, 1e4, chunk=16)
@@ -129,3 +175,4 @@ def test_flash_block_matches_model_attention(window):
     close(flash, want, 2e-4)
     close(chunked, want, 2e-4)
     close(flash, chunked, 2e-4)
+    close(flash, ref_flash, 2e-4)
