@@ -9,7 +9,9 @@ through these phases, in order; any failure raises and exits non-zero:
 
   1. print the card (``nvidia-smi`` name and power limit) and build every
      CUDA kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
-     source, all at once);
+     source, all at once), with the registers and spills of K7's and
+     K4/K5's kernels as ``nvcc -Xptxas -v`` reports them and the dynamic
+     shared memory a K4/K5 CTA asks for;
   2. measures phase: at |R| = |S| = 4 000, all 4 measures x
      t in {0.5, 0.7, 0.9, 2/3} x both emit modes, for ``lfvt``
      (``dblp``-shaped) and for ``popcount``, ``onehot``,
@@ -34,7 +36,9 @@ through these phases, in order; any failure raises and exits non-zero:
      ``kernel_onehot`` with ``emit="pairs"`` (K2, K4) and ``onehot``
      (K5). Every launch count is set to 0 just before each of these runs
      and read just after; each run must launch its kernel and give the
-     lfvt join's pairs;
+     lfvt join's pairs. Then ``kernel_onehot`` and ``onehot`` again, warm
+     (the default call's pairs), and ``kernel_onehot`` under
+     ``torch.profiler`` (device-busy time, K4's share, the idle share);
   5. serve phase: ``repro_torch.DedupServeEngine`` on the card, with the
      livej S side (100 000 sets) as its corpus, at t = 0.8. Stream A:
      4 096 requests (half exact copies of corpus sets, half livej R
@@ -75,7 +79,9 @@ through these phases, in order; any failure raises and exits non-zero:
      thresholds (K1) and at t = 0.5 (K2-K5), plus a small-tile case for
      K2-K5; all are timed with CUDA events at t = 0.8, beside their bound
      and, for K4/K5, one bf16 ``torch.matmul`` of the block's unpacked
-     membership matrices; K7 against its plain version within the
+     membership matrices, the live tiles' cells, the 128-bit stages with
+     a set word on both sides (what K4/K5 expand and multiply) and the
+     int8 rate that makes; K7 against its plain version within the
      reference's tolerances at the ``K7_CASES``: the qwen2-1.5b prefill
      shape as the main path gives it (q at 12 heads, k and v at their 2
      KV heads, read in place: B = 8, L = 2 048, D = 128), the same shape
@@ -92,11 +98,13 @@ Exits 2 without a result when torch sees no CUDA device.
 """
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import itertools
 import json
 import multiprocessing
 import os
+import re
 import subprocess
 import sys
 import time
@@ -531,7 +539,7 @@ def tiled_check(kid, args, t, timed):
 
     got = call(wrap)
     torch.cuda.synchronize()
-    ms = cuda_ms(lambda: call(wrap), 3) if timed else None
+    ms = cuda_ms(lambda: call(wrap), 10) if timed else None
     ev = (torch.cuda.Event(enable_timing=True),
           torch.cuda.Event(enable_timing=True))
     ev[0].record()
@@ -594,6 +602,25 @@ def membership_matmul_ms(r_bm, s_bm):
     del br, bs
     torch.cuda.empty_cache()
     return ms
+
+
+def onehot_work(args):
+    """(live cells, stage products, live stage-tiles) of a K4/K5 call: the
+    cells of its live tiles, and how many of their 128-bit stages (4
+    words) hold a set word on both the R side and the S side, which is
+    what the kernel expands and multiplies, of all the live tiles'
+    stages."""
+    ops_, _, (ti, tj), (TM, TN, _), _ = args
+
+    def stage_any(bm, rows):
+        pad = -bm.shape[1] % 4
+        x = torch.nn.functional.pad(bm, (0, pad)) if pad else bm
+        return (x.view(x.shape[0] // rows, rows, -1, 4) != 0).any(
+            dim=3).any(dim=1)
+
+    r_nz, s_nz = stage_any(ops_[0], TM), stage_any(ops_[2], TN)
+    products = int((r_nz[ti.long()] & s_nz[tj.long()]).sum())
+    return len(ti) * TM * TN, products, len(ti) * r_nz.shape[1]
 
 
 def small_tile_case(dev):
@@ -1221,18 +1248,20 @@ def k7_check(label, b, l, h, kv, d, window, dtype, dev):
     return out
 
 
-def k7_registers(log_text: str) -> list[str]:
-    """Per K7 kernel in an ``nvcc -Xptxas -v`` log: its template
-    arguments, registers at entry and spill bytes."""
+def ptxas_registers(log_text: str, names) -> list[str]:
+    """Per kernel of ``names`` in an ``nvcc -Xptxas -v`` log: its template
+    arguments (from the mangled name: ``Li128E`` is 128, ``Lb1E`` true),
+    registers at entry and spill bytes."""
     out, name = [], None
     for line in log_text.splitlines():
         if "Compiling entry function" in line:
-            name = next((k for k in K7_KERNEL_NAMES if k in line), None)
-            if name == "flash_attention_wgmma":
-                # mangled ..._wgmmaILi128EEv...: the head dim D
-                args = line.split("wgmmaI", 1)[1].split("EE", 1)[0]
-                name += "<" + ", ".join(
-                    args.replace("Li", " ").replace("E", " ").split()) + ">"
+            name = next((k for k in names if k in line), None)
+            if name and f"{name}I" in line:
+                args = line.split(f"{name}I", 1)[1].split("EE", 1)[0] + "E"
+                vals = [("true" if v == "1" else "false") if kind == "b"
+                        else v for kind, v in re.findall(r"L([bi])(\d+)E",
+                                                         args)]
+                name += "<" + ", ".join(vals) + ">"
         elif name and "spill stores" in line:
             spills = line.strip()
         elif name and "Used" in line and "registers" in line:
@@ -1240,6 +1269,19 @@ def k7_registers(log_text: str) -> list[str]:
             out.append(f"{name}: registers={regs} {spills}")
             name = None
     return out
+
+
+def onehot_smem_lines() -> list[str]:
+    """The dynamic shared memory one K4/K5 CTA asks for, per configuration
+    (the library's ``onehot_join_smem_bytes``)."""
+    from repro_torch.kernels import _build
+    so = _build.load("onehot_join")
+    so.onehot_join_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    so.onehot_join_smem_bytes.restype = ctypes.c_int
+    return [f"<{cons}, {tn}> (TM {'65-128' if cons == 2 else '1-64'}, "
+            f"TN {tn}): dynamic_smem_bytes="
+            f"{so.onehot_join_smem_bytes(64 * cons, tn)}"
+            for cons in (1, 2) for tn in (128, 256)]
 
 
 def measures_configs():
@@ -1334,9 +1376,14 @@ def main() -> int:
     build_logs: dict = {}
     took = _build.build(extra_flags=("-Xptxas", "-v"), logs=build_logs)
     log(f"[build] {json.dumps(took)} total_s={time.perf_counter() - t0:.3f}")
-    k7_regs = k7_registers(build_logs.get("flash_attention", ""))
+    k7_regs = ptxas_registers(build_logs.get("flash_attention", ""),
+                              K7_KERNEL_NAMES)
     for line in k7_regs:
         log(f"[build K7] {line}")
+    onehot_regs = ptxas_registers(build_logs.get("onehot_join", ""),
+                                  ("onehot_join_kernel",))
+    for line in onehot_regs + onehot_smem_lines():
+        log(f"[build K4/K5] {line}")
 
     # worker processes make the livej data and run the measures phase's
     # CPU side while this process drives the card; it keeps to one CPU
@@ -1453,6 +1500,19 @@ def main() -> int:
         ("bitmap_join_kernel<false>", "bitmap_join_kernelILb0E")), "K3")
     for method in ("kernel_bitmap", "kernel_onehot", "onehot"):
         front_door(method, method=method)
+    # the one-hot family warm, against the default call's pairs
+    for method in ("kernel_onehot", "onehot"):
+        t0 = time.perf_counter()
+        warm = repro_torch.join(R, Ss, MAIN_T, method=method)
+        wall = time.perf_counter() - t0
+        if warm.pairs != auto.pairs:
+            raise AssertionError(f"warm {method} join: {len(warm.pairs)} "
+                                 f"pairs, auto {len(auto.pairs)}")
+        log(f"[join {method}] warm_wall_s={wall:.3f} pairs="
+            f"{len(warm.pairs)} (== auto)")
+    log_profile("warm kernel_onehot join", device_profile(
+        lambda: repro_torch.join(R, Ss, MAIN_T, method="kernel_onehot"),
+        ("onehot_join_kernel",)), "K4")
 
     # ---- phase 5: the dedup service on the livej corpus -------------- #
     t0 = time.perf_counter()
@@ -1514,6 +1574,10 @@ def main() -> int:
         for t in (MAIN_T, WIDE_T):
             args = tiled_operands(R, Ss, rows_blk, t, family, None, dev,
                                   s_bm)
+            onehot_main = family == "onehot" and t == MAIN_T
+            if onehot_main:
+                lib = membership_matmul_ms(args[0][0], args[0][2])
+                live_cells, products, stage_tiles = onehot_work(args)
             for kid in kids:
                 kgot, kerr, kms, kplain, kpairs = tiled_check(
                     kid, args, t, t == MAIN_T)
@@ -1535,21 +1599,33 @@ def main() -> int:
                              f"bound_ms={b_ms:.6f} bound_by={b_by} "
                              f"bytes={b_bytes} ops={b_ops} "
                              f"over_bound={kms / b_ms:.1f}")
-                log(line)
-            if family == "onehot" and t == MAIN_T:
-                lib = membership_matmul_ms(args[0][0], args[0][2])
-                log(f"[library K4/K5] bf16 torch.matmul of the block's "
-                    f"unpacked membership matrices (product only) "
-                    f"ms={lib:.4f}")
-                for kid in kids:
+                if onehot_main:
+                    TM, TN, _ = args[3]
+                    issued = 2 * TM * TN * 128 * products / (kms * 1e9)
+                    dense = (2 * live_cells * 32 * args[0][0].shape[1]
+                             / (kms * 1e9))
+                    line += (f" live_cells={live_cells} stage_products="
+                             f"{products} of {stage_tiles} live stage-tiles"
+                             f" ({products / stage_tiles:.3f})"
+                             f" issued_tops={issued:.1f} issued_share="
+                             f"{issued * 1e12 / INT8_OPS_PER_S:.3f}"
+                             f" live_dense_tops={dense:.1f} library_ms="
+                             f"{lib:.4f} over_library={kms / lib:.3f}")
                     kernels[kid].update(
                         library_ms=lib, library_note=(
                             "one bf16 torch.matmul of the pre-unpacked "
                             "membership matrices: the product only, no "
                             "predicate, window or mask"))
+                log(line)
+            if onehot_main:
+                log(f"[library K4/K5] bf16 torch.matmul of the block's "
+                    f"unpacked membership matrices (product only) "
+                    f"ms={lib:.4f}")
     for kid in ("K2", "K3"):
         kernels[kid].update(library_ms=None, library_note=(
             "no single PyTorch call computes AND-popcount-sum"))
+    for kid in ("K4", "K5"):
+        kernels[kid]["registers"] = onehot_regs
     for kid in ("K2", "K3", "K4", "K5"):
         kernels[kid].update(
             max_abs_err=tiled_err[kid],
@@ -1593,7 +1669,8 @@ def main() -> int:
                     "main_run": MAIN_RUN[kid], **kernels[kid]})
     not_ported = [{"id": k, "name": n, "status": "not_ported", "replaces": r}
                   for k, n, r in NOT_PORTED]
-    log(f"[total] s={time.perf_counter() - T_START:.3f}")
+    log(f"[total] s={time.perf_counter() - T_START:.3f} of the 1200 s "
+        "limit")
     print(json.dumps({"kernels": out, "not_ported": not_ported}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,7 +31,8 @@ from . import _build
 
 __all__ = ["DEFAULT_TILES", "bitmap_join_tiled", "bitmap_join_live_tiled",
            "bitmap_join_tiled_ref", "bitmap_join_live_tiled_ref",
-           "tiled_ref", "live_tiled_ref", "launch_tiled", "launch_live"]
+           "tiled_ref", "live_tiled_ref", "launch_tiled", "launch_live",
+           "cta_order"]
 
 #: (TM, TN, TW), the reference's; ``ops.pick_tiles`` shrinks them for
 #: small operands
@@ -102,6 +103,27 @@ def bitmap_join_live_tiled_ref(tile_i, tile_j, r_bitmaps, r_sizes,
 # CUDA kernel wrappers (shared with the one-hot kernels, which take the
 # same operands)
 # ---------------------------------------------------------------------- #
+#: kernel libraries whose live-tile entry point takes, after tile_j, the
+#: order in which its CTAs take the live tiles (a permutation)
+ORDERED_LIBS = ("onehot_join",)
+
+#: kernel libraries that read each row's words in 16-byte pieces: the
+#: word axis of their bitmaps is zero-padded to a multiple of 4 before a
+#: launch (a copy; zero words add nothing to any count)
+QUAD_WORD_LIBS = ("onehot_join",)
+
+#: the (TM, TN) each kernel library takes: K2/K3 cut a tile into CTA
+#: sub-tiles of min(TM, 64) rows x 64 columns; K4/K5 run one CTA per tile
+#: of one or two 64-row warpgroups
+TILE_RULES = {
+    "bitmap_join": (lambda tm, tn: tn % 64 == 0 and tm >= 1
+                    and (tm <= 64 or tm % 64 == 0),
+                    "TN a multiple of 64 and TM <= 64 or a multiple of 64"),
+    "onehot_join": (lambda tm, tn: 1 <= tm <= 128 and tn in (128, 256),
+                    "1 <= TM <= 128 and TN in (128, 256)"),
+}
+
+
 @functools.cache
 def _launchers(lib: str):
     """(tiled, live) C entry points of ``csrc/<lib>.cu``, built at first
@@ -114,28 +136,29 @@ def _launchers(lib: str):
     tiled.argtypes = [ptr] * 7 + [i32] * 8 + [ptr, ptr]
     tiled.restype = i32
     live = getattr(so, f"{lib}_live_tiled_launch")
-    # ti, tj, L, r, s, rsz, ssz, lo, hi, N, W, tm, tn, measure, p, q,
-    # mask, counts, stream
-    live.argtypes = [ptr, ptr, i32] + [ptr] * 6 + [i32] * 7 + [ptr] * 3
+    # ti, tj, [order], L, r, s, rsz, ssz, lo, hi, N, W, tm, tn, measure, p,
+    # q, mask, counts, stream
+    live.argtypes = ([ptr] * (3 if lib in ORDERED_LIBS else 2) + [i32]
+                     + [ptr] * 6 + [i32] * 7 + [ptr] * 3)
     live.restype = i32
     return tiled, live
 
 
-def _check_operands(who, tiles, r_bitmaps, r_sizes, s_bitmaps, s_sizes, lo,
-                    hi):
+def _check_operands(lib, who, tiles, r_bitmaps, r_sizes, s_bitmaps, s_sizes,
+                    lo, hi):
     """Shapes of the padded operands -> (M, N, W); raises ``ValueError``
-    on a tiling the kernels do not take or an operand that is not an
-    int32 contiguous tensor on the bitmaps' device."""
+    on a tiling the kernels of ``lib`` do not take or an operand that is
+    not an int32 contiguous tensor on the bitmaps' device."""
     TM, TN, TW = tiles
     M, W = r_bitmaps.shape
     N = s_bitmaps.shape[0]
     if M % TM or N % TN or W % TW:
         raise ValueError(f"{who}: operands ({M}, {N}, {W}) are not padded "
                          f"to the tiles {tuple(tiles)}")
-    # CTA sub-tiles are min(TM, 64) rows x 64 columns
-    if TN % 64 or (TM > 64 and TM % 64) or TM < 1:
-        raise ValueError(f"{who}: the kernel takes TN a multiple of 64 and "
-                         f"TM <= 64 or a multiple of 64, got {tuple(tiles)}")
+    takes, rule = TILE_RULES[lib]
+    if not takes(TM, TN):
+        raise ValueError(f"{who}: the kernel takes {rule}, got "
+                         f"{tuple(tiles)}")
     device = r_bitmaps.device
     for name, x, shape in (("r_bitmaps", r_bitmaps, (M, W)),
                            ("s_bitmaps", s_bitmaps, (N, W)),
@@ -146,12 +169,21 @@ def _check_operands(who, tiles, r_bitmaps, r_sizes, s_bitmaps, s_sizes, lo,
     return M, N, W
 
 
+def _quad_words(lib, r_bitmaps, s_bitmaps, W):
+    """The bitmaps as ``lib``'s kernels read them -> (r, s, W)."""
+    pad = -W % 4 if lib in QUAD_WORD_LIBS else 0
+    if pad:
+        r_bitmaps, s_bitmaps = (torch.nn.functional.pad(x, (0, pad))
+                                for x in (r_bitmaps, s_bitmaps))
+    return r_bitmaps, s_bitmaps, W + pad
+
+
 def launch_tiled(lib, who, r_bitmaps, r_sizes, s_bitmaps, s_sizes, lo, hi,
                  skip, *, t, measure, tiles):
     """Launch K3 or K5 (``lib``) on CUDA operands -> (launched, (M, N)
     bool mask); an empty grid launches nothing."""
-    M, N, W = _check_operands(who, tiles, r_bitmaps, r_sizes, s_bitmaps,
-                              s_sizes, lo, hi)
+    M, N, W = _check_operands(lib, who, tiles, r_bitmaps, r_sizes,
+                              s_bitmaps, s_sizes, lo, hi)
     TM, TN, _ = tiles
     device = r_bitmaps.device
     _build.check_operand(who, "skip", skip, (M // TM, N // TN), device,
@@ -159,6 +191,7 @@ def launch_tiled(lib, who, r_bitmaps, r_sizes, s_bitmaps, s_sizes, lo, hi,
     out = torch.empty((M, N), dtype=torch.bool, device=device)
     if M == 0 or N == 0:
         return False, out
+    r_bitmaps, s_bitmaps, W = _quad_words(lib, r_bitmaps, s_bitmaps, W)
     p, q = measures.threshold_fraction(t)
     code = measures.MEASURE_CODES[measures.get_measure(measure).name]
     err = _launchers(lib)[0](
@@ -170,26 +203,42 @@ def launch_tiled(lib, who, r_bitmaps, r_sizes, s_bitmaps, s_sizes, lo, hi,
     return True, out
 
 
+def cta_order(tile_i: torch.Tensor, tile_j: torch.Tensor,
+              m_tiles: int) -> torch.Tensor:
+    """The order in which the CTAs of an ``ORDERED_LIBS`` kernel take the
+    live tiles: column tile by column tile, row tiles ascending within
+    each (one stable sort of ``tile_j * m_tiles + tile_i``), so the CTAs
+    that run together share their S words in the L2 cache -> (L,) int32
+    permutation of the tile indices, on their device."""
+    key = tile_j.long() * m_tiles + tile_i.long()
+    return torch.argsort(key, stable=True).to(torch.int32)
+
+
 def launch_live(lib, who, tile_i, tile_j, r_bitmaps, r_sizes, s_bitmaps,
                 s_sizes, lo, hi, *, t, measure, tiles):
     """Launch K2 or K4 (``lib``) on CUDA operands -> (launched, (mask
     (L, TM, TN) bool, counts (L, 1) int32)); no live tile launches
-    nothing."""
-    M, N, W = _check_operands(who, tiles, r_bitmaps, r_sizes, s_bitmaps,
-                              s_sizes, lo, hi)
+    nothing. A library of ``ORDERED_LIBS`` is also given ``cta_order``;
+    tile l's outputs stay at index l."""
+    M, N, W = _check_operands(lib, who, tiles, r_bitmaps, r_sizes,
+                              s_bitmaps, s_sizes, lo, hi)
     TM, TN, _ = tiles
     device = r_bitmaps.device
     L = tile_i.shape[0]
-    for name, x in (("tile_i", tile_i), ("tile_j", tile_j)):
+    lead = [tile_i, tile_j]
+    for name, x in zip(("tile_i", "tile_j"), lead):
         _build.check_operand(who, name, x, (L,), device, torch.int32)
+    if lib in ORDERED_LIBS:
+        lead.append(cta_order(tile_i, tile_j, M // TM))
     masks = torch.empty((L, TM, TN), dtype=torch.bool, device=device)
     counts = torch.zeros((L, 1), dtype=torch.int32, device=device)
     if L == 0:
         return False, (masks, counts)
+    r_bitmaps, s_bitmaps, W = _quad_words(lib, r_bitmaps, s_bitmaps, W)
     p, q = measures.threshold_fraction(t)
     code = measures.MEASURE_CODES[measures.get_measure(measure).name]
     err = _launchers(lib)[1](
-        tile_i.data_ptr(), tile_j.data_ptr(), L, r_bitmaps.data_ptr(),
+        *(x.data_ptr() for x in lead), L, r_bitmaps.data_ptr(),
         s_bitmaps.data_ptr(), r_sizes.data_ptr(), s_sizes.data_ptr(),
         lo.data_ptr(), hi.data_ptr(), N, W, TM, TN, code, p, q,
         masks.data_ptr(), counts.data_ptr(),

@@ -11,8 +11,14 @@ the same uint32 bitmap words.
   * ``onehot_join_live_tiled`` (K4) — the live (i, j) tiles only, into
     an (L, TM, TN) mask and (L, 1) counts.
 
-The kernels (``csrc/onehot_join.cu``) multiply on the card's int8 tensor
-cores with int32 accumulators, exact at any size. The plain PyTorch
+The kernels (``csrc/onehot_join.cu``) run one CTA per tile: a warpgroup
+expands each bitmap word once into int8 0/1 operands in shared memory
+while one or two others multiply them with ``wgmma`` on the card's int8
+tensor cores into int32 accumulators, exact at any size; they take
+tiles of at most 128 rows by 128 or 256 columns (every tile
+``ops.pick_tiles`` gives). K4's CTAs take the live tiles column tile by
+column tile (``bitmap_join.cta_order``), so the tiles that run together
+share their S words in the L2 cache. The plain PyTorch
 versions multiply float32 0/1 matrices in universe chunks (exact: every
 partial count is an integer below 2^24, and 0 and 1 survive TF32's
 rounding of the inputs). Wrappers take the plain version on CPU tensors
@@ -119,7 +125,8 @@ def onehot_join_live_tiled(tile_i, tile_j, r_bitmaps, r_sizes, s_bitmaps,
                            s_sizes, lo, hi, *, t: float,
                            measure: str = "jaccard", tiles=DEFAULT_TILES):
     """One-hot join over the live tiles only (K4); the contract of
-    ``bitmap_join.bitmap_join_live_tiled``."""
+    ``bitmap_join.bitmap_join_live_tiled``. Tile l's mask and count are
+    written at index l, whatever order the CTAs take the tiles in."""
     if _device_of(r_bitmaps, "onehot_join_live_tiled") == "cpu":
         return onehot_join_live_tiled_ref(
             tile_i, tile_j, r_bitmaps, r_sizes, s_bitmaps, s_sizes, lo, hi,

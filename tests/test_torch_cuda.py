@@ -142,12 +142,32 @@ FAMILIES = {
     (300, 600, 3000, None, "jaccard", 0.5),       # the default tiles
     (300, 600, 3000, None, "overlap", 0.9),
     (300, 600, 3000, None, "jaccard", 2 / 3),
+    # every (TM, TN) the one-hot kernel takes, ragged in both axes, at
+    # W in {1, 3, 5, 9} words (not a multiple of its 4-word stage)
+    (19, 300, 32, (8, 128, 1), "jaccard", 0.5),
+    (35, 300, 96, (16, 128, 1), "cosine", 0.5),
+    (67, 300, 160, (32, 128, 1), "dice", 0.5),
+    (131, 300, 288, (64, 128, 1), "overlap", 0.7),
+    (131, 300, 32, (128, 128, 1), "jaccard", 0.5),
+    (19, 520, 96, (8, 256, 1), "jaccard", 0.5),
+    (35, 520, 160, (16, 256, 1), "cosine", 0.7),
+    (67, 520, 288, (32, 256, 1), "dice", 0.5),
+    (131, 520, 32, (64, 256, 1), "jaccard", 2 / 3),
+    (260, 520, 96, (128, 256, 1), "overlap", 0.9),
 ])
 def test_tiled_kernels_match_plain(cuda, family, m, n, universe, tiles,
                                    measure, t):
-    defaults, dense, dense_ref, live, live_ref = FAMILIES[family]
+    defaults, _, _, _, _ = FAMILIES[family]
     ops_, skip, (ti, tj), tls = tiled_inputs(cuda, m + n, m, n, universe,
                                              defaults, tiles)
+    assert_family_matches(family, ops_, skip, ti, tj, tls, measure, t)
+
+
+def assert_family_matches(family, ops_, skip, ti, tj, tls, measure, t):
+    """Both kernels of ``family`` on the padded operands, each launched
+    once (the live one when there is a live tile), bit-equal to their
+    plain versions; the live counts sum to the dense mask -> its pairs."""
+    _, dense, dense_ref, live, live_ref = FAMILIES[family]
     kw = dict(t=t, measure=measure, tiles=tls)
     before = (dense.launches, live.launches)
     got = dense(*ops_, skip, **kw)
@@ -160,6 +180,72 @@ def test_tiled_kernels_match_plain(cuda, family, m, n, universe, tiles,
     assert torch.equal(got_m.cpu(), want_m.cpu())
     assert torch.equal(got_c.cpu(), want_c.cpu())
     assert int(got_c.sum()) == int(got.sum())
+    return int(got.sum())
+
+
+def onehot_operands(device, r_bm, s_bm, lo, hi, tiles):
+    """Padded one-hot operands, skip mask and live tiles of uint32 words
+    (numpy) with the windows given."""
+    r_sz = np.bitwise_count(r_bm).sum(1).astype(np.int32)
+    s_sz = np.bitwise_count(s_bm).sum(1).astype(np.int32)
+    rb, rs, sb, ss, lo_p, hi_p, skip, tls, _, _ = ops._prepare(
+        torch.tensor(r_bm.view(np.int32), device=device), r_sz,
+        torch.tensor(s_bm.view(np.int32), device=device), s_sz, lo, hi,
+        tiles, onehot_join.DEFAULT_TILES)
+    TM, TN, _ = tls
+    ti, tj = ops._live_tiles(ops._host_rows(lo, TM), ops._host_rows(hi, TM),
+                             rb.shape[0] // TM, sb.shape[0] // TN, TM, TN)
+    return (rb, rs, sb, ss, lo_p, hi_p), skip, ti, tj, tls
+
+
+@pytest.mark.parametrize("case", ["full_rows", "many_row_tiles",
+                                  "shuffled_live_tiles", "exact_boundary"])
+def test_onehot_kernel_edges_match_plain(cuda, case):
+    """The one-hot kernels' edges, bit-equal to the plain versions: rows
+    of all ones at a universe of 8 192 (counts reach the universe); more
+    live tiles in one column tile (138) than a wave of CTAs (132); the
+    live tiles in a random order (each tile's outputs stay at its index);
+    the exact-2/3 Jaccard boundary under all four measures."""
+    rng = np.random.default_rng(21)
+    measures, t, tiles = ["jaccard"], 0.5, None
+    if case == "full_rows":
+        r_bm = rng.integers(0, 2 ** 32, (130, 256), dtype=np.uint32) & (
+            rng.integers(0, 2 ** 32, (130, 256), dtype=np.uint32))
+        s_bm = rng.integers(0, 2 ** 32, (300, 256), dtype=np.uint32)
+        r_bm[::7] = 0xFFFFFFFF
+        s_bm[::5] = 0xFFFFFFFF
+        m, n = 130, 300
+    elif case == "exact_boundary":
+        # |R| = |S| = 5 sharing 4: Jaccard exactly 2/3
+        r_bm = np.zeros((3, 2), np.uint32)
+        s_bm = np.zeros((140, 2), np.uint32)
+        r_bm[:, 0] = 0b11111
+        s_bm[:, 0] = 0b101111
+        s_bm[1::2, 1] = 0b11
+        m, n = 3, 140
+        measures, t = ["jaccard", "cosine", "dice", "overlap"], 2 / 3
+    else:
+        r_bm = rng.integers(0, 2 ** 32, (1100, 1), dtype=np.uint32)
+        s_bm = rng.integers(0, 2 ** 32, (300, 1), dtype=np.uint32)
+        m, n, tiles = 1100, 300, (8, 128, 1)
+    lo, hi = np.zeros(m, np.int32), np.full(m, n, np.int32)
+    ops_, skip, ti, tj, tls = onehot_operands(cuda, r_bm, s_bm, lo, hi,
+                                              tiles)
+    if case == "shuffled_live_tiles":
+        perm = rng.permutation(len(ti))
+        ti, tj = ti[perm], tj[perm]
+    ti, tj = torch.tensor(ti, device=cuda), torch.tensor(tj, device=cuda)
+    if case == "many_row_tiles":
+        assert int((tj == 0).sum()) > 132
+    for measure in measures:
+        pairs = assert_family_matches("onehot", ops_, skip, ti, tj, tls,
+                                      measure, t)
+        assert pairs > 0, (case, measure)
+    if case == "full_rows":
+        got_m, got_c = onehot_join.onehot_join_live_tiled(
+            ti, tj, *ops_, t=1.0, measure="jaccard", tiles=tls)
+        # the all-ones rows against the all-ones columns, and only those
+        assert int(got_c.sum()) == 19 * 60
 
 
 @pytest.mark.parametrize("family", sorted(FAMILIES))

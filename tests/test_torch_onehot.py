@@ -18,6 +18,7 @@ from repro.core import tile_join as ref_tj
 from repro.kernels import onehot_join as ref_oj
 from repro.kernels import ops as ref_ops
 from repro_torch.core import tile_join as port_tj
+from repro_torch.kernels import bitmap_join as port_bj
 from repro_torch.kernels import onehot_join as port_oj
 from repro_torch.kernels import ops as port_ops
 
@@ -104,10 +105,44 @@ def test_plain_kernels_match_pallas(measure, t):
     (24, 300, 200, (16, 128, 2)),
     (20, 300, 90, None),        # W = 3: (32, 256, 4)
     (20, 300, 90, (32, 128, 2)),
+    # every (TM, TN) the CUDA kernel takes, ragged in both axes, at
+    # W in {1, 3, 5, 9} words (not a multiple of its 4-word stage)
+    (19, 300, 32, (8, 128, 1)),
+    (35, 300, 96, (16, 128, 1)),
+    (67, 300, 160, (32, 128, 1)),
+    (131, 300, 288, (64, 128, 1)),
+    (131, 300, 32, (128, 128, 1)),
+    (19, 520, 96, (8, 256, 1)),
+    (35, 520, 160, (16, 256, 1)),
+    (67, 520, 288, (32, 256, 1)),
+    (131, 520, 32, (64, 256, 1)),
+    (260, 520, 96, (128, 256, 1)),
 ])
 def test_plain_kernels_match_pallas_at_shapes(m, n, universe, tiles):
     prob = problem(m * 1000 + n, m, n, universe)
     assert_kernels_match(prob, 0.5, "jaccard", tiles)
+
+
+def test_plain_kernels_match_pallas_on_full_rows():
+    """Rows with every bit of an 8 192-element universe set (counts reach
+    the universe) beside sparse ones, all windows open."""
+    r_bm, r_sz, s_bm, s_sz, _, _ = problem(9, 130, 300, 8192)
+    r_bm[::7] = 0xFFFFFFFF
+    s_bm[::5] = 0xFFFFFFFF
+    r_sz = np.bitwise_count(r_bm).sum(1).astype(np.int32)
+    s_sz = np.bitwise_count(s_bm).sum(1).astype(np.int32)
+    prob = (r_bm, r_sz, s_bm, s_sz, np.zeros(130, np.int32),
+            np.full(130, 300, np.int32))
+    assert assert_kernels_match(prob, 0.5, "jaccard") >= 19 * 60
+
+
+def test_plain_kernels_match_pallas_with_many_row_tiles():
+    """More live tiles in one column tile (138) than a wave of CTAs on the
+    card (132): the order the CUDA kernel takes them in must not show."""
+    r_bm, r_sz, s_bm, s_sz, _, _ = problem(10, 1100, 300, 32)
+    prob = (r_bm, r_sz, s_bm, s_sz, np.zeros(1100, np.int32),
+            np.full(1100, 300, np.int32))
+    assert assert_kernels_match(prob, 0.5, "dice", (8, 128, 1)) > 0
 
 
 @pytest.mark.parametrize("measure", MEASURES)
@@ -195,3 +230,60 @@ def test_wrappers_use_the_plain_version_only_on_the_cpu():
     with pytest.raises(ValueError, match="no kernel for meta"):
         port_oj.onehot_join_live_tiled(one, one, *meta, t=0.5,
                                        measure="jaccard", tiles=port[7])
+
+
+def test_cta_order_takes_live_tiles_column_by_column():
+    """K4's CTA order: a permutation of the live tiles, column tile by
+    column tile, row tiles ascending within each, ties kept stable."""
+    rng = np.random.default_rng(11)
+    ti = torch.tensor(rng.integers(0, 9, 200), dtype=torch.int32)
+    tj = torch.tensor(rng.integers(0, 5, 200), dtype=torch.int32)
+    order = port_bj.cta_order(ti, tj, 9)
+    assert order.dtype == torch.int32
+    assert sorted(order.tolist()) == list(range(200))
+    key = (tj.long() * 9 + ti.long())[order.long()]
+    assert bool((key[1:] >= key[:-1]).all())
+    same = key[1:] == key[:-1]
+    assert bool((order[1:][same] > order[:-1][same]).all())
+
+
+@pytest.mark.parametrize("tiles,ok", [
+    ((8, 128, 1), True), ((96, 256, 8), True), ((128, 256, 8), True),
+    ((128, 64, 8), False), ((256, 256, 8), False), ((64, 512, 8), False),
+])
+def test_kernel_tile_rule(tiles, ok):
+    """The one-hot kernels take 1 <= TM <= 128 rows by TN in {128, 256}
+    (every tile ``pick_tiles`` gives); other tilings raise before any
+    launch."""
+    TM, TN, TW = tiles
+    z = torch.zeros
+    ops_ = (z((2 * TM, TW), dtype=torch.int32),
+            z((2 * TM, 1), dtype=torch.int32),
+            z((TN, TW), dtype=torch.int32), z((1, TN), dtype=torch.int32),
+            z((2 * TM, 1), dtype=torch.int32),
+            z((2 * TM, 1), dtype=torch.int32))
+    if ok:
+        assert port_bj._check_operands("onehot_join", "k", tiles,
+                                       *ops_) == (2 * TM, TN, TW)
+    else:
+        with pytest.raises(ValueError, match="TN in"):
+            port_bj._check_operands("onehot_join", "k", tiles, *ops_)
+
+
+@pytest.mark.parametrize("W", [1, 3, 4, 9])
+def test_quad_words_pads_the_one_hot_operands(W):
+    """The one-hot kernels read words 4 at a time: their bitmaps are
+    zero-padded to a multiple of 4 words before a launch (the counts do
+    not change); the popcount kernels' are left as they are."""
+    rng = np.random.default_rng(W)
+    r = torch.tensor(rng.integers(-2 ** 31, 2 ** 31, (5, W)),
+                     dtype=torch.int32)
+    s = torch.tensor(rng.integers(-2 ** 31, 2 ** 31, (7, W)),
+                     dtype=torch.int32)
+    pr, ps, w = port_bj._quad_words("onehot_join", r, s, W)
+    assert w == -(-W // 4) * 4 and pr.shape == (5, w) and ps.shape == (7, w)
+    assert pr.is_contiguous() and ps.is_contiguous()
+    assert torch.equal(pr[:, :W], r) and not pr[:, W:].any()
+    assert torch.equal(port_oj.membership_counts(pr, ps),
+                       port_oj.membership_counts(r, s))
+    assert port_bj._quad_words("bitmap_join", r, s, W) == (r, s, W)
