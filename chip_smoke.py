@@ -9,9 +9,10 @@ through these phases, in order; any failure raises and exits non-zero:
 
   1. print the card (``nvidia-smi`` name and power limit) and build every
      CUDA kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
-     source, all at once), with the registers and spills of K7's and
-     K4/K5's kernels as ``nvcc -Xptxas -v`` reports them and the dynamic
-     shared memory a K4/K5 CTA asks for;
+     source, all at once), with the registers and spills of K7's,
+     K4/K5's and K1/K6's kernels as ``nvcc -Xptxas -v`` reports them and
+     the dynamic shared memory a K4/K5 CTA asks for and a K1/K6 CTA may
+     ask for;
   2. measures phase: at |R| = |S| = 4 000, all 4 measures x
      t in {0.5, 0.7, 0.9, 2/3} x both emit modes, for ``lfvt``
      (``dblp``-shaped) and for ``popcount``, ``onehot``,
@@ -50,13 +51,18 @@ through these phases, in order; any failure raises and exits non-zero:
      the default micro-batch (16). Stream C: 1 024 requests, a quarter of
      them repeats, with ``admit="survivors"`` under both schedules
      (identical results, duplicates caught within and across batches),
-     then ``compact()``, after which a 256-row probe must give the same
-     pairs as on the grown corpus. Then K6 on a partial batch of A's last
+     then K6 (and K1 on its live tiles) on a 256-row probe against the
+     grown corpus, bit-equal to its plain version, with the count of the
+     table's hops that do not lower the row, then ``compact()``, after
+     which the probe must give the same pairs as on the grown corpus.
+     Then K6 on a partial batch of A's last
      200 requests (its padding tiles dead) and on a copy with every other
      tile's windows emptied: bit-equal to its plain version and to K1 on
      the live tiles, zeros elsewhere, its plan and launch run under
      ``torch.cuda.set_sync_debug_mode("error")``, timed beside K1 and its
-     bound. Wall time, requests/s and p50/p99 latency for each stream;
+     bound, with its CTAs, shared bytes a CTA, column passes and the mean
+     and largest number of runs a lane's scan touches. Wall time,
+     requests/s and p50/p99 latency for each stream;
   6. LLM serve phase: qwen2-1.5b at full width and depth (28 layers,
      1.78 B parameters, bf16, seeded on the card, attention projections
      rescaled to 1/sqrt of the width they contract: see
@@ -76,7 +82,8 @@ through these phases, in order; any failure raises and exits non-zero:
      t = 0.8 and t = 0.5: K1 (size-sorted and tile-padded as its dispatch
      makes it) and K2-K5 (tile-padded as theirs do) must be bit-equal to
      their plain PyTorch versions on the card, with pairs at both
-     thresholds (K1) and at t = 0.5 (K2-K5), plus a small-tile case for
+     thresholds (K1, with its CTAs, shared bytes a CTA, column passes and
+     runs per lane) and at t = 0.5 (K2-K5), plus a small-tile case for
      K2-K5; all are timed with CUDA events at t = 0.8, beside their bound
      and, for K4/K5, one bf16 ``torch.matmul`` of the block's unpacked
      membership matrices, the live tiles' cells, the 128-bit stages with
@@ -369,6 +376,97 @@ def lane_counts(Ss, r_sets, order, lo_p, hi_p, live_tiles, tm):
     return np.asarray(out, np.int64).reshape(-1, 4)
 
 
+def lane_runs(flat, operands, tiles, tm, max_steps):
+    """Per lane of the rows of ``tiles`` (vectorised over lanes, one run
+    of the walk at a time) -> (runs the lane's scan touches, its steps,
+    its early stops) as the walk kernels' run scan takes them, and the
+    per-tile (max steps, early stops) to hold against the kernel's
+    counters. A run ends at a position whose hop (clamped at 0) is not
+    the position below. Rows rise with the position inside a run of an
+    ``encode()`` table (Theorem 3.3), so the run's first row below lo is
+    found by binary search: valid on encode() tables only, which is what
+    the comparison with the kernel's counters confirms."""
+    seq = np.asarray(flat.seq_row, np.int64)
+    hop = np.maximum(np.asarray(flat.seq_next, np.int64), 0)
+    pos_all = np.arange(len(seq))
+    run_lo = np.maximum.accumulate(np.where(hop != pos_all - 1, pos_all, 0))
+    rows = (np.asarray(tiles, np.int64)[:, None] * tm
+            + np.arange(tm)).reshape(-1)
+    Lr = operands[0].shape[1]
+    pos = operands[0].cpu().numpy()[rows].reshape(-1).astype(np.int64)
+    rem = operands[1].cpu().numpy()[rows].reshape(-1).astype(np.int64)
+    lo = np.repeat(np.maximum(operands[6].cpu().numpy()[rows, 0], 0), Lr)
+    tile_of = np.repeat(np.arange(len(rows)) // tm, Lr)
+    live = rem > 0
+    pos, rem, lo, tile_of = pos[live], rem[live], lo[live], tile_of[live]
+    runs = np.zeros(len(pos), np.int64)
+    k = np.zeros(len(pos), np.int64)
+    stop = np.zeros(len(pos), np.int64)
+    act = np.nonzero(np.minimum(rem, max_steps) > 0)[0]
+    while len(act):
+        p, r0 = pos[act], run_lo[pos[act]]
+        avail = np.minimum(rem[act], max_steps - k[act])
+        # the run's positions [r0, p]: rows below lo form a prefix
+        a, b = r0.copy(), p + 1
+        while (a < b).any():
+            open_ = a < b
+            mid = (a + b) // 2
+            below = seq[np.minimum(mid, len(seq) - 1)] < lo[act]
+            a = np.where(open_ & below, mid + 1, a)
+            b = np.where(open_ & ~below, mid, b)
+        to_stop = np.where(a > r0, p - a + 2, np.iinfo(np.int64).max)
+        in_run = np.where((p == r0) & (hop[p] == p), avail, p - r0 + 1)
+        take = np.minimum(np.minimum(in_run, avail), to_stop)
+        runs[act] += 1
+        k[act] += take
+        stopped = take == to_stop
+        stop[act[stopped]] = rem[act[stopped]] - (take[stopped] - 1) > 1
+        rem[act] -= take
+        go = ~stopped & (take < avail)
+        act = act[go]
+        pos[act] = hop[r0[go]]
+    n_tiles = len(rows) // tm
+    tile_steps = np.zeros(n_tiles, np.int64)
+    np.maximum.at(tile_steps, tile_of, k)
+    return (runs, k, stop, tile_steps,
+            np.bincount(tile_of, stop, n_tiles).astype(np.int64))
+
+
+def walk_smem_bytes(cols: int) -> int:
+    """The dynamic shared memory a walk CTA asks for at ``cols`` count
+    columns (the library's ``lfvt_walk_smem_bytes``; 0 for a ``cols``
+    the kernels refuse)."""
+    from repro_torch.kernels import _build
+    fn = _build.load("lfvt_walk").lfvt_walk_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(cols)
+
+
+def walk_launch(operands, lo_np, hi_np, n_slots, tm):
+    """The walk kernels' launch for these operands, as the wrappers plan
+    it: (CTAs, shared count columns, dynamic shared bytes a CTA, the most
+    column passes a row takes, the widest window)."""
+    from repro_torch.kernels import lfvt_walk
+    NP = operands[4].shape[1]
+    mw = int(np.maximum(np.asarray(hi_np) - np.asarray(lo_np), 0).max())
+    cols = lfvt_walk.walk_pass_cols(NP)
+    passes = int(lfvt_walk.walk_passes(lo_np, hi_np, NP, cols).max())
+    return n_slots * tm, cols, walk_smem_bytes(cols), passes, mw
+
+
+def walk_smem_lines() -> list[str]:
+    """The most dynamic shared memory a walk CTA asks for, checked
+    against the wrapper's plan (``lfvt_walk.WALK_MAX_COLS``)."""
+    from repro_torch.kernels import lfvt_walk
+    top = lfvt_walk.WALK_MAX_COLS
+    if walk_smem_bytes(top) != 4 * top or walk_smem_bytes(top + 16):
+        raise AssertionError("lfvt_walk.WALK_MAX_COLS is not the kernel's "
+                             "largest column pass")
+    return [f"lfvt_walk_kernel / lfvt_walk_planned_kernel: "
+            f"dynamic_smem_bytes<={walk_smem_bytes(top)} "
+            f"(cols<={top}; each launch asks for NP rounded up to 16)"]
+
+
 def oracle_pairs(R, S, rows, t):
     """Exact float64 Jaccard pairs of the given R rows against all of S:
     overlaps from np.isin over S's flattened elements."""
@@ -443,13 +541,15 @@ def kernel_check(Ss, flat, R, block, t, dev):
     lo, hi = window_bounds(r_sz, flat.s_sizes, t)
     ti, operands, row_map = ops.walk_operands(flat, r_pad, r_sz, lo, hi, tm)
     kw = dict(t=t, measure="jaccard", max_steps=int(flat.max_seq_len), tm=tm)
+    launch = walk_launch(operands, operands[6][:, 0].cpu().numpy(),
+                         operands[7][:, 0].cpu().numpy(), len(ti), tm)
 
     def k1():
         return lfvt_walk.lfvt_walk_live_tiled(ti, *operands, **kw)
 
     got = k1()
     torch.cuda.synchronize()
-    ms = cuda_ms(k1, 3)
+    ms = cuda_ms(k1, 10)
     ev = (torch.cuda.Event(enable_timing=True),
           torch.cuda.Event(enable_timing=True))
     ev[0].record()
@@ -477,8 +577,13 @@ def kernel_check(Ss, flat, R, block, t, dev):
             and np.array_equal(lanes[:, 3], got[3][:, 0].cpu().numpy())):
         raise AssertionError(f"K1 walk_steps/early_stops at t={t} disagree "
                              "with the numpy lane count")
+    runs = lane_runs(flat, operands, ti.cpu().numpy(), tm, kw["max_steps"])
+    if not (np.array_equal(runs[3], lanes[:, 2])
+            and np.array_equal(runs[4], lanes[:, 3])):
+        raise AssertionError(f"K1's run count at t={t} does not walk as the "
+                             "kernel did")
     return (got, (ti, *operands), lanes, err, ms,
-            ev[0].elapsed_time(ev[1]))
+            ev[0].elapsed_time(ev[1]), launch, runs[0])
 
 
 def walk_bound(inputs, got, live_ti, lo, hi, lanes):
@@ -893,6 +998,21 @@ def serve_phase(R, Ss, runs, dev):
         return {(int(r), int(enc.flat.s_ids[c]))
                 for r, c in pairs[:n].cpu().numpy()}
 
+    # K6 and K1 on the grown table (appended tail rows, re-encoded
+    # chains), against their plain versions
+    ti_g, nl_g, ops_g, _, kw_g = walk_block(enc, probe, dev)
+    k6_check("grown corpus", ti_g, nl_g, ops_g, kw_g)
+    f = enc.flat
+    q = np.arange(enc.t_live)
+    nxt = f.seq_next[:enc.t_live]
+    hop = nxt >= 0
+    raised = int((f.seq_row[nxt[hop]] >= f.seq_row[q[hop]]).sum())
+    log(f"[kernel K6] grown corpus (stream C, before compact): "
+        f"rows={SERVE_BATCH} live_tiles={int(nl_g)}/{ti_g.shape[0]} "
+        f"seq_slots={enc.t_live} hops={int(hop.sum())} "
+        f"hops_not_lowering_the_row={raised} merged_chains="
+        f"{enc.stats['merged_chains']}: K6 vs plain and K1 vs K6 on the live "
+        "tiles bit-equal (K1 equals its plain version there)")
     before = probe_pairs()
     t0 = time.perf_counter()
     enc.compact()
@@ -945,13 +1065,11 @@ def serve_phase(R, Ss, runs, dev):
     # a non-identity plan: K6 against K1 on the live tiles is enough here
     k6_check("crafted", ti_c, nl_c, crafted, kw, plain=False)
     ms = cuda_ms(lambda: lfvt_walk.lfvt_walk_planned(ti_s, nl, *operands,
-                                                     **kw), 3)
+                                                     **kw), 10)
     k1_ms = cuda_ms(lambda: lfvt_walk.lfvt_walk_live_tiled(live, *operands,
-                                                           **kw), 3)
-    # the CTA's threads take lanes row-major, so with Lr a power of two
-    # every row's longest lane (column 0) falls to the same two threads;
-    # the same operands with 8 parked lanes appended (identical outputs)
-    # show what that mapping costs
+                                                           **kw), 10)
+    # the same operands with 8 parked lanes appended: identical outputs,
+    # and a CTA skips parked lanes past its row's last live one
     wide = list(operands)
     for k in (0, 1):
         wide[k] = torch.nn.functional.pad(operands[k], (0, 8))
@@ -959,7 +1077,7 @@ def serve_phase(R, Ss, runs, dev):
     if not all(torch.equal(a, b) for a, b in zip(got, got_w)):
         raise AssertionError("K6 with 8 parked lanes appended differs")
     wide_ms = cuda_ms(lambda: lfvt_walk.lfvt_walk_planned(ti_s, nl, *wide,
-                                                          **kw), 3)
+                                                          **kw), 10)
     order = row_map.cpu().numpy()
     rows_sets = part + [np.zeros(0, np.int32)] * (SERVE_BATCH - len(part))
     lanes = lane_counts(Ss, rows_sets, order[order >= 0],
@@ -972,12 +1090,25 @@ def serve_phase(R, Ss, runs, dev):
                                got[3][live_l, 0].cpu().numpy())):
         raise AssertionError("K6 walk_steps/early_stops disagree with the "
                              "numpy lane count")
+    runs = lane_runs(eng_a.encoder.flat, operands, live.cpu().numpy(),
+                     kw["tm"], kw["max_steps"])
+    if not (np.array_equal(runs[3], lanes[:, 2])
+            and np.array_equal(runs[4], lanes[:, 3])):
+        raise AssertionError("K6's run count does not walk as the kernel "
+                             "did")
+    launch = walk_launch(operands, operands[6][:, 0].cpu().numpy(),
+                         operands[7][:, 0].cpu().numpy(), m_tiles, kw["tm"])
     bound_ms, bound_by, moved, ops_n = walk_bound(
         [ti_s, nl, *operands], got, live, operands[6], operands[7], lanes)
     log(f"[kernel K6] partial batch of A: requests={len(part)} rows="
         f"{SERVE_BATCH} live_tiles={int(nl)}/{m_tiles} Lr="
         f"{operands[0].shape[1]} NP={operands[4].shape[1]} pairs="
-        f"{int(got[1].sum())} walk_steps={int(got[2].sum())} K6 vs plain "
+        f"{int(got[1].sum())} walk_steps={int(got[2].sum())} lane_steps="
+        f"{int(lanes[:, 0].sum())} runs_per_lane_mean={runs[0].mean():.3f} "
+        f"runs_per_lane_max={int(runs[0].max())} ctas={launch[0]} "
+        f"widest_window={launch[4]} smem_cols={launch[1]} "
+        f"dynamic_smem_bytes={launch[2]} column_passes_max={launch[3]} "
+        f"K6 vs plain "
         f"and vs K1 bit-equal; crafted copy live_tiles={int(nl_c)}/{m_tiles}"
         f" bit-equal to K1 there; lfvt_walk_join_pairs_dispatch("
         f"schedule='device') ran under set_sync_debug_mode('error'); "
@@ -988,9 +1119,9 @@ def serve_phase(R, Ss, runs, dev):
     full = walk_block(eng_a.encoder, reqs[:SERVE_BATCH], dev)
     f_live = full[0][:int(full[1])].contiguous()
     f_ms = cuda_ms(lambda: lfvt_walk.lfvt_walk_planned(
-        full[0], full[1], *full[2], **full[4]), 3)
+        full[0], full[1], *full[2], **full[4]), 10)
     f_k1 = cuda_ms(lambda: lfvt_walk.lfvt_walk_live_tiled(
-        f_live, *full[2], **full[4]), 3)
+        f_live, *full[2], **full[4]), 10)
     log(f"[kernel K6] full batch 0 of A: live_tiles={int(full[1])}/"
         f"{full[0].shape[0]} ms={f_ms:.4f} k1_ms={f_k1:.4f}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -1001,7 +1132,8 @@ def serve_phase(R, Ss, runs, dev):
                       "live tiles, zeros elsewhere, on stream A's last "
                       "requests as a partial batch; bit-equal to K1 and "
                       "zeros on a copy with every other tile's windows "
-                      "emptied")
+                      "emptied; bit-equal to its plain version and to K1 "
+                      "on a corpus grown by admission")
 
 
 def condition_attention(params, dims, d_model) -> None:
@@ -1384,6 +1516,11 @@ def main() -> int:
                                   ("onehot_join_kernel",))
     for line in onehot_regs + onehot_smem_lines():
         log(f"[build K4/K5] {line}")
+    walk_regs = ptxas_registers(build_logs.get("lfvt_walk", ""),
+                                ("lfvt_walk_kernel",
+                                 "lfvt_walk_planned_kernel"))
+    for line in walk_regs + walk_smem_lines():
+        log(f"[build K1/K6] {line}")
 
     # worker processes make the livej data and run the measures phase's
     # CPU side while this process drives the card; it keeps to one CPU
@@ -1517,6 +1654,7 @@ def main() -> int:
     # ---- phase 5: the dedup service on the livej corpus -------------- #
     t0 = time.perf_counter()
     k6 = serve_phase(R, Ss, runs, dev)
+    k6["registers"] = walk_regs
     log(f"[serve] phase_s={time.perf_counter() - t0:.3f}")
 
     # ---- phase 6: LLM serving (qwen2-1.5b, K7) ------------------------ #
@@ -1534,7 +1672,7 @@ def main() -> int:
                 if len(paired) else 0)
     checks = {t: kernel_check(Ss, flat, R, block, t, dev)
               for t in (MAIN_T, WIDE_T)}
-    got, operands, lanes, _, ms, plain_ms = checks[MAIN_T]
+    got, operands, lanes, _, ms, plain_ms, _, _ = checks[MAIN_T]
     err = max(c[3] for c in checks.values())
     bound_ms, bound_by, moved, ops_n = walk_bound(
         operands, got, operands[0], operands[7], operands[8], lanes)
@@ -1550,8 +1688,12 @@ def main() -> int:
             f"walk_steps={int(c[0][2].sum())} "
             f"early_stops={int(c[0][3].sum())} "
             f"lane_steps={int(c[2][:, 0].sum())} "
-            f"window_steps={int(c[2][:, 1].sum())} ms={c[4]:.4f} "
-            f"plain_ms={c[5]:.4f}")
+            f"runs_per_lane_mean={c[7].mean():.3f} "
+            f"runs_per_lane_max={int(c[7].max())} "
+            f"window_steps={int(c[2][:, 1].sum())} ctas={c[6][0]} "
+            f"widest_window={c[6][4]} smem_cols={c[6][1]} "
+            f"dynamic_smem_bytes={c[6][2]} column_passes_max={c[6][3]} "
+            f"ms={c[4]:.4f} plain_ms={c[5]:.4f}")
     log(f"[bound K1] t={MAIN_T} bound_ms={bound_ms:.6f} "
         f"bound_by={bound_by} bytes={moved} int32_ops={ops_n} "
         f"k1_over_bound={ms / bound_ms:.1f} step_traffic_bytes="
@@ -1559,7 +1701,7 @@ def main() -> int:
         f"{step_bytes / ms / 1e6:.1f}")
     kernels = {"K1": dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=None,
+        bound_by=bound_by, library_ms=None, registers=walk_regs,
         library_note="no single PyTorch call computes the walk with "
                      "its counters",
         check=f"bit-equal to its plain version on the card at "

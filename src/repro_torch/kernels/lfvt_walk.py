@@ -6,7 +6,8 @@ tile) and cut into ``row_tile``-row tiles; tiles whose windows exclude
 every S column are dead. Each live tile owns a ``(row_tile, NP)`` int32
 count tile for its whole walk, and only the qualifying boolean sub-mask,
 the exact pair count and the ``walk_steps``/``early_stops`` counters
-leave it.
+leave it. On the card each row of a live tile is one CTA, whose counts
+over the row's window sit in shared memory (``walk_pass_cols``).
 
 Two schedules, each with a plain PyTorch version and a CUDA kernel of
 ``csrc/lfvt_walk.cu`` chosen by where the tensors lie (CPU: the plain
@@ -36,9 +37,9 @@ import torch
 from ..core import measures
 from . import _build
 
-__all__ = ["TileShapeError",
+__all__ = ["TileShapeError", "WALK_MAX_COLS",
            "plan_row_tiles", "plan_row_tiles_device", "entry_state",
-           "walk_vmem_tile_bytes",
+           "walk_vmem_tile_bytes", "walk_pass_cols", "walk_passes",
            "lfvt_walk_live_tiled", "lfvt_walk_live_tiled_ref",
            "lfvt_walk_planned", "lfvt_walk_planned_ref"]
 
@@ -49,11 +50,41 @@ def walk_vmem_tile_bytes(tm: int, lr: int, npad: int, tp: int) -> int:
     rows, the (1, npad) int32 S-size row, three (tm, 1) int32 window
     columns, the (tm, npad) int32 count tile and the (tm, npad) bool
     mask tile. Kept so the ``walk_vmem_tile_bytes`` stat means the same
-    in both packages; on the GPU the count tile lives in device memory
-    (see ``csrc/lfvt_walk.cu``), not in a per-core scratchpad.
+    in both packages; on the GPU each row's counts over its window live in
+    its CTA's shared memory (``walk_pass_cols``), not in a per-core
+    scratchpad.
     """
     return (4 * (2 * tm * lr + 2 * tp + npad + 3 * tm + tm * npad)
             + tm * npad)
+
+
+#: int32 count columns one walk CTA holds in shared memory at most (224 KiB
+#: of the 227 KB an sm_90 block may use; ``kMaxCols`` of csrc/lfvt_walk.cu)
+WALK_MAX_COLS = 57344
+
+
+def walk_pass_cols(np_cols: int) -> int:
+    """The count columns each CTA of a walk launch keeps in shared memory.
+
+    A CTA walks one row, and its counts cover the row's window from the
+    window's start rounded down to 16 columns, so ``np_cols`` rounded up
+    to 16 hold any window in one pass. Past ``WALK_MAX_COLS`` a wider
+    window takes several column passes (``walk_passes``). A walk CTA has
+    1 024 threads of 64 registers, the whole register file of an SM, so
+    one CTA runs on an SM at any ``cols``."""
+    return min(max((np_cols + 15) // 16 * 16, 16), WALK_MAX_COLS)
+
+
+def walk_passes(lo: np.ndarray, hi: np.ndarray, np_cols: int,
+                cols: int) -> np.ndarray:
+    """Column passes the kernel makes for each row of host windows
+    ``lo``/``hi`` at ``cols`` count columns: its window clamped to
+    ``[0, np_cols)``, from the start rounded down to 16 columns, in passes
+    of ``cols``; one pass (for the counters) when the window is empty."""
+    lo = np.maximum(np.asarray(lo, np.int64), 0)
+    hi = np.minimum(np.asarray(hi, np.int64), np_cols)
+    span = hi - (lo & ~15)
+    return np.where(lo < hi, -(-span // cols), 1)
 
 
 class TileShapeError(ValueError):
@@ -266,9 +297,9 @@ def _launcher():
     fn = _build.load("lfvt_walk").lfvt_walk_live_tiled_launch
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     # ti, L, lane_pos, lane_rem, Lr, nxt, seq, ssz, NP, rsz, lo, hi, tm,
-    # max_steps, measure, p, q, scratch, mask, counts, steps, stops, stream
+    # max_steps, measure, p, q, cols, mask, counts, steps, stops, stream
     fn.argtypes = ([ptr, i32, ptr, ptr, i32, ptr, ptr, ptr, i32, ptr, ptr,
-                    ptr, i32, i32, i32, i32, i32] + [ptr] * 6)
+                    ptr, i32, i32, i32, i32, i32, i32] + [ptr] * 5)
     fn.restype = i32
     return fn
 
@@ -285,7 +316,8 @@ def lfvt_walk_live_tiled(ti, lane_pos, lane_rem, nxt2d, seq2d, ssz2d, rsz,
     int32, with 0 <= lo <= hi <= NP. Returns (mask (L, tm, NP) bool,
     counts, walk_steps, early_stops — each (L, 1) int32), on the inputs'
     device. CPU tensors run the plain version; CUDA tensors launch the
-    kernel on the current stream without synchronising.
+    kernel (one CTA per row of each live tile) on the current stream
+    without synchronising.
     """
     device = lane_pos.device
     if device.type == "cpu":
@@ -301,17 +333,15 @@ def lfvt_walk_live_tiled(ti, lane_pos, lane_rem, nxt2d, seq2d, ssz2d, rsz,
     p, q = measures.threshold_fraction(t)
     code = measures.MEASURE_CODES[measures.get_measure(measure).name]
     masks = torch.empty((L, tm, NP), dtype=torch.bool, device=device)
-    outs = torch.empty((3, L, 1), dtype=torch.int32, device=device)
+    # the CTAs of a tile add into its counters
+    outs = torch.zeros((3, L, 1), dtype=torch.int32, device=device)
     if L == 0:
         return masks, outs[0], outs[1], outs[2]
-    # global count tile per live row tile; the kernel zeroes the window
-    # columns it reads and never touches the rest
-    scratch = torch.empty((L, tm, NP), dtype=torch.int32, device=device)
     fn = _launcher()
     err = fn(ti.data_ptr(), L, lane_pos.data_ptr(), lane_rem.data_ptr(), Lr,
              nxt2d.data_ptr(), seq2d.data_ptr(), ssz2d.data_ptr(), NP,
              rsz.data_ptr(), lo.data_ptr(), hi.data_ptr(), tm,
-             int(max_steps), code, p, q, scratch.data_ptr(),
+             int(max_steps), code, p, q, walk_pass_cols(NP),
              masks.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
              outs[2].data_ptr(), torch.cuda.current_stream(device).cuda_stream)
     _build.check_launch("lfvt_walk_live_tiled", err)
@@ -329,7 +359,7 @@ def _planned_launcher():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     # ti_sorted, n_live, m_tiles, then K1's arguments from lane_pos on
     fn.argtypes = ([ptr, ptr, i32, ptr, ptr, i32, ptr, ptr, ptr, i32, ptr,
-                    ptr, ptr, i32, i32, i32, i32, i32] + [ptr] * 6)
+                    ptr, ptr, i32, i32, i32, i32, i32, i32] + [ptr] * 5)
     fn.restype = i32
     return fn
 
@@ -342,12 +372,13 @@ def lfvt_walk_planned(ti_sorted, n_live, lane_pos, lane_rem, nxt2d, seq2d,
 
     ti_sorted (m_tiles,) and n_live () come from
     ``plan_row_tiles_device`` and stay on the device: the kernel runs
-    one CTA per tile, and CTA ``l`` walks tile ``ti_sorted[l]`` when
-    ``l < n_live`` (read in the kernel) and writes zeros otherwise. The
-    other operands are K1's. Returns (mask (m_tiles, tm, NP) bool,
-    counts, walk_steps, early_stops — each (m_tiles, 1) int32) in tile
-    order. CPU tensors run the plain version; CUDA tensors launch the
-    kernel on the current stream and never wait for the device.
+    one CTA per row of every tile slot, and the CTAs of slot ``l`` walk
+    tile ``ti_sorted[l]`` when ``l < n_live`` (read in the kernel) and
+    write zeros otherwise. The other operands are K1's. Returns (mask
+    (m_tiles, tm, NP) bool, counts, walk_steps, early_stops — each
+    (m_tiles, 1) int32) in tile order. CPU tensors run the plain
+    version; CUDA tensors launch the kernel on the current stream and
+    never wait for the device.
     """
     device = lane_pos.device
     if device.type == "cpu":
@@ -372,17 +403,16 @@ def lfvt_walk_planned(ti_sorted, n_live, lane_pos, lane_rem, nxt2d, seq2d,
     p, q = measures.threshold_fraction(t)
     code = measures.MEASURE_CODES[measures.get_measure(measure).name]
     masks = torch.empty((m_tiles, tm, NP), dtype=torch.bool, device=device)
-    outs = torch.empty((3, m_tiles, 1), dtype=torch.int32, device=device)
+    # dead tiles keep these zeros; the CTAs of a live tile add into them
+    outs = torch.zeros((3, m_tiles, 1), dtype=torch.int32, device=device)
     if m_tiles == 0:
         return masks, outs[0], outs[1], outs[2]
-    # the live count is on the device, so every tile gets a count tile
-    scratch = torch.empty((m_tiles, tm, NP), dtype=torch.int32,
-                          device=device)
     err = _planned_launcher()(
         ti_sorted.data_ptr(), n_live.data_ptr(), m_tiles, lane_pos.data_ptr(),
         lane_rem.data_ptr(), Lr, nxt2d.data_ptr(), seq2d.data_ptr(),
         ssz2d.data_ptr(), NP, rsz.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        tm, int(max_steps), code, p, q, scratch.data_ptr(), masks.data_ptr(),
+        tm, int(max_steps), code, p, q, walk_pass_cols(NP),
+        masks.data_ptr(),
         outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
         torch.cuda.current_stream(device).cuda_stream)
     _build.check_launch("lfvt_walk_planned", err)

@@ -418,6 +418,152 @@ def test_dedup_engine_on_cuda_matches_cpu(cuda, schedule, admit):
 
 
 # ---------------------------------------------------------------------- #
+# K1 and K6 at the edges of their run scan
+# ---------------------------------------------------------------------- #
+def crafted_walk(device, case):
+    """Chains and lanes made to reach one edge of the kernels' run scan:
+    runs shorter than the 32-position scan with hops anywhere (some
+    upward), lanes that walk into position 0 with steps to spare (the
+    root clamp hops it to itself; tile 0 never stops), ``max_steps``
+    below the longest ``rem``, or 50 columns (the mask rows are not
+    16-byte aligned). Lanes sorted by rem, as entry_state sorts them."""
+    rng = np.random.default_rng({"runs_within_scan": 30, "root_clamp": 31,
+                                 "max_steps_capped": 32,
+                                 "columns_not_16_aligned": 34}[case])
+    T, tm, Lr, M = 400, 4, 12, 16
+    NP = 50 if case == "columns_not_16_aligned" else 64
+    nxt = np.arange(-1, T - 1, dtype=np.int32)
+    n_brk = 120 if case == "runs_within_scan" else 30
+    nxt[rng.choice(np.arange(20, T), n_brk, replace=False)] = rng.integers(
+        -1, T, n_brk)
+    pos = rng.integers(0, T, (M, Lr)).astype(np.int32)
+    rem = rng.integers(0, 150, (M, Lr)).astype(np.int32)
+    lo = rng.integers(0, NP // 2, (M, 1)).astype(np.int32)
+    if case == "root_clamp":
+        pos[:, 0] = rng.integers(0, 10, M)
+        rem[:, 0] = rng.integers(40, 150, M)
+        lo[:tm] = 0
+    order = np.argsort(-rem, axis=1, kind="stable")
+    hi = np.minimum(lo + rng.integers(0, NP, (M, 1)), NP)
+    ops_np = (np.take_along_axis(pos, order, 1),
+              np.take_along_axis(rem, order, 1), nxt.reshape(1, -1),
+              rng.integers(0, NP - 4, (1, T)), rng.integers(1, 20, (1, NP)),
+              rng.integers(1, 20, (M, 1)), lo, hi)
+    operands = [torch.tensor(np.asarray(x, np.int32), device=device)
+                for x in ops_np]
+    max_steps = 37 if case == "max_steps_capped" else int(rem.max()) + 5
+    return operands, dict(t=0.5, measure="overlap", max_steps=max_steps,
+                          tm=tm)
+
+
+def table_walk(device, case):
+    """The dispatch's operands for real tables: R sets of up to 700
+    elements (Lr > 512); 60 000 sets over 24 elements, whose windows are
+    wider than one shared-memory pass; or a table grown by appends and
+    the chain re-encode fallback, whose walked hops do not all lower the
+    row."""
+    from repro_torch.core.lfvt_flat import IncrementalLFVT
+    rng = np.random.default_rng(33)
+    tm, t, lo_hi = 16, 0.2, None
+    if case == "lanes_over_512":
+        U = 1500
+        R = SetCollection.from_ragged(
+            [rng.choice(U, int(rng.integers(450, 700)), replace=False)
+             for _ in range(40)], universe=U)
+        flat = SetCollection.from_ragged(
+            [rng.choice(U, int(rng.integers(400, 750)), replace=False)
+             for _ in range(300)], universe=U).sort_by_size().flat_lfvt()
+    elif case == "multi_pass_window":
+        U = 24
+        R = SetCollection.from_ragged(
+            [rng.choice(U, int(rng.integers(1, 4)), replace=False)
+             for _ in range(20)], universe=U)
+        flat = SetCollection.from_ragged(
+            [rng.choice(U, int(rng.integers(1, 4)), replace=False)
+             for _ in range(60_000)], universe=U).sort_by_size().flat_lfvt()
+    else:
+        U, t = 40, 0.5
+        sets = [np.unique(np.minimum(rng.zipf(1.3, int(rng.integers(
+            1, 12))) - 1, U - 1)) for _ in range(300)]
+        enc = IncrementalLFVT(SetCollection.from_ragged(sets, universe=U),
+                              capacity_grain=8)
+        enc.append([np.arange(0, 14)])
+        enc.append(sets[:40] + [np.asarray([0])])
+        assert enc.stats["merged_chains"]
+        flat = enc.flat
+        R = SetCollection.from_ragged(sets[::7], universe=U)
+        lo_hi = enc.window_bounds(R.sizes(), t)
+    r_sz = R.sizes()
+    lo, hi = lo_hi or window_bounds(r_sz, flat.s_sizes, t)
+    _, operands, _ = ops.walk_operands(flat, torch.tensor(
+        R.padded()[0], device=device), r_sz, lo, hi, tm, schedule="device")
+    kw = dict(t=t, measure="jaccard", max_steps=int(flat.max_seq_len),
+              tm=tm)
+    return list(operands), kw, flat
+
+
+def walked_hops_lower(flat):
+    """Whether every hop the chains of ``flat`` walk lowers the row."""
+    live = flat.entry_len > 0
+    pos = (flat.node_seq_off[flat.entry_node[live]]
+           + flat.entry_off[live]).astype(np.int64)
+    rem = flat.entry_len[live].astype(np.int64)
+    ok = True
+    while len(pos):
+        go = rem > 1
+        nxt = np.maximum(flat.seq_next[pos[go]], 0)
+        ok &= bool((flat.seq_row[nxt] < flat.seq_row[pos[go]]).all())
+        pos, rem = nxt, rem[go] - 1
+    return ok
+
+
+CRAFTED = ("runs_within_scan", "root_clamp", "max_steps_capped",
+           "columns_not_16_aligned")
+
+
+@pytest.mark.parametrize("case", [*CRAFTED, "lanes_over_512",
+                                  "multi_pass_window", "grown_table"])
+def test_walk_kernels_at_the_scan_edges(cuda, case):
+    """K1 on the live tiles and K6 on the device plan, each bit-equal to
+    its plain version at one edge of the run scan (K6 refuses mask rows
+    that are not 16-byte aligned)."""
+    if case in CRAFTED:
+        operands, kw = crafted_walk(cuda, case)
+    else:
+        operands, kw, flat = table_walk(cuda, case)
+        NP = operands[4].shape[1]
+        if case == "lanes_over_512":
+            assert operands[0].shape[1] > 512
+        elif case == "multi_pass_window":
+            cols = lfvt_walk.walk_pass_cols(NP)
+            assert lfvt_walk.walk_passes(
+                operands[6][:, 0].cpu().numpy(),
+                operands[7][:, 0].cpu().numpy(), NP, cols).max() > 1
+        else:
+            assert not walked_hops_lower(flat)
+    if case == "max_steps_capped":
+        assert int(operands[1].max()) > kw["max_steps"]
+    tm = kw["tm"]
+    lo, hi = operands[6], operands[7]
+    ti = torch.tensor(lfvt_walk.plan_row_tiles(
+        lo[:, 0].cpu().numpy(), hi[:, 0].cpu().numpy(), tm), device=cuda)
+    got = lfvt_walk.lfvt_walk_live_tiled(ti, *operands, **kw)
+    torch.cuda.synchronize()
+    want = lfvt_walk.lfvt_walk_live_tiled_ref(ti, *operands, **kw)
+    assert_bit_equal(got, want)
+    assert int(got[2].max()) > 0
+    ti_sorted, n_live = lfvt_walk.plan_row_tiles_device(lo, hi, tm)
+    if case == "columns_not_16_aligned":
+        with pytest.raises(ValueError, match="not a multiple of 16"):
+            lfvt_walk.lfvt_walk_planned(ti_sorted, n_live, *operands, **kw)
+        return
+    got = lfvt_walk.lfvt_walk_planned(ti_sorted, n_live, *operands, **kw)
+    torch.cuda.synchronize()
+    assert_bit_equal(got, lfvt_walk.lfvt_walk_planned_ref(
+        ti_sorted, n_live, *operands, **kw))
+
+
+# ---------------------------------------------------------------------- #
 # K7: flash attention, and the LLM serving engine on the card
 # ---------------------------------------------------------------------- #
 # the reference's own tolerances (tests/test_flash_attention.py): float32
