@@ -9,10 +9,10 @@ through these phases, in order; any failure raises and exits non-zero:
 
   1. print the card (``nvidia-smi`` name and power limit) and build every
      CUDA kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
-     source, all at once), with the registers and spills of K7's,
-     K4/K5's and K1/K6's kernels as ``nvcc -Xptxas -v`` reports them and
-     the dynamic shared memory a K4/K5 CTA asks for and a K1/K6 CTA may
-     ask for;
+     source, all at once), with the registers, spills and static shared
+     memory of K7's, K4/K5's, K1/K6's and K2/K3's kernels as ``nvcc
+     -Xptxas -v`` reports them and the dynamic shared memory a K4/K5 or
+     K2/K3 CTA asks for and a K1/K6 CTA may ask for;
   2. measures phase: at |R| = |S| = 4 000, all 4 measures x
      t in {0.5, 0.7, 0.9, 2/3} x both emit modes, for ``lfvt``
      (``dblp``-shaped) and for ``popcount``, ``onehot``,
@@ -37,9 +37,10 @@ through these phases, in order; any failure raises and exits non-zero:
      ``kernel_onehot`` with ``emit="pairs"`` (K2, K4) and ``onehot``
      (K5). Every launch count is set to 0 just before each of these runs
      and read just after; each run must launch its kernel and give the
-     lfvt join's pairs. Then ``kernel_onehot`` and ``onehot`` again, warm
-     (the default call's pairs), and ``kernel_onehot`` under
-     ``torch.profiler`` (device-busy time, K4's share, the idle share);
+     lfvt join's pairs. Then ``kernel_bitmap``, ``kernel_onehot`` and
+     ``onehot`` again, warm (the default call's pairs), and
+     ``kernel_bitmap`` and ``kernel_onehot`` under ``torch.profiler``
+     (device-busy time, K2's or K4's share, the idle share);
   5. serve phase: ``repro_torch.DedupServeEngine`` on the card, with the
      livej S side (100 000 sets) as its corpus, at t = 0.8. Stream A:
      4 096 requests (half exact copies of corpus sets, half livej R
@@ -84,11 +85,18 @@ through these phases, in order; any failure raises and exits non-zero:
      their plain PyTorch versions on the card, with pairs at both
      thresholds (K1, with its CTAs, shared bytes a CTA, column passes and
      runs per lane) and at t = 0.5 (K2-K5), plus a small-tile case for
-     K2-K5; all are timed with CUDA events at t = 0.8, beside their bound
-     and, for K4/K5, one bf16 ``torch.matmul`` of the block's unpacked
-     membership matrices, the live tiles' cells, the 128-bit stages with
-     a set word on both sides (what K4/K5 expand and multiply) and the
-     int8 rate that makes; K7 against its plain version within the
+     K2-K5 and, for K2/K3, the kosarak block of dense words; all are
+     timed with CUDA events at t = 0.8, beside their bound and one bf16
+     ``torch.matmul`` of the block's unpacked membership matrices; K2/K3
+     read the block's compressed S (its build time, pairs and bytes are
+     logged with the work their schedule does: CTAs, covered cells,
+     column-pair visits, union lengths) and their bound counts the words
+     nonzero on both sides (one float32 product of the nonzero-word
+     matrices), beside the dense figure of every word; K3's dispatch
+     (``ops.bitmap_join``) is timed with the S sheet unpadded and
+     pre-padded; K4/K5 add the live tiles' cells, the 128-bit stages
+     with a set word on both sides (what they expand and multiply) and
+     the int8 rate that makes; K7 against its plain version within the
      reference's tolerances at the ``K7_CASES``: the qwen2-1.5b prefill
      shape as the main path gives it (q at 12 heads, k and v at their 2
      KV heads, read in place: B = 8, L = 2 048, D = 128), the same shape
@@ -332,6 +340,26 @@ def cuda_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn()`` on the card over ``reps`` calls
+    queued behind a ~25 ms spin kernel, after one warm-up call: the host
+    enqueues the calls while the card spins, so its own time between
+    calls (the wrapper's checks and launches) does not count, only the
+    card's. For a call that is shorter on the card than on the host,
+    where ``cuda_ms`` measures the host."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -630,21 +658,25 @@ def tiled_operands(R, Ss, rows, t, family, tiles, dev, s_bm):
     return (rb, r_szp, sb, s_szp, lo_p, hi_p), skip, live, tls, cells
 
 
-def tiled_check(kid, args, t, timed):
+def tiled_check(kid, args, t, timed, **wrap_kw):
     """Kernel ``kid`` (K2-K5) against its plain version on the card ->
-    (kernel outputs, max_abs_err, kernel ms, plain ms, pairs); the times
-    only when ``timed``."""
+    (kernel outputs, max_abs_err, kernel ms, plain ms, pairs, kernel
+    ``queued_ms``); the times only when ``timed``, the last for K2/K3
+    only. ``wrap_kw`` goes to the wrapper alone (K2/K3: the compressed S
+    the driver passes)."""
     wrap, plain = wrappers()[kid]
     ops_, skip, live, tls, _ = args
     lead = (ops_ + (skip,)) if kid in ("K3", "K5") else (live + ops_)
 
-    def call(fn):
-        out = fn(*lead, t=t, measure="jaccard", tiles=tls)
+    def call(fn, **kw):
+        out = fn(*lead, t=t, measure="jaccard", tiles=tls, **kw)
         return out if isinstance(out, tuple) else (out,)
 
-    got = call(wrap)
+    got = call(wrap, **wrap_kw)
     torch.cuda.synchronize()
-    ms = cuda_ms(lambda: call(wrap), 10) if timed else None
+    ms = cuda_ms(lambda: call(wrap, **wrap_kw), 10) if timed else None
+    queued = (queued_ms(lambda: call(wrap, **wrap_kw), 10)
+              if timed and kid in ("K2", "K3") else None)
     ev = (torch.cuda.Event(enable_timing=True),
           torch.cuda.Event(enable_timing=True))
     ev[0].record()
@@ -665,27 +697,108 @@ def tiled_check(kid, args, t, timed):
     if len(got) > 1 and int(got[1].sum()) != pairs:
         raise AssertionError(f"{kid}'s counts do not sum to its mask")
     return got, err, ms, (ev[0].elapsed_time(ev[1]) if timed else None), \
-        pairs
+        pairs, queued
 
 
-def tiled_bound(kid, args, got):
+def tiled_bound(kid, args, got, sparse=None):
     """(bound ms, bound_by, bytes, operations) of one K2-K5 call: every
     input read once and every output written once at the HBM rate,
-    against the in-window work — per cell and word an AND, a POPC and an
-    ADD at the int32 rate (K2/K3), or per cell and universe bit 2 int8
-    operations at the tensor-core rate (K4/K5)."""
+    against the in-window work at the int32 rate (K2/K3: an AND, a POPC
+    and an ADD per cell and word) or the int8 tensor-core rate (K4/K5: 2
+    operations per cell and universe bit). With ``sparse`` = (the
+    compressed S, the in-window cells' words nonzero on both sides) the
+    K2/K3 bound of the work these inputs need: the words nonzero on both
+    sides only, and S read as its compressed words (the 8-byte pairs
+    that exist, not the slabs' padding slots, with the counts and
+    offsets); without it, every word of every in-window cell and the
+    whole S sheet (the dense figure, which earlier measurements of K2/K3
+    used)."""
     ops_, skip, live, _, cells = args
-    ins = list(ops_) + ([skip] if kid in ("K3", "K5") else list(live))
-    moved = sum(x.numel() * x.element_size() for x in ins + list(got))
+    lead = [skip] if kid in ("K3", "K5") else list(live)
+    ins = list(ops_) + lead
+    extra = 0
     W = ops_[0].shape[1]
     if kid in ("K2", "K3"):
         ops_n, rate = 3 * cells * W, INT32_OPS_PER_S
+        if sparse is not None:
+            sp, common = sparse
+            ins = [x for k, x in enumerate(ops_) if k != 2] + lead + [
+                sp.counts, sp.offsets]
+            extra = int(sp.counts.sum()) * 2 * sp.pairs.element_size()
+            ops_n = 3 * common
     else:
         ops_n, rate = 2 * cells * 32 * W, INT8_OPS_PER_S
+    moved = extra + sum(x.numel() * x.element_size()
+                        for x in ins + list(got))
     byte_ms = moved / HBM_BYTES_PER_S * 1e3
     ops_ms = ops_n / rate * 1e3
     return (max(byte_ms, ops_ms), "bytes" if byte_ms >= ops_ms
             else "operations", moved, ops_n)
+
+
+def common_words(args) -> int:
+    """Sum over the in-window cells of a K2/K3 call of the words nonzero
+    in both the row and the column: one float32 product of the 0/1
+    nonzero-word matrices, masked by the windows (exact: every entry is
+    at most W < 2^24, and TF32 is held off for it)."""
+    ops_ = args[0]
+    rb, sb, lo, hi = ops_[0], ops_[2], ops_[4], ops_[5]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        both = (rb != 0).float() @ (sb != 0).float().T
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    cols = torch.arange(sb.shape[0], device=rb.device)[None, :]
+    both *= (cols >= lo) & (cols < hi)
+    out = int(both.sum(dtype=torch.float64))
+    del both
+    torch.cuda.empty_cache()
+    return out
+
+
+def bitmap_work(args, sp) -> dict:
+    """What K2/K3's schedule does on these operands (the live tiles'
+    groups, as ``bitmap_join.window_order`` and ``GROUP_ROWS`` cut them):
+    the cells its groups' window spans cover, the (column, pair) visits
+    (a column's pairs once per union slice), the union lengths and the
+    groups whose union takes more than one shared-memory slice."""
+    from repro_torch.kernels import bitmap_join
+    ops_, _, (ti, tj), (TM, TN, _), cells = args
+    rb, lo, hi = ops_[0], ops_[4][:, 0].long(), ops_[5][:, 0].long()
+    g_rows = bitmap_join.GROUP_ROWS
+    order = bitmap_join.window_order(lo, hi, TM).long()
+    groups = -(-TM // g_rows)
+    # (tile rows, groups, 16) positions in the order; those past the
+    # tile's TM rows are not valid (read as position 0, then masked)
+    k = torch.arange(groups * g_rows, device=rb.device)
+    pos = (torch.arange(rb.shape[0] // TM, device=rb.device)[:, None] * TM
+           + k[None, :]).reshape(-1, groups, g_rows)
+    valid = (k < TM).reshape(groups, g_rows)[None]
+    rows = order[torch.where(valid, pos, 0)]
+    full = valid & (lo[rows] < hi[rows])
+    g_lo = torch.where(full, lo[rows], 2 ** 40).amin(-1)
+    g_hi = torch.where(full, hi[rows], -1).amax(-1)
+    size = valid.sum(-1)
+    union = torch.stack([((rb[rows[i]] != 0) & valid[0, :, :, None])
+                         .any(1).sum(-1) for i in range(rows.shape[0])])
+    c_lo = torch.maximum(g_lo[ti.long()], tj.long()[:, None] * TN)
+    c_hi = torch.minimum(g_hi[ti.long()], (tj.long()[:, None] + 1) * TN)
+    span = (c_hi - c_lo).clamp(min=0)
+    cum = torch.cat([torch.zeros(1, dtype=torch.long, device=rb.device),
+                     torch.cumsum(sp.counts.long(), 0)])
+    pairs = torch.where(span > 0, cum[c_hi.clamp(min=0)]
+                        - cum[c_lo.clamp(max=cum.shape[0] - 1)], 0)
+    slices = -(-union[ti.long()] // bitmap_join.UNION_SLICE)
+    return {"ctas": int(ti.shape[0] * groups),
+            "ctas_with_work": int((span > 0).sum()),
+            "in_window_cells": cells,
+            "covered_cells": int((span * size).sum()),
+            "pair_visits": int((pairs * slices).sum()),
+            "union_mean": round(float(union.float().mean()), 3),
+            "union_max": int(union.max()),
+            "groups_over_one_slice": int((union > bitmap_join.UNION_SLICE)
+                                         .sum())}
 
 
 def membership_matmul_ms(r_bm, s_bm):
@@ -728,9 +841,70 @@ def onehot_work(args):
     return len(ti) * TM * TN, products, len(ti) * r_nz.shape[1]
 
 
+def pad_sheet_check(R, Ss, rows, s_bm, sp, dev) -> None:
+    """One R block's ``ops.bitmap_join`` (K3's dispatch: the block's
+    padding, its skip mask, K3) with the S sheet unpadded (the dispatch
+    then pads a copy of it per block) and as the join driver keeps it
+    (``ops.pad_sheet``: a view), timed in turns (unpadded, padded,
+    padded, unpadded) on the card; equal masks."""
+    from repro_torch.core.tile_join import window_bounds
+    from repro_torch.kernels import ops
+    W = s_bm.shape[1]
+    r_bm = torch.tensor(R.bitmaps(W).view(np.int32)[rows], device=dev)
+    r_sz = R.sizes()[rows]
+    lo, hi = window_bounds(r_sz, Ss.sizes(), MAIN_T)
+    s_sz = torch.tensor(Ss.sizes(), dtype=torch.int32, device=dev)
+    padded = ops.pad_sheet(s_bm)
+
+    def call(sheet):
+        return ops.bitmap_join(r_bm, r_sz, sheet, s_sz, lo, hi, MAIN_T,
+                               s_sparse=sp)
+
+    if not torch.equal(call(s_bm), call(padded)):
+        raise AssertionError("the padded sheet gives another mask")
+    ms = {"unpadded": [], "padded": []}
+    for name in ("unpadded", "padded", "padded", "unpadded"):
+        ms[name].append(cuda_ms(lambda: call(
+            s_bm if name == "unpadded" else padded), 5))
+    log(f"[pad] ops.bitmap_join on the block, S sheet unpadded (a copy "
+        f"per block) ms={ms['unpadded']} pre-padded (a view) "
+        f"ms={ms['padded']} sheet_bytes={padded.numel() * 4}")
+    del padded
+    torch.cuda.empty_cache()
+
+
+def dense_case(dev):
+    """K2/K3 on dense words: the measures phase's kosarak data (universe
+    3 600, W = 113, sets up to 2 497 elements), its first 1024 R rows
+    against the size-sorted S at t = 0.5, bit-equal to the plain
+    versions and timed beside the bounds -> {kid: (ms, queued ms, plain
+    ms, bound, dense bound, pairs)}, the work counts."""
+    from repro_torch.kernels import bitmap_join
+    R, S = measures_data("kosarak")
+    Ss = S.sort_by_size()
+    W = max((max(R.universe, Ss.universe) + 31) // 32, 1)
+    s_bm = torch.tensor(Ss.bitmaps(W).view(np.int32), device=dev)
+    args = tiled_operands(R, Ss, slice(0, BLOCK_ROWS), WIDE_T, "bitmap",
+                          None, dev, s_bm)
+    sp = bitmap_join.compress_s(args[0][2])
+    common = common_words(args)
+    out = {}
+    for kid in ("K2", "K3"):
+        got, _, ms, plain_ms, pairs, queued = tiled_check(
+            kid, args, WIDE_T, True, s_sparse=sp)
+        out[kid] = (ms, queued, plain_ms,
+                    tiled_bound(kid, args, got, (sp, common)),
+                    tiled_bound(kid, args, got), pairs)
+    work = bitmap_work(args, sp)
+    work["s_pairs_per_column"] = round(
+        float(sp.counts.float().sum()) / len(Ss), 3)
+    return out, work
+
+
 def small_tile_case(dev):
     """K2-K5 against their plain versions at m = 20, n = 300, W = 3 with
-    (32, 128, 2) tiles -> the pairs each found."""
+    (32, 128, 2) tiles -> the pairs each found (K2/K3 build their
+    compressed S in the wrapper here)."""
     from repro_torch.core.sets import SetCollection
     rng = np.random.default_rng(3)
     r = [rng.choice(96, size=int(rng.integers(1, 30)), replace=False)
@@ -1383,7 +1557,7 @@ def k7_check(label, b, l, h, kv, d, window, dtype, dev):
 def ptxas_registers(log_text: str, names) -> list[str]:
     """Per kernel of ``names`` in an ``nvcc -Xptxas -v`` log: its template
     arguments (from the mangled name: ``Li128E`` is 128, ``Lb1E`` true),
-    registers at entry and spill bytes."""
+    registers at entry, spill bytes and static shared memory."""
     out, name = [], None
     for line in log_text.splitlines():
         if "Compiling entry function" in line:
@@ -1398,7 +1572,9 @@ def ptxas_registers(log_text: str, names) -> list[str]:
             spills = line.strip()
         elif name and "Used" in line and "registers" in line:
             regs = line.split("Used", 1)[1].split("registers")[0].strip()
-            out.append(f"{name}: registers={regs} {spills}")
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(f"{name}: registers={regs} {spills} static_smem="
+                       f"{smem.group(1) if smem else 0}")
             name = None
     return out
 
@@ -1414,6 +1590,26 @@ def onehot_smem_lines() -> list[str]:
             f"TN {tn}): dynamic_smem_bytes="
             f"{so.onehot_join_smem_bytes(64 * cons, tn)}"
             for cons in (1, 2) for tn in (128, 256)]
+
+
+def bitmap_smem_lines() -> list[str]:
+    """The dynamic shared memory a K2/K3 join CTA asks for (the library's
+    ``bitmap_join_smem_bytes``, which must equal the wrapper's
+    ``sparse_smem_bytes``) at the word widths this run meets and the
+    widest the kernels take."""
+    from repro_torch.kernels import _build, bitmap_join
+    so = _build.load("bitmap_join")
+    so.bitmap_join_smem_bytes.argtypes = [ctypes.c_int]
+    so.bitmap_join_smem_bytes.restype = ctypes.c_int
+    out = []
+    for words in (4, 120, 1368, bitmap_join.MAX_WORDS):
+        got = so.bitmap_join_smem_bytes(words)
+        if got != bitmap_join.sparse_smem_bytes(words):
+            raise AssertionError(f"K2/K3 shared memory at W={words}: the "
+                                 f"library says {got}, the wrapper "
+                                 f"{bitmap_join.sparse_smem_bytes(words)}")
+        out.append(f"W={words}: dynamic_smem_bytes={got}")
+    return out
 
 
 def measures_configs():
@@ -1491,7 +1687,7 @@ def main() -> int:
         return 2
     import repro_torch
     from repro_torch.data.synth import make_join_dataset
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, bitmap_join
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -1521,6 +1717,11 @@ def main() -> int:
                                  "lfvt_walk_planned_kernel"))
     for line in walk_regs + walk_smem_lines():
         log(f"[build K1/K6] {line}")
+    bitmap_regs = ptxas_registers(build_logs.get("bitmap_join", ""),
+                                  ("bitmap_join_kernel",
+                                   "bitmap_union_kernel"))
+    for line in bitmap_regs + bitmap_smem_lines():
+        log(f"[build K2/K3] {line}")
 
     # worker processes make the livej data and run the measures phase's
     # CPU side while this process drives the card; it keeps to one CPU
@@ -1632,13 +1833,14 @@ def main() -> int:
     t0 = time.perf_counter()
     repro_torch.join(R, Ss, MAIN_T)
     log(f"[auto] warm_wall_s={time.perf_counter() - t0:.3f}")
+    # K3's share: its union pass and its join kernel
     log_profile("warm auto join", device_profile(
         lambda: repro_torch.join(R, Ss, MAIN_T),
-        ("bitmap_join_kernel<false>", "bitmap_join_kernelILb0E")), "K3")
+        ("bitmap_join_kernel", "bitmap_union_kernel")), "K3")
     for method in ("kernel_bitmap", "kernel_onehot", "onehot"):
         front_door(method, method=method)
-    # the one-hot family warm, against the default call's pairs
-    for method in ("kernel_onehot", "onehot"):
+    # the other families warm, against the default call's pairs
+    for method in ("kernel_bitmap", "kernel_onehot", "onehot"):
         t0 = time.perf_counter()
         warm = repro_torch.join(R, Ss, MAIN_T, method=method)
         wall = time.perf_counter() - t0
@@ -1647,6 +1849,9 @@ def main() -> int:
                                  f"pairs, auto {len(auto.pairs)}")
         log(f"[join {method}] warm_wall_s={wall:.3f} pairs="
             f"{len(warm.pairs)} (== auto)")
+    log_profile("warm kernel_bitmap join", device_profile(
+        lambda: repro_torch.join(R, Ss, MAIN_T, method="kernel_bitmap"),
+        ("bitmap_join_kernel", "bitmap_union_kernel")), "K2")
     log_profile("warm kernel_onehot join", device_profile(
         lambda: repro_torch.join(R, Ss, MAIN_T, method="kernel_onehot"),
         ("onehot_join_kernel",)), "K4")
@@ -1711,18 +1916,39 @@ def main() -> int:
     W = max((max(R.universe, Ss.universe) + 31) // 32, 1)
     s_bm = torch.tensor(Ss.bitmaps(W).view(np.int32), device=dev)
     tiled_err = dict.fromkeys(("K2", "K3", "K4", "K5"), 0)
+    lib = None
     for family, kids in (("bitmap", ("K2", "K3")),
                          ("onehot", ("K4", "K5"))):
         for t in (MAIN_T, WIDE_T):
             args = tiled_operands(R, Ss, rows_blk, t, family, None, dev,
                                   s_bm)
+            if lib is None:   # K2-K5's yardstick: the same block's product
+                lib = membership_matmul_ms(args[0][0], args[0][2])
+                log(f"[library K2-K5] bf16 torch.matmul of the block's "
+                    f"unpacked membership matrices (product only) "
+                    f"ms={lib:.4f}")
             onehot_main = family == "onehot" and t == MAIN_T
             if onehot_main:
-                lib = membership_matmul_ms(args[0][0], args[0][2])
                 live_cells, products, stage_tiles = onehot_work(args)
+            wrap_kw, sparse = {}, None
+            if family == "bitmap":
+                # the compressed S, as the driver builds it once per join
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sp = bitmap_join.compress_s(args[0][2])
+                torch.cuda.synchronize()
+                sp_s = time.perf_counter() - t0
+                wrap_kw = {"s_sparse": sp}
+                if t == MAIN_T:
+                    sparse = (sp, common_words(args))
+                log(f"[work K2/K3] t={t} block={block} compress_s_s="
+                    f"{sp_s:.4f} s_pairs={int(sp.counts.sum())} s_slots="
+                    f"{sp.pairs.shape[0]} s_bytes="
+                    f"{sum(x.numel() * x.element_size() for x in sp[:3])} "
+                    + json.dumps(bitmap_work(args, sp)))
             for kid in kids:
-                kgot, kerr, kms, kplain, kpairs = tiled_check(
-                    kid, args, t, t == MAIN_T)
+                kgot, kerr, kms, kplain, kpairs, kq = tiled_check(
+                    kid, args, t, t == MAIN_T, **wrap_kw)
                 tiled_err[kid] = max(tiled_err[kid], kerr)
                 if t == WIDE_T and kpairs <= 0:
                     raise AssertionError(f"{kid} found no pair in block "
@@ -1733,14 +1959,27 @@ def main() -> int:
                         "bit-equal to plain")
                 if t == MAIN_T:
                     b_ms, b_by, b_bytes, b_ops = tiled_bound(kid, args,
-                                                             kgot)
+                                                             kgot, sparse)
                     kernels[kid] = dict(
                         ms=kms, plain_ms=kplain, bound_ms=b_ms,
-                        bound_by=b_by)
+                        bound_by=b_by, library_ms=lib, library_note=(
+                            "one bf16 torch.matmul of the block's "
+                            "pre-unpacked membership matrices: the same "
+                            "cells' intersection sizes (the product only, "
+                            "no predicate, window or mask)"))
                     line += (f" ms={kms:.4f} plain_ms={kplain:.4f} "
                              f"bound_ms={b_ms:.6f} bound_by={b_by} "
                              f"bytes={b_bytes} ops={b_ops} "
                              f"over_bound={kms / b_ms:.1f}")
+                    if family == "bitmap":
+                        d_ms, d_by, d_bytes, d_ops = tiled_bound(
+                            kid, args, kgot)
+                        kernels[kid].update(queued_ms=kq)
+                        line += (f" queued_ms={kq:.4f} queued_over_bound="
+                                 f"{kq / b_ms:.1f} dense_bound_ms={d_ms:.6f} "
+                                 f"dense_bound_by={d_by} dense_bytes="
+                                 f"{d_bytes} dense_ops={d_ops} library_ms="
+                                 f"{lib:.4f} over_library={kms / lib:.4f}")
                 if onehot_main:
                     TM, TN, _ = args[3]
                     issued = 2 * TM * TN * 128 * products / (kms * 1e9)
@@ -1753,27 +1992,30 @@ def main() -> int:
                              f"{issued * 1e12 / INT8_OPS_PER_S:.3f}"
                              f" live_dense_tops={dense:.1f} library_ms="
                              f"{lib:.4f} over_library={kms / lib:.3f}")
-                    kernels[kid].update(
-                        library_ms=lib, library_note=(
-                            "one bf16 torch.matmul of the pre-unpacked "
-                            "membership matrices: the product only, no "
-                            "predicate, window or mask"))
                 log(line)
-            if onehot_main:
-                log(f"[library K4/K5] bf16 torch.matmul of the block's "
-                    f"unpacked membership matrices (product only) "
-                    f"ms={lib:.4f}")
+            if family == "bitmap" and t == MAIN_T:
+                pad_sheet_check(R, Ss, rows_blk, s_bm, sp, dev)
     for kid in ("K2", "K3"):
-        kernels[kid].update(library_ms=None, library_note=(
-            "no single PyTorch call computes AND-popcount-sum"))
+        kernels[kid]["registers"] = bitmap_regs
     for kid in ("K4", "K5"):
         kernels[kid]["registers"] = onehot_regs
+    dense, dense_work = dense_case(dev)
+    log(f"[work K2/K3 dense] kosarak t={WIDE_T} " + json.dumps(dense_work))
+    for kid, (kms, kq, kplain, bound, d_bound, kpairs) in dense.items():
+        log(f"[kernel {kid} dense] kosarak first {BLOCK_ROWS} rows "
+            f"t={WIDE_T} pairs={kpairs} bit-equal to plain ms={kms:.4f} "
+            f"queued_ms={kq:.4f} "
+            f"plain_ms={kplain:.4f} bound_ms={bound[0]:.6f} "
+            f"bound_by={bound[1]} bytes={bound[2]} ops={bound[3]} "
+            f"dense_bound_ms={d_bound[0]:.6f} dense_ops={d_bound[3]}")
     for kid in ("K2", "K3", "K4", "K5"):
         kernels[kid].update(
             max_abs_err=tiled_err[kid],
             check=f"bit-equal to its plain version on the card at "
                   f"t={MAIN_T} and t={WIDE_T}, and at m=20, n=300, "
-                  f"W=3 with tiles (32, 128, 2)")
+                  f"W=3 with tiles (32, 128, 2)" + (
+                      f", and on the kosarak block at t={WIDE_T} (dense "
+                      "words)" if kid in ("K2", "K3") else ""))
     del s_bm
     log(f"[kernel small] m=20 n=300 W=3 tiles=(32, 128, 2) "
         f"bit-equal to plain, pairs={small_tile_case(dev)}")

@@ -216,9 +216,9 @@ def _compact_mask(mask: torch.Tensor, *, size: int) -> torch.Tensor:
 # ------------------------------------------------------------------ #
 # device-resident S representation cache: the size-sorted collection and
 # its device reps (the FlatLFVT, whose walk arrays are uploaded once per
-# device, or the (n, W) bitmap sheet) live as long as the source
-# collection. WeakKeyDictionary -> entries die with the collection
-# (collections are immutable by convention).
+# device, or the (n, W) bitmap sheet and its compressed nonzero words)
+# live as long as the source collection. WeakKeyDictionary -> entries die
+# with the collection (collections are immutable by convention).
 # ------------------------------------------------------------------ #
 _S_REP_CACHE: "weakref.WeakKeyDictionary[SetCollection, dict]" = (
     weakref.WeakKeyDictionary())
@@ -228,16 +228,20 @@ def _s_device_rep(S: SetCollection, family: str, W: int,
                   device: torch.device, stats: dict | None = None):
     """-> (sorted collection, device rep, device sizes, np sizes).
 
-    family 'bitmap' -> the (n, W) bitmap sheet as an int32 tensor with
-    the uint32 bits; 'lfvt' -> the ``FlatLFVT`` uploaded to ``device``.
+    family 'bitmap' -> the bitmap sheet as an int32 tensor with the
+    uint32 bits, padded once as the tiled kernels' launches pad it
+    (``ops.pad_sheet``: rows past n are zero); 'sparse' -> that sheet's
+    nonzero words as K2/K3 read them (``bitmap_join.compress_s``),
+    cached beside it; 'lfvt' -> the ``FlatLFVT`` uploaded to ``device``.
     """
+    from ..kernels import bitmap_join, ops  # deferred: kernels import this
     fault_point("device_upload")
     entry = _S_REP_CACHE.get(S)
     if entry is None:
         entry = {}
         _S_REP_CACHE[S] = entry
     dev = str(device)
-    key = ("bitmap", W, dev) if family == "bitmap" else ("lfvt", dev)
+    key = ("lfvt", dev) if family == "lfvt" else (family, W, dev)
     hit = "sorted" in entry and key in entry
     if "sorted" not in entry:
         # None = "the key itself is already sorted": the cache value must
@@ -249,10 +253,13 @@ def _s_device_rep(S: SetCollection, family: str, W: int,
     if ("sizes", dev) not in entry:
         entry[("sizes", dev)] = torch.tensor(entry["sizes_np"],
                                              dtype=torch.int32, device=device)
+    sheet = ("bitmap", W, dev)
+    if family != "lfvt" and sheet not in entry:
+        entry[sheet] = ops.pad_sheet(torch.tensor(
+            Ss.bitmaps(W).view(np.int32), device=device))
     if key not in entry:
-        if family == "bitmap":
-            entry[key] = torch.tensor(Ss.bitmaps(W).view(np.int32),
-                                      device=device)
+        if family == "sparse":
+            entry[key] = bitmap_join.compress_s(entry[sheet])
         else:
             flat = Ss.flat_lfvt()    # memoized on the collection
             flat.to_device(device)   # one upload per device, cached on it
@@ -381,6 +388,11 @@ def cf_rs_join_device_ids(R: SetCollection, S: SetCollection, t: float,
     universe = max(R.universe, S.universe)
     W = max((universe + 31) // 32, 1)
     Ss, s_rep, s_sz, s_sizes = _s_device_rep(S, family, W, device, stats)
+    # K2/K3 read S through its compressed nonzero words; their plain
+    # versions (the CPU path) never do
+    popcount = method in ("popcount", "kernel_bitmap")
+    s_sparse = (_s_device_rep(S, "sparse", W, device)[1]
+                if popcount and device.type == "cuda" else None)
     r_sizes_all = R.sizes()
     # int32 exactness guard for the device predicate (DESIGN.md §8)
     measures.get_measure(measure).validate(
@@ -429,17 +441,23 @@ def cf_rs_join_device_ids(R: SetCollection, S: SetCollection, t: float,
                 measure=measure)
         elif kernel_pairs:
             # live-tile schedule + in-kernel counts; count sync deferred
-            live = (kops.bitmap_join_pairs_dispatch
-                    if method == "kernel_bitmap"
-                    else kops.onehot_join_pairs_dispatch)
-            blk["pending"] = live(r_rep, r_sizes_all[sl], s_rep, s_sz,
-                                  lo_all[sl], hi_all[sl], t, measure=measure)
+            if method == "kernel_bitmap":
+                blk["pending"] = kops.bitmap_join_pairs_dispatch(
+                    r_rep, r_sizes_all[sl], s_rep, s_sz, lo_all[sl],
+                    hi_all[sl], t, measure=measure, s_sparse=s_sparse)
+            else:
+                blk["pending"] = kops.onehot_join_pairs_dispatch(
+                    r_rep, r_sizes_all[sl], s_rep, s_sz, lo_all[sl],
+                    hi_all[sl], t, measure=measure)
         else:
-            dense = (kops.bitmap_join
-                     if method in ("popcount", "kernel_bitmap")
-                     else kops.onehot_join)
-            mask = dense(r_rep, r_sizes_all[sl], s_rep, s_sz, lo_all[sl],
-                         hi_all[sl], t, measure=measure)
+            if popcount:
+                mask = kops.bitmap_join(r_rep, r_sizes_all[sl], s_rep, s_sz,
+                                        lo_all[sl], hi_all[sl], t,
+                                        measure=measure, s_sparse=s_sparse)
+            else:
+                mask = kops.onehot_join(r_rep, r_sizes_all[sl], s_rep, s_sz,
+                                        lo_all[sl], hi_all[sl], t,
+                                        measure=measure)
             blk["mask"] = mask
             if emit == "pairs":
                 # speculative on-device compaction at the fixed capacity;

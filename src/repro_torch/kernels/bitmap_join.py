@@ -14,14 +14,20 @@ boolean mask, plus an exact pair count per live tile.
     (i, j) tiles, into an (L, TM, TN) mask and (L, 1) counts.
 
 Each wrapper runs its plain PyTorch version (``*_ref``) on CPU tensors
-and launches the hand-written kernel of ``csrc/bitmap_join.cu`` on CUDA
-tensors, counting the launch in ``<wrapper>.launches``. There is no
-fallback from the CUDA path: a failed build or launch raises.
+and launches the hand-written kernels of ``csrc/bitmap_join.cu`` on CUDA
+tensors, counting the launch in ``<wrapper>.launches``. The kernels visit
+only the words that hold a member: S's nonzero words come compressed
+(``compress_s``, the optional ``s_sparse`` operand, which the join
+driver builds once per S and caches; a call without it builds it), and
+each tile's rows are taken 16 at a time in window order
+(``window_order``). There is no fallback from the CUDA path: a failed
+build or launch, or an operand the kernels do not take, raises.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -31,12 +37,84 @@ from . import _build
 
 __all__ = ["DEFAULT_TILES", "bitmap_join_tiled", "bitmap_join_live_tiled",
            "bitmap_join_tiled_ref", "bitmap_join_live_tiled_ref",
-           "tiled_ref", "live_tiled_ref", "launch_tiled", "launch_live",
-           "cta_order"]
+           "tiled_ref", "live_tiled_ref", "SparseWords", "compress_s",
+           "window_order", "sparse_smem_bytes", "GROUP_ROWS", "UNION_SLICE",
+           "MAX_WORDS"]
 
 #: (TM, TN, TW), the reference's; ``ops.pick_tiles`` shrinks them for
 #: small operands
 DEFAULT_TILES = (256, 256, 8)
+#: rows a K2/K3 CTA takes together, and the union words it stages in
+#: shared memory at a time (``kGroup``, ``kSlice`` of csrc/bitmap_join.cu)
+GROUP_ROWS = 16
+UNION_SLICE = 512
+#: shared memory a K2/K3 CTA may ask for: the card's 232 448 bytes a
+#: block, less the kernel's room for its static shared memory
+_SMEM_LIMIT = 232448 - 1024
+
+
+def sparse_smem_bytes(words: int) -> int:
+    """Dynamic shared memory of a K2/K3 join CTA at ``words`` words (the
+    library's ``bitmap_join_smem_bytes``): a slice of the union (16 row
+    words and a word index a slot) and the word -> slot map (W 16-bit
+    entries)."""
+    return min(words, UNION_SLICE) * (4 * GROUP_ROWS + 4) + (
+        (2 * words + 15) & ~15)
+
+
+#: the widest bitmap K2/K3 take, in words (98 304: a universe of 3.1 M);
+#: wider operands raise ``ValueError`` before a launch
+MAX_WORDS = (_SMEM_LIMIT - UNION_SLICE * (4 * GROUP_ROWS + 4)) // 2
+
+
+class SparseWords(NamedTuple):
+    """S's nonzero words, as K2/K3 read them (``compress_s``).
+
+    Column c's k-th nonzero word (ascending word index) is the pair
+    ``pairs[offsets[c // 32] + 32 * k + c % 32]`` = (word index, word
+    bits as int32), for k < ``counts[c]``: the columns come in slabs of
+    32, slot-major, so the 32 columns of a warp read their k-th pairs
+    with one coalesced load. Slab b holds 32 x the largest count of its
+    columns slots; a slot past its column's count is (0, 0)."""
+
+    counts: torch.Tensor   # (Nc,) int32, Nc = the columns rounded up to 32
+    offsets: torch.Tensor  # (Nc / 32 + 1,) int64: each slab's first slot
+    pairs: torch.Tensor    # (offsets[-1], 2) int32
+    words: int             # the word width of the sheet it was built from
+
+
+def compress_s(s_bitmaps: torch.Tensor) -> SparseWords:
+    """(N, W) int32-held bitmap sheet -> its ``SparseWords``, on the
+    sheet's device (one host sync: the pair count sizes the buffer)."""
+    n, w = s_bitmaps.shape
+    device = s_bitmaps.device
+    nz = s_bitmaps != 0
+    counts = torch.zeros(-(-n // 32) * 32, dtype=torch.int32, device=device)
+    counts[:n] = nz.sum(1, dtype=torch.int32)
+    offsets = torch.zeros(counts.shape[0] // 32 + 1, dtype=torch.int64,
+                          device=device)
+    torch.cumsum(counts.view(-1, 32).amax(1).long() * 32, 0,
+                 out=offsets[1:])
+    col, word = torch.nonzero(nz, as_tuple=True)  # column-major, ascending
+    first = torch.cumsum(counts.long(), 0) - counts  # column c's first pair
+    rank = torch.arange(col.shape[0], device=device) - first[col]
+    at = offsets[col // 32] + 32 * rank + col % 32
+    pairs = torch.zeros((int(offsets[-1]), 2), dtype=torch.int32,
+                        device=device)
+    pairs[at, 0] = word.to(torch.int32)
+    pairs[at, 1] = s_bitmaps[col, word]
+    return SparseWords(counts, offsets, pairs, w)
+
+
+def window_order(lo: torch.Tensor, hi: torch.Tensor, tm: int) -> torch.Tensor:
+    """The row order K2/K3 take: inside each ``tm``-row tile the rows by
+    window start (stable), rows with an empty window last, so 16
+    consecutive rows have close windows; no row leaves its tile ->
+    (M,) int32 permutation on the windows' device (one ``argsort``)."""
+    lo, hi = lo.reshape(-1).long(), hi.reshape(-1).long()
+    tile = torch.arange(lo.shape[0], device=lo.device) // tm
+    key = (tile << 32) | torch.where(lo < hi, lo, 2 ** 31)
+    return torch.argsort(key, stable=True).to(torch.int32)
 
 
 # ---------------------------------------------------------------------- #
@@ -100,48 +178,19 @@ def bitmap_join_live_tiled_ref(tile_i, tile_j, r_bitmaps, r_sizes,
 
 
 # ---------------------------------------------------------------------- #
-# CUDA kernel wrappers (shared with the one-hot kernels, which take the
-# same operands)
+# CUDA kernel wrappers. The operand checks are shared with the one-hot
+# kernels (K4, K5), which take the same operands.
 # ---------------------------------------------------------------------- #
-#: kernel libraries whose live-tile entry point takes, after tile_j, the
-#: order in which its CTAs take the live tiles (a permutation)
-ORDERED_LIBS = ("onehot_join",)
-
-#: kernel libraries that read each row's words in 16-byte pieces: the
-#: word axis of their bitmaps is zero-padded to a multiple of 4 before a
-#: launch (a copy; zero words add nothing to any count)
-QUAD_WORD_LIBS = ("onehot_join",)
-
-#: the (TM, TN) each kernel library takes: K2/K3 cut a tile into CTA
-#: sub-tiles of min(TM, 64) rows x 64 columns; K4/K5 run one CTA per tile
-#: of one or two 64-row warpgroups
+#: the (TM, TN) each kernel library takes: K2/K3 run a CTA per 16-row
+#: group of a tile whose columns start on a 32-column slab of the
+#: compressed S; K4/K5 run one CTA per tile of one or two 64-row
+#: warpgroups
 TILE_RULES = {
-    "bitmap_join": (lambda tm, tn: tn % 64 == 0 and tm >= 1
-                    and (tm <= 64 or tm % 64 == 0),
-                    "TN a multiple of 64 and TM <= 64 or a multiple of 64"),
+    "bitmap_join": (lambda tm, tn: tn % 32 == 0 and tm >= 1 and tn >= 32,
+                    "TN a multiple of 32"),
     "onehot_join": (lambda tm, tn: 1 <= tm <= 128 and tn in (128, 256),
                     "1 <= TM <= 128 and TN in (128, 256)"),
 }
-
-
-@functools.cache
-def _launchers(lib: str):
-    """(tiled, live) C entry points of ``csrc/<lib>.cu``, built at first
-    use (``kernels/_build.py``)."""
-    so = _build.load(lib)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    tiled = getattr(so, f"{lib}_tiled_launch")
-    # r, s, rsz, ssz, lo, hi, skip, M, N, W, tm, tn, measure, p, q, out,
-    # stream
-    tiled.argtypes = [ptr] * 7 + [i32] * 8 + [ptr, ptr]
-    tiled.restype = i32
-    live = getattr(so, f"{lib}_live_tiled_launch")
-    # ti, tj, [order], L, r, s, rsz, ssz, lo, hi, N, W, tm, tn, measure, p,
-    # q, mask, counts, stream
-    live.argtypes = ([ptr] * (3 if lib in ORDERED_LIBS else 2) + [i32]
-                     + [ptr] * 6 + [i32] * 7 + [ptr] * 3)
-    live.restype = i32
-    return tiled, live
 
 
 def _check_operands(lib, who, tiles, r_bitmaps, r_sizes, s_bitmaps, s_sizes,
@@ -169,82 +218,98 @@ def _check_operands(lib, who, tiles, r_bitmaps, r_sizes, s_bitmaps, s_sizes,
     return M, N, W
 
 
-def _quad_words(lib, r_bitmaps, s_bitmaps, W):
-    """The bitmaps as ``lib``'s kernels read them -> (r, s, W)."""
-    pad = -W % 4 if lib in QUAD_WORD_LIBS else 0
-    if pad:
-        r_bitmaps, s_bitmaps = (torch.nn.functional.pad(x, (0, pad))
-                                for x in (r_bitmaps, s_bitmaps))
-    return r_bitmaps, s_bitmaps, W + pad
+@functools.cache
+def _launchers():
+    """(tiled, live) C entry points of ``csrc/bitmap_join.cu`` (K3, K2),
+    built at first use."""
+    so = _build.load("bitmap_join")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    tiled = so.bitmap_join_tiled_launch
+    # r, rsz, ssz, lo, hi, skip, order, s_counts, s_off, s_pairs, u_idx,
+    # u_words, u_count, M, N, W, tm, tn, measure, p, q, out, stream
+    tiled.argtypes = [ptr] * 13 + [i32] * 8 + [ptr, ptr]
+    tiled.restype = i32
+    live = so.bitmap_join_live_tiled_launch
+    # ti, tj, L, r, rsz, ssz, lo, hi, order, s_counts, s_off, s_pairs,
+    # u_idx, u_words, u_count, M, N, W, tm, tn, measure, p, q, mask,
+    # counts, stream
+    live.argtypes = [ptr, ptr, i32] + [ptr] * 12 + [i32] * 8 + [ptr] * 3
+    live.restype = i32
+    return tiled, live
 
 
-def launch_tiled(lib, who, r_bitmaps, r_sizes, s_bitmaps, s_sizes, lo, hi,
-                 skip, *, t, measure, tiles):
-    """Launch K3 or K5 (``lib``) on CUDA operands -> (launched, (M, N)
-    bool mask); an empty grid launches nothing."""
-    M, N, W = _check_operands(lib, who, tiles, r_bitmaps, r_sizes,
-                              s_bitmaps, s_sizes, lo, hi)
+def _check_sparse(who, s_sparse, N, W, device):
+    """Raise ``ValueError`` unless ``s_sparse`` is a ``SparseWords`` on
+    ``device`` that covers the N columns of a W-word sheet."""
+    if not isinstance(s_sparse, SparseWords):
+        raise ValueError(f"{who}: s_sparse must be a SparseWords "
+                         f"(compress_s), got {type(s_sparse).__name__}")
+    nc = s_sparse.counts.shape[0]
+    if nc < N or nc % 32 or s_sparse.words > W:
+        raise ValueError(f"{who}: s_sparse holds {nc} columns of "
+                         f"{s_sparse.words} words; the operands have {N} "
+                         f"columns of {W} words")
+    _build.check_operand(who, "s_sparse.counts", s_sparse.counts, (nc,),
+                         device, torch.int32)
+    _build.check_operand(who, "s_sparse.offsets", s_sparse.offsets,
+                         (nc // 32 + 1,), device, torch.int64)
+    _build.check_operand(who, "s_sparse.pairs", s_sparse.pairs,
+                         (s_sparse.pairs.shape[0], 2), device, torch.int32)
+
+
+def _launch_sparse(who, lead, r_bitmaps, r_sizes, s_bitmaps, s_sizes, lo,
+                   hi, skip, *, t, measure, tiles, s_sparse):
+    """Launch K3 (``lead`` None) or K2 (``lead`` the live tiles) on CUDA
+    operands -> (launched, output): K3's (M, N) mask, or K2's (mask
+    (L, TM, TN), counts (L, 1)). An empty grid launches nothing."""
+    M, N, W = _check_operands("bitmap_join", who, tiles, r_bitmaps,
+                              r_sizes, s_bitmaps, s_sizes, lo, hi)
     TM, TN, _ = tiles
     device = r_bitmaps.device
-    _build.check_operand(who, "skip", skip, (M // TM, N // TN), device,
-                         torch.int32)
-    out = torch.empty((M, N), dtype=torch.bool, device=device)
-    if M == 0 or N == 0:
+    if lead is None:
+        _build.check_operand(who, "skip", skip, (M // TM, N // TN), device,
+                             torch.int32)
+        out = torch.empty((M, N), dtype=torch.bool, device=device)
+        empty = M == 0 or N == 0
+    else:
+        L = lead[0].shape[0]
+        for name, x in zip(("tile_i", "tile_j"), lead):
+            _build.check_operand(who, name, x, (L,), device, torch.int32)
+        out = (torch.empty((L, TM, TN), dtype=torch.bool, device=device),
+               torch.zeros((L, 1), dtype=torch.int32, device=device))
+        empty = L == 0
+    if W > MAX_WORDS:
+        raise ValueError(f"{who}: {W} words a bitmap; the kernel's word -> "
+                         f"slot map takes at most MAX_WORDS = {MAX_WORDS}")
+    if empty:
         return False, out
-    r_bitmaps, s_bitmaps, W = _quad_words(lib, r_bitmaps, s_bitmaps, W)
+    if s_sparse is None:
+        s_sparse = compress_s(s_bitmaps)
+    _check_sparse(who, s_sparse, N, W, device)
+    order = window_order(lo, hi, TM)
+    n_groups = M // TM * -(-TM // GROUP_ROWS)
+    u_idx = torch.empty((n_groups, W), dtype=torch.int32, device=device)
+    u_words = torch.empty((n_groups, W, GROUP_ROWS), dtype=torch.int32,
+                          device=device)
+    u_count = torch.empty(n_groups, dtype=torch.int32, device=device)
     p, q = measures.threshold_fraction(t)
     code = measures.MEASURE_CODES[measures.get_measure(measure).name]
-    err = _launchers(lib)[0](
-        r_bitmaps.data_ptr(), s_bitmaps.data_ptr(), r_sizes.data_ptr(),
-        s_sizes.data_ptr(), lo.data_ptr(), hi.data_ptr(), skip.data_ptr(),
-        M, N, W, TM, TN, code, p, q, out.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream)
+    operands = (r_bitmaps.data_ptr(), r_sizes.data_ptr(), s_sizes.data_ptr(),
+                lo.data_ptr(), hi.data_ptr())
+    shared = (order.data_ptr(), s_sparse.counts.data_ptr(),
+              s_sparse.offsets.data_ptr(), s_sparse.pairs.data_ptr(),
+              u_idx.data_ptr(), u_words.data_ptr(), u_count.data_ptr(), M, N,
+              W, TM, TN, code, p, q)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    tiled, live = _launchers()
+    if lead is None:
+        err = tiled(*operands, skip.data_ptr(), *shared, out.data_ptr(),
+                    stream)
+    else:
+        err = live(lead[0].data_ptr(), lead[1].data_ptr(), L, *operands,
+                   *shared, out[0].data_ptr(), out[1].data_ptr(), stream)
     _build.check_launch(who, err)
     return True, out
-
-
-def cta_order(tile_i: torch.Tensor, tile_j: torch.Tensor,
-              m_tiles: int) -> torch.Tensor:
-    """The order in which the CTAs of an ``ORDERED_LIBS`` kernel take the
-    live tiles: column tile by column tile, row tiles ascending within
-    each (one stable sort of ``tile_j * m_tiles + tile_i``), so the CTAs
-    that run together share their S words in the L2 cache -> (L,) int32
-    permutation of the tile indices, on their device."""
-    key = tile_j.long() * m_tiles + tile_i.long()
-    return torch.argsort(key, stable=True).to(torch.int32)
-
-
-def launch_live(lib, who, tile_i, tile_j, r_bitmaps, r_sizes, s_bitmaps,
-                s_sizes, lo, hi, *, t, measure, tiles):
-    """Launch K2 or K4 (``lib``) on CUDA operands -> (launched, (mask
-    (L, TM, TN) bool, counts (L, 1) int32)); no live tile launches
-    nothing. A library of ``ORDERED_LIBS`` is also given ``cta_order``;
-    tile l's outputs stay at index l."""
-    M, N, W = _check_operands(lib, who, tiles, r_bitmaps, r_sizes,
-                              s_bitmaps, s_sizes, lo, hi)
-    TM, TN, _ = tiles
-    device = r_bitmaps.device
-    L = tile_i.shape[0]
-    lead = [tile_i, tile_j]
-    for name, x in zip(("tile_i", "tile_j"), lead):
-        _build.check_operand(who, name, x, (L,), device, torch.int32)
-    if lib in ORDERED_LIBS:
-        lead.append(cta_order(tile_i, tile_j, M // TM))
-    masks = torch.empty((L, TM, TN), dtype=torch.bool, device=device)
-    counts = torch.zeros((L, 1), dtype=torch.int32, device=device)
-    if L == 0:
-        return False, (masks, counts)
-    r_bitmaps, s_bitmaps, W = _quad_words(lib, r_bitmaps, s_bitmaps, W)
-    p, q = measures.threshold_fraction(t)
-    code = measures.MEASURE_CODES[measures.get_measure(measure).name]
-    err = _launchers(lib)[1](
-        *(x.data_ptr() for x in lead), L, r_bitmaps.data_ptr(),
-        s_bitmaps.data_ptr(), r_sizes.data_ptr(), s_sizes.data_ptr(),
-        lo.data_ptr(), hi.data_ptr(), N, W, TM, TN, code, p, q,
-        masks.data_ptr(), counts.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream)
-    _build.check_launch(who, err)
-    return True, (masks, counts)
 
 
 def _device_of(x: torch.Tensor, who: str) -> str:
@@ -255,44 +320,49 @@ def _device_of(x: torch.Tensor, who: str) -> str:
 
 def bitmap_join_tiled(r_bitmaps, r_sizes, s_bitmaps, s_sizes, lo, hi, skip,
                       *, t: float, measure: str = "jaccard",
-                      tiles=DEFAULT_TILES) -> torch.Tensor:
+                      tiles=DEFAULT_TILES,
+                      s_sparse: SparseWords | None = None) -> torch.Tensor:
     """Dense popcount join (K3); see ops.bitmap_join.
 
     Operands pre-padded to tile multiples, all int32: r_bitmaps (M, W),
     s_bitmaps (N, W) (uint32 bits), r_sizes/lo/hi (M, 1), s_sizes (1, N),
-    skip (M/TM, N/TN). Returns the (M, N) bool mask on the operands'
-    device. CPU tensors run the plain version; CUDA tensors launch the
-    kernel on the current stream without synchronising.
+    skip (M/TM, N/TN). ``s_sparse`` is ``compress_s`` of s_bitmaps (or of
+    a sheet that holds it as its first N rows); the kernels read S only
+    through it, and a CUDA call without it builds it. Returns the (M, N)
+    bool mask on the operands' device. CPU tensors run the plain version;
+    CUDA tensors launch the kernels on the current stream without
+    synchronising.
     """
     if _device_of(r_bitmaps, "bitmap_join_tiled") == "cpu":
         return bitmap_join_tiled_ref(r_bitmaps, r_sizes, s_bitmaps, s_sizes,
                                      lo, hi, skip, t=t, measure=measure,
                                      tiles=tiles)
-    launched, out = launch_tiled(
-        "bitmap_join", "bitmap_join_tiled", r_bitmaps, r_sizes, s_bitmaps,
-        s_sizes, lo, hi, skip, t=t, measure=measure, tiles=tiles)
+    launched, out = _launch_sparse(
+        "bitmap_join_tiled", None, r_bitmaps, r_sizes, s_bitmaps, s_sizes,
+        lo, hi, skip, t=t, measure=measure, tiles=tiles, s_sparse=s_sparse)
     bitmap_join_tiled.launches += launched
     return out
 
 
 def bitmap_join_live_tiled(tile_i, tile_j, r_bitmaps, r_sizes, s_bitmaps,
                            s_sizes, lo, hi, *, t: float,
-                           measure: str = "jaccard", tiles=DEFAULT_TILES):
+                           measure: str = "jaccard", tiles=DEFAULT_TILES,
+                           s_sparse: SparseWords | None = None):
     """Popcount join over the live tiles only (K2); see
     ops.bitmap_join_pairs_dispatch.
 
     tile_i/tile_j (L,) int32 live-tile coordinates; the other operands
     as in ``bitmap_join_tiled``. Returns (mask (L, TM, TN) bool, counts
-    (L, 1) int32) on the operands' device.
+    (L, 1) int32) on the operands' device; tile l's at index l.
     """
     if _device_of(r_bitmaps, "bitmap_join_live_tiled") == "cpu":
         return bitmap_join_live_tiled_ref(
             tile_i, tile_j, r_bitmaps, r_sizes, s_bitmaps, s_sizes, lo, hi,
             t=t, measure=measure, tiles=tiles)
-    launched, out = launch_live(
-        "bitmap_join", "bitmap_join_live_tiled", tile_i, tile_j, r_bitmaps,
-        r_sizes, s_bitmaps, s_sizes, lo, hi, t=t, measure=measure,
-        tiles=tiles)
+    launched, out = _launch_sparse(
+        "bitmap_join_live_tiled", (tile_i, tile_j), r_bitmaps, r_sizes,
+        s_bitmaps, s_sizes, lo, hi, None, t=t, measure=measure, tiles=tiles,
+        s_sparse=s_sparse)
     bitmap_join_live_tiled.launches += launched
     return out
 

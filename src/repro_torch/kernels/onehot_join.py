@@ -17,7 +17,7 @@ while one or two others multiply them with ``wgmma`` on the card's int8
 tensor cores into int32 accumulators, exact at any size; they take
 tiles of at most 128 rows by 128 or 256 columns (every tile
 ``ops.pick_tiles`` gives). K4's CTAs take the live tiles column tile by
-column tile (``bitmap_join.cta_order``), so the tiles that run together
+column tile (``cta_order``), so the tiles that run together
 share their S words in the L2 cache. The plain PyTorch
 versions multiply float32 0/1 matrices in universe chunks (exact: every
 partial count is an integer below 2^24, and 0 and 1 survive TF32's
@@ -27,13 +27,18 @@ only, launch the kernel on CUDA tensors and count the launch in
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
+from ..core import measures
 from ..core.tile_join import qualify, stage_budget
-from .bitmap_join import (_device_of, launch_live, launch_tiled,
-                          live_tiled_ref, tiled_ref)
+from . import _build
+from .bitmap_join import (_check_operands, _device_of, live_tiled_ref,
+                          tiled_ref)
 
-__all__ = ["DEFAULT_TILES", "membership_counts",
+__all__ = ["DEFAULT_TILES", "membership_counts", "cta_order",
            "onehot_join_tiled", "onehot_join_live_tiled",
            "onehot_join_tiled_ref", "onehot_join_live_tiled_ref"]
 
@@ -105,19 +110,81 @@ def onehot_join_live_tiled_ref(tile_i, tile_j, r_bitmaps, r_sizes,
 # ---------------------------------------------------------------------- #
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------- #
+@functools.cache
+def _launchers():
+    """(tiled, live) C entry points of ``csrc/onehot_join.cu`` (K5, K4),
+    built at first use (``kernels/_build.py``)."""
+    so = _build.load("onehot_join")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    tiled = so.onehot_join_tiled_launch
+    # r, s, rsz, ssz, lo, hi, skip, M, N, W, tm, tn, measure, p, q, out,
+    # stream
+    tiled.argtypes = [ptr] * 7 + [i32] * 8 + [ptr, ptr]
+    tiled.restype = i32
+    live = so.onehot_join_live_tiled_launch
+    # ti, tj, order, L, r, s, rsz, ssz, lo, hi, N, W, tm, tn, measure, p,
+    # q, mask, counts, stream
+    live.argtypes = [ptr] * 3 + [i32] + [ptr] * 6 + [i32] * 7 + [ptr] * 3
+    live.restype = i32
+    return tiled, live
+
+
+def _quad_words(r_bitmaps, s_bitmaps, W):
+    """The kernels read each row's words in 16-byte pieces: the bitmaps
+    with their word axis zero-padded to a multiple of 4 (a copy; zero
+    words add nothing to any count) -> (r, s, W)."""
+    pad = -W % 4
+    if pad:
+        r_bitmaps, s_bitmaps = (torch.nn.functional.pad(x, (0, pad))
+                                for x in (r_bitmaps, s_bitmaps))
+    return r_bitmaps, s_bitmaps, W + pad
+
+
+def cta_order(tile_i: torch.Tensor, tile_j: torch.Tensor,
+              m_tiles: int) -> torch.Tensor:
+    """The order in which K4's CTAs take the live tiles: column tile by
+    column tile, row tiles ascending within each (one stable sort of
+    ``tile_j * m_tiles + tile_i``), so the CTAs that run together share
+    their S words in the L2 cache -> (L,) int32 permutation of the tile
+    indices, on their device."""
+    key = tile_j.long() * m_tiles + tile_i.long()
+    return torch.argsort(key, stable=True).to(torch.int32)
+
+
+def _threshold(t, measure):
+    """(p, q, measure code) as the kernels take them."""
+    p, q = measures.threshold_fraction(t)
+    return p, q, measures.MEASURE_CODES[measures.get_measure(measure).name]
+
+
 def onehot_join_tiled(r_bitmaps, r_sizes, s_bitmaps, s_sizes, lo, hi, skip,
                       *, t: float, measure: str = "jaccard",
                       tiles=DEFAULT_TILES) -> torch.Tensor:
     """Dense one-hot join (K5); the contract of
     ``bitmap_join.bitmap_join_tiled``."""
-    if _device_of(r_bitmaps, "onehot_join_tiled") == "cpu":
+    who = "onehot_join_tiled"
+    if _device_of(r_bitmaps, who) == "cpu":
         return onehot_join_tiled_ref(r_bitmaps, r_sizes, s_bitmaps, s_sizes,
                                      lo, hi, skip, t=t, measure=measure,
                                      tiles=tiles)
-    launched, out = launch_tiled(
-        "onehot_join", "onehot_join_tiled", r_bitmaps, r_sizes, s_bitmaps,
-        s_sizes, lo, hi, skip, t=t, measure=measure, tiles=tiles)
-    onehot_join_tiled.launches += launched
+    M, N, W = _check_operands("onehot_join", who, tiles, r_bitmaps, r_sizes,
+                              s_bitmaps, s_sizes, lo, hi)
+    TM, TN, _ = tiles
+    device = r_bitmaps.device
+    _build.check_operand(who, "skip", skip, (M // TM, N // TN), device,
+                         torch.int32)
+    out = torch.empty((M, N), dtype=torch.bool, device=device)
+    if M == 0 or N == 0:
+        return out
+    r_bitmaps, s_bitmaps, W = _quad_words(r_bitmaps, s_bitmaps, W)
+    p, q, code = _threshold(t, measure)
+    err = _launchers()[0](
+        r_bitmaps.data_ptr(), s_bitmaps.data_ptr(), r_sizes.data_ptr(),
+        s_sizes.data_ptr(), lo.data_ptr(), hi.data_ptr(), skip.data_ptr(),
+        M, N, W, TM, TN, code, p, q, out.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream)
+    _build.check_launch(who, err)
+    onehot_join_tiled.launches += 1
     return out
 
 
@@ -126,17 +193,36 @@ def onehot_join_live_tiled(tile_i, tile_j, r_bitmaps, r_sizes, s_bitmaps,
                            measure: str = "jaccard", tiles=DEFAULT_TILES):
     """One-hot join over the live tiles only (K4); the contract of
     ``bitmap_join.bitmap_join_live_tiled``. Tile l's mask and count are
-    written at index l, whatever order the CTAs take the tiles in."""
-    if _device_of(r_bitmaps, "onehot_join_live_tiled") == "cpu":
+    written at index l, whatever order the CTAs take the tiles in
+    (``cta_order``)."""
+    who = "onehot_join_live_tiled"
+    if _device_of(r_bitmaps, who) == "cpu":
         return onehot_join_live_tiled_ref(
             tile_i, tile_j, r_bitmaps, r_sizes, s_bitmaps, s_sizes, lo, hi,
             t=t, measure=measure, tiles=tiles)
-    launched, out = launch_live(
-        "onehot_join", "onehot_join_live_tiled", tile_i, tile_j, r_bitmaps,
-        r_sizes, s_bitmaps, s_sizes, lo, hi, t=t, measure=measure,
-        tiles=tiles)
-    onehot_join_live_tiled.launches += launched
-    return out
+    M, N, W = _check_operands("onehot_join", who, tiles, r_bitmaps, r_sizes,
+                              s_bitmaps, s_sizes, lo, hi)
+    TM, TN, _ = tiles
+    device = r_bitmaps.device
+    L = tile_i.shape[0]
+    for name, x in (("tile_i", tile_i), ("tile_j", tile_j)):
+        _build.check_operand(who, name, x, (L,), device, torch.int32)
+    masks = torch.empty((L, TM, TN), dtype=torch.bool, device=device)
+    counts = torch.zeros((L, 1), dtype=torch.int32, device=device)
+    if L == 0:
+        return masks, counts
+    order = cta_order(tile_i, tile_j, M // TM)
+    r_bitmaps, s_bitmaps, W = _quad_words(r_bitmaps, s_bitmaps, W)
+    p, q, code = _threshold(t, measure)
+    err = _launchers()[1](
+        tile_i.data_ptr(), tile_j.data_ptr(), order.data_ptr(), L,
+        r_bitmaps.data_ptr(), s_bitmaps.data_ptr(), r_sizes.data_ptr(),
+        s_sizes.data_ptr(), lo.data_ptr(), hi.data_ptr(), N, W, TM, TN, code,
+        p, q, masks.data_ptr(), counts.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream)
+    _build.check_launch(who, err)
+    onehot_join_live_tiled.launches += 1
+    return masks, counts
 
 
 onehot_join_tiled.launches = 0

@@ -39,8 +39,8 @@ from . import flash_attention as _fa
 from . import lfvt_walk as _lw
 from . import onehot_join as _oj
 
-__all__ = ["PendingPairs", "pick_tiles", "bitmap_join", "onehot_join",
-           "bitmap_join_pairs", "onehot_join_pairs",
+__all__ = ["PendingPairs", "pick_tiles", "pad_sheet", "bitmap_join",
+           "onehot_join", "bitmap_join_pairs", "onehot_join_pairs",
            "bitmap_join_pairs_dispatch", "onehot_join_pairs_dispatch",
            "lfvt_join_pairs_dispatch", "lfvt_walk_join_pairs_dispatch",
            "join_pairs_finalize", "join_mask_finalize", "walk_operands",
@@ -122,18 +122,35 @@ def _host_rows(x, mult: int) -> np.ndarray:
                            np.zeros((-len(x)) % mult, np.int64)])
 
 
+def pad_sheet(s_bitmaps: torch.Tensor) -> torch.Tensor:
+    """The (n, W) S sheet padded as every launch against it pads it (TN
+    and TW of ``pick_tiles``, the same for both families' defaults): the
+    driver keeps it so, and ``_pad_operands`` then takes a view of it for
+    each R block instead of a copy."""
+    n, w = s_bitmaps.shape
+    _, TN, TW = pick_tiles(1, n, w, _bj.DEFAULT_TILES)
+    return _pad_to(_pad_to(s_bitmaps, 0, TN), 1, TW).contiguous()
+
+
 def _pad_operands(r_bitmaps, r_sizes, s_bitmaps, s_sizes, lo, hi, tiles,
                   defaults):
     """Pad the operands of a tiled kernel to tile multiples (zero words,
     zero sizes, and the empty window [0, 0) for padded rows, which can
     never qualify) -> (rb, r_sz (M, 1), sb, s_sz (1, N), lo (M, 1),
-    hi (M, 1), tiles, m, n), all int32 on the bitmaps' device."""
+    hi (M, 1), tiles, m, n), all int32 on the bitmaps' device.
+
+    n is the number of S sizes; the sheet may hold more rows (the
+    padding ``pad_sheet`` keeps, outside every window), and a sheet
+    already padded as far as the tiles need is used as it is, not
+    copied."""
     m, w = r_bitmaps.shape
-    n = s_bitmaps.shape[0]
+    n = s_sizes.numel() if torch.is_tensor(s_sizes) else np.size(s_sizes)
     device = r_bitmaps.device
     TM, TN, TW = tiles if tiles is not None else pick_tiles(m, n, w, defaults)
     rb = _pad_to(_pad_to(r_bitmaps, 0, TM), 1, TW).contiguous()
-    sb = _pad_to(_pad_to(s_bitmaps, 0, TN), 1, TW).contiguous()
+    N = -(-n // TN) * TN
+    sb = s_bitmaps[:N] if s_bitmaps.shape[0] >= N else s_bitmaps
+    sb = _pad_to(_pad_to(sb, 0, TN), 1, TW).contiguous()
     r_sz = _pad_to(_rows(r_sizes, device), 0, TM).reshape(-1, 1)
     s_sz = _pad_to(_rows(s_sizes, device), 0, TN).reshape(1, -1)
     lo_p = _pad_to(_rows(lo, device), 0, TM).reshape(-1, 1)
@@ -187,18 +204,22 @@ def _coerce_bitmaps(r_in, s_in, universe):
 # dense-mask path
 # ---------------------------------------------------------------------- #
 def bitmap_join(r_bitmaps, r_sizes, s_bitmaps, s_sizes, lo, hi, t: float,
-                tiles=None, measure: str = "jaccard") -> torch.Tensor:
+                tiles=None, measure: str = "jaccard",
+                s_sparse=None) -> torch.Tensor:
     """(m, n) bool qualifying-pair matrix via the popcount kernel (K3).
 
-    ``r_bitmaps`` (m, W) and ``s_bitmaps`` (n, W) are int32 tensors with
-    the uint32 bits on one device; sizes and windows are host arrays or
-    tensors. The result lies on the bitmaps' device.
+    ``r_bitmaps`` (m, W) and ``s_bitmaps`` (n, W), or ``pad_sheet`` of
+    it, are int32 tensors with the uint32 bits on one device; sizes and
+    windows are host arrays or tensors. ``s_sparse`` is the sheet's
+    ``bitmap_join.compress_s``, which the kernel reads S through (built
+    per call when None). The result lies on the bitmaps' device.
     """
     rb, r_sz, sb, s_sz, lo_p, hi_p, skip, tls, m, n = _prepare(
         r_bitmaps, r_sizes, s_bitmaps, s_sizes, lo, hi, tiles,
         _bj.DEFAULT_TILES)
     out = _bj.bitmap_join_tiled(rb, r_sz, sb, s_sz, lo_p, hi_p, skip, t=t,
-                                measure=measure, tiles=tls)
+                                measure=measure, tiles=tls,
+                                s_sparse=s_sparse)
     return out[:m, :n]
 
 
@@ -369,11 +390,12 @@ def join_mask_finalize(pending: PendingPairs, m: int, n: int,
 
 
 def _join_pairs_dispatch(live_fn, defaults, r_bitmaps, r_sizes, s_bitmaps,
-                         s_sizes, lo, hi, t, tiles,
-                         measure="jaccard") -> PendingPairs:
-    """Launch the live-tile kernel ``live_fn``; return the device handles
-    without syncing. The live tiles are planned from host copies of the
-    windows (the driver passes host arrays, so nothing syncs)."""
+                         s_sizes, lo, hi, t, tiles, measure="jaccard",
+                         **live_kw) -> PendingPairs:
+    """Launch the live-tile kernel ``live_fn`` (``live_kw`` its extra
+    keywords); return the device handles without syncing. The live tiles
+    are planned from host copies of the windows (the driver passes host
+    arrays, so nothing syncs)."""
     fault_point("walk_dispatch")
     rb, r_sz, sb, s_sz, lo_p, hi_p, tls, m, n = _pad_operands(
         r_bitmaps, r_sizes, s_bitmaps, s_sizes, lo, hi, tiles, defaults)
@@ -388,7 +410,7 @@ def _join_pairs_dispatch(live_fn, defaults, r_bitmaps, r_sizes, s_bitmaps,
     ti_d = torch.as_tensor(ti, device=rb.device)
     tj_d = torch.as_tensor(tj, device=rb.device)
     masks, counts = live_fn(ti_d, tj_d, rb, r_sz, sb, s_sz, lo_p, hi_p, t=t,
-                            measure=measure, tiles=tls)
+                            measure=measure, tiles=tls, **live_kw)
     return PendingPairs(masks, counts, ti_d, tj_d, TM, TN, L,
                         m_tiles * n_tiles, m * n)
 
@@ -430,11 +452,13 @@ def onehot_join_pairs(r_bitmaps_or_padded, r_sizes, s_bitmaps, s_sizes, lo,
 
 def bitmap_join_pairs_dispatch(r_bitmaps, r_sizes, s_bitmaps, s_sizes, lo,
                                hi, t: float, tiles=None,
-                               measure: str = "jaccard") -> PendingPairs:
-    """Async half of ``bitmap_join_pairs``: launch, don't sync."""
+                               measure: str = "jaccard",
+                               s_sparse=None) -> PendingPairs:
+    """Async half of ``bitmap_join_pairs``: launch, don't sync;
+    ``s_sparse`` as in ``bitmap_join``."""
     return _join_pairs_dispatch(_bj.bitmap_join_live_tiled, _bj.DEFAULT_TILES,
                                 r_bitmaps, r_sizes, s_bitmaps, s_sizes, lo,
-                                hi, t, tiles, measure)
+                                hi, t, tiles, measure, s_sparse=s_sparse)
 
 
 def onehot_join_pairs_dispatch(r_bitmaps_or_padded, r_sizes, s_bitmaps,

@@ -13,6 +13,8 @@ card and on the CPU. K7's outputs must be within the reference's float
 tolerances of its plain version, and the LLM serving engine on the card
 within a stated bfloat16 logit tolerance of the CPU's (``LOGIT_TOL``).
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -288,6 +290,135 @@ def test_bitmap_methods_on_cuda_match_cpu(cuda, method, emit):
         for key in ("pair_count", "live_tiles", "total_tiles", "regrows",
                     "output_bytes"):
             assert st_g.get(key) == st_c.get(key), (measure, key)
+
+
+def test_popcount_join_on_cuda_builds_the_compressed_s_once(cuda,
+                                                            monkeypatch):
+    """On the card the popcount joins read S through one compressed S per
+    (S, W, device), built from the cached padded sheet and reused by a
+    repeated join; the one-hot joins never build it."""
+    from repro_torch.core import tile_join
+    R, S = skewed(11, 400, 300, 40), skewed(12, 500, 300, 40)
+    built = []
+    real = bitmap_join.compress_s
+    monkeypatch.setattr(bitmap_join, "compress_s",
+                        lambda x: built.append(x) or real(x))
+    repro_torch.join(R, S, 0.6, method="onehot")
+    assert not built
+    first = repro_torch.join(R, S, 0.6, method="popcount")
+    again = repro_torch.join(R, S, 0.6, method="kernel_bitmap")
+    W = max((max(R.universe, S.universe) + 31) // 32, 1)
+    entry = tile_join._S_REP_CACHE[S]
+    dev = str(tile_join.resolve_device(None))
+    assert len(built) == 1 and built[0] is entry[("bitmap", W, dev)]
+    assert ("sparse", W, dev) in entry
+    assert again.pairs == first.pairs and first.pairs
+
+
+def bitmap_case(device, case):
+    """Padded K2/K3 operands of a hand-made case (numpy words, S sorted by
+    size, Lemma-3.1 windows at t = 0.5) -> (operands, skip, live tiles,
+    tiles). "wide_words": 1 250 words (above 1 024), sparse rows; "slices":
+    16-row groups whose union of nonzero words exceeds one 512-word slice
+    of shared memory; "full_rows": rows and columns of all ones among
+    sparse ones (a column's list holds every word)."""
+    rng = np.random.default_rng(31)
+    if case == "full_rows":
+        m, n, W, k = 130, 300, 64, 12
+    elif case == "slices":
+        m, n, W, k = 40, 300, 1250, 900
+    else:
+        m, n, W, k = 70, 600, 1250, 20
+    r_bm, s_bm = (np.zeros((rows, W), np.uint32) for rows in (m, n))
+    for bm in (r_bm, s_bm):
+        for row in bm:   # k random elements a row, at most
+            el = rng.integers(0, 32 * W, int(rng.integers(1, k + 1)))
+            np.bitwise_or.at(row, el // 32, np.uint32(1) << (el % 32))
+    # pairs: R's rows, every other one with one element more
+    s_bm[: n // 4] = r_bm[np.arange(n // 4) % m]
+    el = rng.integers(0, 32 * W, n // 8)
+    np.bitwise_or.at(s_bm, (2 * np.arange(n // 8), el // 32),
+                     np.uint32(1) << (el % 32))
+    if case == "full_rows":
+        r_bm[::7] = 0xFFFFFFFF
+        s_bm[::5] = 0xFFFFFFFF
+    r_sz = np.bitwise_count(r_bm).sum(1).astype(np.int32)
+    s_sz = np.bitwise_count(s_bm).sum(1).astype(np.int32)
+    order = np.argsort(-s_sz, kind="stable")
+    s_bm, s_sz = s_bm[order], s_sz[order]
+    lo, hi = window_bounds(r_sz, s_sz, 0.5)
+    rb, rs, sb, ss, lo_p, hi_p, skip, tls, _, _ = ops._prepare(
+        torch.tensor(r_bm.view(np.int32), device=device), r_sz,
+        torch.tensor(s_bm.view(np.int32), device=device), s_sz, lo, hi,
+        (32, 128, 2) if case == "full_rows" else None,
+        bitmap_join.DEFAULT_TILES)
+    TM, TN, _ = tls
+    ti, tj = ops._live_tiles(ops._host_rows(lo, TM), ops._host_rows(hi, TM),
+                             rb.shape[0] // TM, sb.shape[0] // TN, TM, TN)
+    return ((rb, rs, sb, ss, lo_p, hi_p), skip,
+            (torch.tensor(ti, device=device), torch.tensor(tj, device=device)),
+            tls)
+
+
+@pytest.mark.parametrize("case", ["wide_words", "slices", "full_rows"])
+@pytest.mark.parametrize("lists", ["passed", "built"])
+def test_bitmap_kernels_on_sparse_words(cuda, case, lists):
+    """K2/K3 with S's compressed words passed in (as the driver passes
+    its cached ones) or built by the wrapper, bit-equal to their plain
+    versions under all four measures, with pairs."""
+    ops_, skip, (ti, tj), tls = bitmap_case(cuda, case)
+    sp = bitmap_join.compress_s(ops_[2]) if lists == "passed" else None
+    for measure in ("jaccard", "cosine", "dice", "overlap"):
+        kw = dict(t=0.5, measure=measure, tiles=tls)
+        before = (bitmap_join.bitmap_join_tiled.launches,
+                  bitmap_join.bitmap_join_live_tiled.launches)
+        got = bitmap_join.bitmap_join_tiled(*ops_, skip, s_sparse=sp, **kw)
+        got_m, got_c = bitmap_join.bitmap_join_live_tiled(
+            ti, tj, *ops_, s_sparse=sp, **kw)
+        torch.cuda.synchronize()
+        assert (bitmap_join.bitmap_join_tiled.launches,
+                bitmap_join.bitmap_join_live_tiled.launches) == (
+                    before[0] + 1, before[1] + 1)
+        assert torch.equal(got.cpu(), bitmap_join.bitmap_join_tiled_ref(
+            *ops_, skip, **kw).cpu())
+        want_m, want_c = bitmap_join.bitmap_join_live_tiled_ref(
+            ti, tj, *ops_, **kw)
+        assert torch.equal(got_m.cpu(), want_m.cpu())
+        assert torch.equal(got_c.cpu(), want_c.cpu())
+        assert int(got_c.sum()) == int(got.sum()) > 0, measure
+
+
+def test_bitmap_kernel_honours_a_hand_made_skip(cuda):
+    """K3 leaves a tile flagged in its skip operand all False even where
+    the windows meet it and pairs lie (the reference's contract), and
+    computes the other tiles as its plain version does."""
+    ops_, skip, _, tls = bitmap_case(cuda, "wide_words")
+    kw = dict(t=0.5, measure="jaccard", tiles=tls)
+    full = bitmap_join.bitmap_join_tiled(*ops_, skip, **kw)
+    i, j = (int(x) for x in torch.nonzero(full)[0])
+    skip = skip.clone()
+    skip[i // tls[0], j // tls[1]] = 1
+    got = bitmap_join.bitmap_join_tiled(*ops_, skip, **kw)
+    assert torch.equal(got.cpu(), bitmap_join.bitmap_join_tiled_ref(
+        *ops_, skip, **kw).cpu())
+    assert not got[i, j] and int(got.sum()) < int(full.sum())
+
+
+def test_bitmap_kernels_refuse_what_they_do_not_take(cuda):
+    """A W past ``MAX_WORDS`` and a compressed S of too few columns raise
+    named ``ValueError``s before any launch."""
+    W = bitmap_join.MAX_WORDS + 8
+    z = functools.partial(torch.zeros, dtype=torch.int32, device=cuda)
+    args = (z((8, W)), z((8, 1)), z((128, W)), z((1, 128)), z((8, 1)),
+            z((8, 1)))
+    with pytest.raises(ValueError, match="MAX_WORDS"):
+        bitmap_join.bitmap_join_tiled(*args, z((1, 1)), t=0.5,
+                                      tiles=(8, 128, 8))
+    ops_, skip, (ti, tj), tls = bitmap_case(cuda, "wide_words")
+    short = bitmap_join.compress_s(ops_[2][:32])
+    with pytest.raises(ValueError, match="s_sparse holds 32 columns"):
+        bitmap_join.bitmap_join_live_tiled(ti, tj, *ops_, t=0.5, tiles=tls,
+                                           s_sparse=short)
 
 
 

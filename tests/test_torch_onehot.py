@@ -238,7 +238,7 @@ def test_cta_order_takes_live_tiles_column_by_column():
     rng = np.random.default_rng(11)
     ti = torch.tensor(rng.integers(0, 9, 200), dtype=torch.int32)
     tj = torch.tensor(rng.integers(0, 5, 200), dtype=torch.int32)
-    order = port_bj.cta_order(ti, tj, 9)
+    order = port_oj.cta_order(ti, tj, 9)
     assert order.dtype == torch.int32
     assert sorted(order.tolist()) == list(range(200))
     key = (tj.long() * 9 + ti.long())[order.long()]
@@ -274,16 +274,15 @@ def test_kernel_tile_rule(tiles, ok):
 def test_quad_words_pads_the_one_hot_operands(W):
     """The one-hot kernels read words 4 at a time: their bitmaps are
     zero-padded to a multiple of 4 words before a launch (the counts do
-    not change); the popcount kernels' are left as they are."""
+    not change)."""
     rng = np.random.default_rng(W)
     r = torch.tensor(rng.integers(-2 ** 31, 2 ** 31, (5, W)),
                      dtype=torch.int32)
     s = torch.tensor(rng.integers(-2 ** 31, 2 ** 31, (7, W)),
                      dtype=torch.int32)
-    pr, ps, w = port_bj._quad_words("onehot_join", r, s, W)
+    pr, ps, w = port_oj._quad_words(r, s, W)
     assert w == -(-W // 4) * 4 and pr.shape == (5, w) and ps.shape == (7, w)
     assert pr.is_contiguous() and ps.is_contiguous()
     assert torch.equal(pr[:, :W], r) and not pr[:, W:].any()
     assert torch.equal(port_oj.membership_counts(pr, ps),
                        port_oj.membership_counts(r, s))
-    assert port_bj._quad_words("bitmap_join", r, s, W) == (r, s, W)
