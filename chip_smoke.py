@@ -22,8 +22,18 @@ through these phases, in order; any failure raises and exits non-zero:
      give identical pairs (compared as sorted int64 keys) and counters.
      For each measure and emit mode one of the four bitmap methods also
      runs through ``repro_torch.join`` on the card at t = 0.9, and its
-     pairs (and mask) must equal the CPU driver's. The pool is done
-     before any timed phase starts;
+     pairs (and mask) must equal the CPU driver's. Then the MapReduce
+     driver (``repro_torch.mr_cf_rs_join``, 4 load-aware shards) on the
+     same data, on the card and in the workers (``mr_configs``): every
+     method and ``auto``, each measure at its ``MR_T`` (dice at exactly
+     2/3), both emits; ``hash`` with ``lfvt``; one managed run per
+     measure under a seeded ``MR_FAULT_PLANS`` plan, whose pairs and
+     resilience counters must equal the CPU's and whose only
+     degradations may be the injected ones. Meanwhile one MR join runs in
+     a child process on the card with a checkpoint directory and is
+     killed (SIGKILL) at its 2nd checkpoint write; a second child
+     resumes it and must give the uninterrupted run's pairs. The pool is
+     done before any timed phase starts;
   3. join phase: ``repro_torch.join(R, S, 0.8, method="lfvt")`` on the
      card with the ``livej``-shaped dataset (|R| = |S| = 100 000), the K1
      launch count read around it, and its pairs for 64 sampled R rows
@@ -40,7 +50,14 @@ through these phases, in order; any failure raises and exits non-zero:
      lfvt join's pairs. Then ``kernel_bitmap``, ``kernel_onehot`` and
      ``onehot`` again, warm (the default call's pairs), and
      ``kernel_bitmap`` and ``kernel_onehot`` under ``torch.profiler``
-     (device-busy time, K2's or K4's share, the idle share);
+     (device-busy time, K2's or K4's share, the idle share); then the
+     MapReduce driver at the same size: ``repro_torch.join(R, S, 0.8,
+     n_shards=8)`` with ``lfvt`` (cold, warm, profiled: K1 must launch
+     once for each shard with a live row), ``auto`` (its per-shard picks
+     printed) and ``kernel_bitmap`` (K2 per shard, profiled), each equal
+     to the lfvt join's pairs, with the partition's ``psi``, intervals,
+     shard loads, R replication and shuffle bytes, and the host's
+     partition, routing and per-shard LFVT encode timed apart;
   5. serve phase: ``repro_torch.DedupServeEngine`` on the card, with the
      livej S side (100 000 sets) as its corpus, at t = 0.8. Stream A:
      4 096 requests (half exact copies of corpus sets, half livej R
@@ -109,11 +126,14 @@ through these phases, in order; any failure raises and exits non-zero:
      registers and spills as ``nvcc -Xptxas -v`` reports them;
   8. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
-Exits 2 without a result when torch sees no CUDA device.
+Exits 2 without a result when torch sees no CUDA device. ``python3
+chip_smoke.py --mr-child kill|resume DIR`` is the kill-and-resume
+check's child, not a smoke run.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import itertools
 import json
@@ -156,6 +176,35 @@ MEASURE_SETS = (("dblp", ("lfvt",)), ("kosarak", BITMAP_METHODS))
 # ~4x the one-hot product on the CPU), so that none is left to run alone
 CPU_ORDER = ("popcount", "kernel_bitmap", "lfvt", "kernel_onehot", "onehot")
 FRONT_DOOR_T = 0.9         # the measures phase's front-door calls
+# the MapReduce driver (mr_cf_rs_join, loop path): the full-size phase's
+# load-aware shards, and the measures phase's
+MR_SHARDS = 8
+MR_MEASURE_SHARDS = 4
+# the measures phase's MR calls, load-aware: (dataset, methods, emits
+# per measure, measures); each measure at its MR_T, the exact-2/3
+# boundary with dice. The bitmap methods take one emit a measure, in
+# turn (their plain versions cost the CPU workers 10-50 s a call), and
+# the whole-block walk (lfvt_ref, 43 s a call there) two measures.
+MR_T = {"jaccard": 0.5, "cosine": 0.7, "dice": 2 / 3, "overlap": 0.9}
+MR_SETS = (("dblp", ("lfvt", "auto"), 2, MEASURES),
+           ("dblp", ("lfvt_ref",), 1, MEASURES[:2]),
+           ("kosarak", BITMAP_METHODS + ("auto",), 1, MEASURES))
+# its managed runs, one per measure (dblp, lfvt, emit pairs): seeded
+# plans whose only possible degradation is the injected one, the walk
+# to the whole-block walk (oom, storm); the transient plans retry only
+MR_FAULT_PLANS = {
+    "jaccard": "compact:transient;flat_tables:corrupt",
+    "cosine": "walk_dispatch:oom",
+    "dice": "compact:storm",
+    "overlap": "walk_dispatch:transient;compact:transient",
+}
+MR_COUNTERS = ("result_pairs", "regrows", "live_tiles", "total_tiles",
+               "walk_steps", "early_stops", "reduce_bytes", "shard_methods",
+               "retries", "degradations", "faults_injected",
+               "guardrail_splits", "tasks_resumed")
+# the kill-and-resume child: its join is the measures phase's first MR
+# config, killed at its 2nd checkpoint write
+MR_KILL_PLAN = "checkpoint_write:kill:2"
 # the serve phase, on the livej S side as the corpus, at t = MAIN_T
 SERVE_REQUESTS = 4096      # stream A: half corpus copies, half R sets
 SERVE_BATCH = 256          # streams A and C: requests per micro-batch
@@ -249,8 +298,10 @@ def log(*args) -> None:
 _WORKER_DATA: dict = {}
 
 
+@functools.lru_cache(maxsize=None)
 def measures_data(name: str):
-    """The measures phase's |R| = |S| = 4 000 dataset ``name``."""
+    """The measures phase's |R| = |S| = 4 000 dataset ``name`` (made once
+    a process)."""
     from repro_torch.data.synth import make_join_dataset
     return make_join_dataset(name, scale=0.8, seed=0)
 
@@ -310,6 +361,63 @@ def cpu_join(task):
     t0 = time.perf_counter()
     out = port_join(*_WORKER_DATA[name], method, measure, t, emit, "cpu")
     return out, time.perf_counter() - t0
+
+
+def mr_configs():
+    """The measures phase's MR calls: (dataset, method, measure, t, emit,
+    strategy, fault plan). ``hash`` runs the walk only: it puts all of S
+    on every shard."""
+    out = []
+    for name, methods, n_emits, measures in MR_SETS:
+        for method in methods:
+            for k, m in enumerate(measures):
+                out += [(name, method, m, MR_T[m], ("pairs", "mask")[
+                    (k + j) % 2], "load_aware", None)
+                    for j in range(n_emits)]
+    for k, m in enumerate(MEASURES):
+        out += [("dblp", "lfvt", m, MR_T[m], ("pairs", "mask")[k % 2],
+                 "hash", None),
+                ("dblp", "lfvt", m, MR_T[m], "pairs", "load_aware",
+                 MR_FAULT_PLANS[m])]
+    return out
+
+
+def mr_join(R, S, cfg, device=None, **kw):
+    """One ``mr_cf_rs_join`` call of ``mr_configs`` at MR_MEASURE_SHARDS
+    shards -> (pair digest, counters)."""
+    import repro_torch
+    _, method, measure, t, emit, strategy, plan = cfg
+    st: dict = {}
+    pairs = repro_torch.mr_cf_rs_join(
+        R, S, t, MR_MEASURE_SHARDS, strategy=strategy, method=method,
+        measure=measure, emit=emit, fault_plan=plan, stats=st,
+        device=device, **kw)
+    pr = np.fromiter(itertools.chain.from_iterable(pairs), np.int64,
+                     count=2 * len(pairs)).reshape(-1, 2)
+    return pair_digest(pr[:, 0], pr[:, 1]), {k: st.get(k)
+                                             for k in MR_COUNTERS}
+
+
+def cpu_mr_join(cfg):
+    """Pool worker: one MR join of ``mr_configs`` on the CPU -> (pairs,
+    counters, the seconds it took)."""
+    t0 = time.perf_counter()
+    out = mr_join(*_WORKER_DATA[cfg[0]], cfg, "cpu")
+    return out, time.perf_counter() - t0
+
+
+def mr_child(phase: str, ckpt: str) -> int:
+    """The kill-and-resume check's child process, on the card: the first
+    MR config with ``checkpoint_dir=ckpt``; ``phase`` 'kill' arms
+    MR_KILL_PLAN (the process dies at its 2nd checkpoint write), 'resume'
+    prints the pair digest and the tasks it resumed as JSON."""
+    cfg = mr_configs()[0]
+    plan = MR_KILL_PLAN if phase == "kill" else None
+    digest, st = mr_join(*measures_data(cfg[0]), cfg[:6] + (plan,),
+                         checkpoint_dir=ckpt)
+    print(json.dumps({"digest": digest, "tasks_resumed":
+                      st["tasks_resumed"]}))
+    return 0
 
 
 def wrappers() -> dict:
@@ -1680,7 +1788,183 @@ def measures_compare(configs, cuda_out, fronts, sizes, cpu_async) -> None:
                 f"configs={2 * len(n_pairs)} cuda==cpu pairs={n_pairs}")
 
 
+def mr_measures_cuda(cfgs):
+    """The measures phase's MR calls on the card -> their results."""
+    t0 = time.perf_counter()
+    data = {name: measures_data(name) for name, *_ in MR_SETS}
+    out = [mr_join(*data[cfg[0]], cfg) for cfg in cfgs]
+    log(f"[measures mr] cuda calls={len(out)} shards={MR_MEASURE_SHARDS} "
+        f"s={time.perf_counter() - t0:.3f}")
+    return out
+
+
+def mr_measures_compare(cfgs, cuda_out, mr_async) -> None:
+    """Hold the card's MR results against the CPU workers': identical
+    pairs and counters (the resilience counters of the managed runs
+    included); a managed run may degrade only where its plan injected an
+    OOM or a storm, and only from the walk to the whole-block walk."""
+    t0 = time.perf_counter()
+    cpu_res = mr_async.get()
+    log(f"[measures mr] waited for the cpu workers s="
+        f"{time.perf_counter() - t0:.3f} cpu worker s="
+        f"{sum(sec for _, sec in cpu_res):.1f}")
+    for cfg, a, (b, _) in zip(cfgs, cuda_out, cpu_res, strict=True):
+        if a != b:
+            raise AssertionError(f"MR on the card and the cpu differ at "
+                                 f"{cfg}: {a} vs {b}")
+        plan = cfg[6]
+        if plan is None:
+            continue
+        st = a[1]
+        degrades = "oom" in plan or "storm" in plan
+        if (not st["faults_injected"]
+                or (degrades and not st["degradations"])
+                or any(not d.endswith(":lfvt->lfvt_ref") or not degrades
+                       for d in st["degradations"])):
+            raise AssertionError(f"managed MR run {cfg}: degradations the "
+                                 f"plan did not inject, or none injected: "
+                                 f"{st}")
+        log(f"[measures mr] managed {cfg[2]} plan={plan!r} pairs={a[0][0]} "
+            f"retries={st['retries']} faults_injected="
+            f"{st['faults_injected']} degradations={st['degradations']} "
+            "(== cpu)")
+    for name, methods, *_ in MR_SETS:
+        for method in methods:
+            got = [(c[2], c[4], a[0][0], a[1]["shard_methods"])
+                   for c, a in zip(cfgs, cuda_out)
+                   if c[:2] == (name, method) and c[5] == "load_aware"
+                   and c[6] is None]
+            log(f"[measures mr] {name} {method} load_aware cuda==cpu "
+                "(measure, emit, pairs, shard_methods): " + json.dumps(got))
+    log("[measures mr] dblp lfvt hash cuda==cpu pairs=" + json.dumps(
+        [a[0][0] for c, a in zip(cfgs, cuda_out) if c[5] == "hash"]))
+
+
+def kill_and_resume(want) -> None:
+    """Run the first MR config in a child process on the card, killed
+    (SIGKILL) at its 2nd checkpoint write, then resume it in a second
+    child: the resumed pairs must equal ``want`` (the card's
+    uninterrupted run) with at least one task resumed."""
+    import shutil
+    ckpt = ROOT / "build" / "mr_kill_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+
+    def child(phase):
+        return subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--mr-child", phase,
+             str(ckpt)], capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, REPRO_FAULT=""))
+
+    out = child("kill")
+    if out.returncode != -9:
+        raise AssertionError(f"the killed child exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    saved = sorted(p.name for p in ckpt.glob("task_*.npz"))
+    out = child("resume")
+    if out.returncode != 0:
+        raise AssertionError(f"the resumed child failed: "
+                             f"{out.stderr[-2000:]}")
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    if tuple(got["digest"]) != tuple(want) or got["tasks_resumed"] < 1:
+        raise AssertionError(f"kill and resume: {got} vs {want}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    log(f"[measures mr] kill and resume on the card: killed with "
+        f"{len(saved)} task(s) saved, resumed {got['tasks_resumed']}, "
+        f"pairs={got['digest'][0]} (== uninterrupted) "
+        f"s={time.perf_counter() - t0:.3f}")
+
+
+def mr_live_shards(R, S, t) -> int:
+    """Shards of the full-size MR join with a row whose window holds a
+    column: each launches K1 once (``method='lfvt'``), K2 at least once
+    (``'kernel_bitmap'``)."""
+    from repro_torch.core.partition import load_aware_partition, route
+    from repro_torch.core.tile_join import window_bounds
+    part = load_aware_partition(R, S, t, MR_SHARDS)
+    s_rows, r_rows, _ = route(R, S, part)
+    live = 0
+    for rs, ss in zip(r_rows, s_rows):
+        if len(rs) and len(ss):
+            lo, hi = window_bounds(R.sizes()[rs],
+                                   np.sort(S.sizes()[ss])[::-1], t)
+            live += bool(np.any(lo < hi))
+    return live
+
+
+def mr_phase(R, Ss, want, runs) -> None:
+    """The MapReduce driver at full size: ``repro_torch.join(R, S, 0.8,
+    n_shards=8)`` with ``lfvt`` (cold, warm, profiled), ``auto`` and
+    ``kernel_bitmap``; each must give ``want`` (the single-device join's
+    pairs) and launch its kernels as counted."""
+    import repro_torch
+    from repro_torch.core.partition import load_aware_partition, route
+    from repro_torch.core.sets import SetCollection
+    t0 = time.perf_counter()
+    live = mr_live_shards(R, Ss, MAIN_T)
+    s_rows, _, _ = route(R, Ss, load_aware_partition(R, Ss, MAIN_T,
+                                                     MR_SHARDS))
+    route_s = time.perf_counter() - t0
+    # the host encode each lfvt call pays: every shard's S as a FlatLFVT
+    t0 = time.perf_counter()
+    for ss in s_rows:
+        SetCollection([Ss.sets[int(j)] for j in ss], Ss.universe,
+                      Ss.ids[ss].astype(np.int32)).flat_lfvt()
+    encode_s = time.perf_counter() - t0
+    log(f"[mr] host set-up per call: partition+route_s={route_s:.3f} "
+        f"shard_encode_s={encode_s:.3f} shards_with_live_rows={live}")
+
+    def call(label, **kw):
+        st: dict = {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, launches = counted(lambda: repro_torch.join(
+            R, Ss, MAIN_T, n_shards=MR_SHARDS, stats=st, **kw))
+        wall = time.perf_counter() - t0
+        if out.pairs != want:
+            raise AssertionError(f"MR {label}: {len(out.pairs)} pairs, the "
+                                 f"single-device join {len(want)}")
+        log(f"[mr {label}] pairs={len(out.pairs)} (== single-device) "
+            f"wall_s={wall:.3f} psi={st['psi']} intervals="
+            f"{json.dumps(st['intervals'])} shard_loads="
+            f"{json.dumps(st['shard_loads'])} max_load={st['max_load']} "
+            f"r_replication={st['r_replication']} shuffle_bytes="
+            f"{st['shuffle_bytes']} shard_block_bytes="
+            f"{st['shard_block_bytes']} reduce_bytes={st['reduce_bytes']} "
+            f"live_tiles={st.get('live_tiles')}/{st.get('total_tiles')} "
+            f"walk_steps={st.get('walk_steps')} regrows={st['regrows']} "
+            f"shard_methods={st.get('shard_methods')} max_memory_allocated="
+            f"{torch.cuda.max_memory_allocated()} launches={launches}")
+        runs[f"mr_{label}"] = launches
+        return launches
+
+    got = call("lfvt", method="lfvt")
+    if got["K1"] != live:
+        raise AssertionError(f"MR lfvt launched K1 {got['K1']} times, "
+                             f"{live} shards have live rows")
+    t0 = time.perf_counter()
+    repro_torch.join(R, Ss, MAIN_T, n_shards=MR_SHARDS, method="lfvt")
+    log(f"[mr lfvt] warm_wall_s={time.perf_counter() - t0:.3f}")
+    log_profile("warm mr lfvt join", device_profile(
+        lambda: repro_torch.join(R, Ss, MAIN_T, n_shards=MR_SHARDS,
+                                 method="lfvt"),
+        ("lfvt_walk_kernel",)), "K1")
+    got = call("auto")
+    if got["K1"] + got["K3"] < 1:
+        raise AssertionError(f"MR auto launched no kernel: {got}")
+    got = call("kernel_bitmap", method="kernel_bitmap")
+    if not live <= got["K2"] <= MR_SHARDS:
+        raise AssertionError(f"MR kernel_bitmap launched K2 {got['K2']} "
+                             f"times for {live} live shards")
+    log_profile("warm mr kernel_bitmap join", device_profile(
+        lambda: repro_torch.join(R, Ss, MAIN_T, n_shards=MR_SHARDS,
+                                 method="kernel_bitmap"),
+        ("bitmap_join_kernel", "bitmap_union_kernel")), "K2")
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--mr-child"]:
+        return mr_child(*sys.argv[2:4])
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script needs "
               "one GPU", file=sys.stderr)
@@ -1738,10 +2022,15 @@ def main() -> int:
         configs = sorted(measures_configs(),
                          key=lambda c: CPU_ORDER.index(c[1]))
         cpu_async = pool.map_async(cpu_join, configs, chunksize=1)
+        mr_cfgs = mr_configs()
+        mr_async = pool.map_async(cpu_mr_join, mr_cfgs, chunksize=1)
 
         # ---- phase 2: the measures phase ----------------------------- #
         cuda_out, fronts, sizes = measures_cuda(configs)
+        mr_out = mr_measures_cuda(mr_cfgs)
+        kill_and_resume(mr_out[0][0])
         measures_compare(configs, cuda_out, fronts, sizes, cpu_async)
+        mr_measures_compare(mr_cfgs, mr_out, mr_async)
         R, S = livej_async.get()
         gen_s = time.perf_counter() - t0
     finally:
@@ -1855,6 +2144,11 @@ def main() -> int:
     log_profile("warm kernel_onehot join", device_profile(
         lambda: repro_torch.join(R, Ss, MAIN_T, method="kernel_onehot"),
         ("onehot_join_kernel",)), "K4")
+
+    # ---- phase 4b: the MapReduce driver at full size ----------------- #
+    t0 = time.perf_counter()
+    mr_phase(R, Ss, res.pairs, runs)
+    log(f"[mr] phase_s={time.perf_counter() - t0:.3f}")
 
     # ---- phase 5: the dedup service on the livej corpus -------------- #
     t0 = time.perf_counter()

@@ -5,6 +5,7 @@ The public surface mirrors the JAX package's front door::
     import repro_torch
     result = repro_torch.join(R, S, 0.8)   # on the GPU, method="auto"
     result.pairs, result.stats, result.plan
+    repro_torch.join(R, S, 0.8, n_shards=8)   # MR-CF-RS-Join, 8 shards
 
     engine = repro_torch.DedupServeEngine(corpus, threshold=0.8)
     rid = engine.submit([3, 17, 4096])   # then engine.drain() / step()
@@ -35,6 +36,8 @@ _EXPORTS = {
     "probe_features": "repro_torch.core.planner",
     "SetCollection": "repro_torch.core.sets",
     "cf_rs_join_device": "repro_torch.core.tile_join",
+    "mr_cf_rs_join": "repro_torch.core.distributed",
+    "shard_blocks": "repro_torch.core.distributed",
     "global_config": "repro_torch.core.config",
     "DedupServeEngine": "repro_torch.serve.dedup",
     "DedupResult": "repro_torch.serve.dedup",

@@ -7,12 +7,13 @@ passes ``device="cpu"``, and raises
 :class:`~repro_torch.errors.DeviceUnavailableError` when no GPU is
 present and the CPU was not asked for.
 
-The port runs the single-device driver with every method of the
-reference's: ``'auto'`` (the default), ``'popcount'``, ``'onehot'``,
-``'kernel_bitmap'``, ``'kernel_onehot'``, ``'lfvt'`` and ``'lfvt_ref'``.
-What is not ported yet raises :class:`~repro_torch.errors.NotPortedError`:
-the MapReduce driver (``n_shards=``/``mesh=``) and the resilience kwargs
-(``fault_plan=``/``checkpoint_dir=``/``REPRO_FAULT``).
+The port runs both drivers with every method of the reference's:
+``'auto'`` (the default), ``'popcount'``, ``'onehot'``,
+``'kernel_bitmap'``, ``'kernel_onehot'``, ``'lfvt'`` and ``'lfvt_ref'``;
+the single-device driver by default, the MapReduce driver's loop path
+with ``n_shards=``, each with the resilience kwargs
+(``fault_plan=``/``checkpoint_dir=``/``REPRO_FAULT``). The multi-device
+path (``mesh=``) raises :class:`~repro_torch.errors.NotPortedError`.
 
 Inputs may be :class:`~repro_torch.core.sets.SetCollection` instances or
 plain sequences of integer element arrays (coerced with ``np.unique``,
@@ -21,11 +22,12 @@ ids ``0..n-1``, universe inferred from the max element unless given).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Iterable
+from typing import Any, Iterable, Mapping
 
 import numpy as np
 
 from .core.device import resolve_device
+from .core.distributed import mr_cf_rs_join
 from .core.planner import JoinPlan, JoinStats, PlannerError, build_plan
 from .core.sets import SetCollection
 from .core.tile_join import cf_rs_join_device
@@ -109,12 +111,15 @@ def join(R, S, threshold: float, *, measure: str = "jaccard",
     emit: 'pairs' returns the compacted pair set only; 'mask' also
         materializes the dense ``(|R|, |S|)`` bool matrix in
         ``result.mask``.
-    n_shards / mesh: the MapReduce driver — not ported (NotPortedError).
-        strategy / axis / pad / schedule apply to it only.
+    n_shards / strategy / pad / schedule: MapReduce controls — any of
+        them selects ``mr_cf_rs_join`` (its loop path: the shards run one
+        after another on the device); all None runs the single-device
+        tile driver. ``mesh=`` (the multi-device path) raises
+        NotPortedError; ``axis`` names its mesh axis.
     r_block / row_tile / pair_capacity / double_buffer: device tuning
         overrides folded into the :class:`JoinPlan`.
-    fault_plan / checkpoint_dir: the resilience ladder — not ported
-        (NotPortedError).
+    fault_plan / checkpoint_dir: resilience ladder + task ledger
+        (DESIGN.md §12), forwarded verbatim.
     stats: optional dict to share the raw driver stats mapping with the
         caller (the same object wrapped by ``result.stats``).
     device: 'cuda' (default, the first GPU) or 'cpu'.
@@ -126,28 +131,47 @@ def join(R, S, threshold: float, *, measure: str = "jaccard",
     device = resolve_device(device)
     R = as_collection(R)
     S = as_collection(S)
-    if n_shards is not None or mesh is not None:
+    if mesh is not None:
         raise NotPortedError(
-            "n_shards=/mesh= select the MapReduce driver, which the PyTorch "
-            "port does not have yet; drop them to run the single-device "
-            "driver")
-    for name, val in (("strategy", strategy != "load_aware"),
-                      ("pad", pad is not None),
-                      ("schedule", schedule is not None)):
-        if val:
-            raise PlannerError(
-                f"{name} applies to the MapReduce driver; pass "
-                f"n_shards= (or mesh=) to select it")
+            "mesh= selects the MapReduce driver's multi-device path "
+            "(ROADMAP queue 1 item 9), which the PyTorch port does not "
+            "have yet; pass n_shards= alone to run its loop path")
+    mr = n_shards is not None
+    if not mr:
+        for name, val in (("strategy", strategy != "load_aware"),
+                          ("pad", pad is not None),
+                          ("schedule", schedule is not None)):
+            if val:
+                raise PlannerError(
+                    f"{name} applies to the MapReduce driver; pass "
+                    f"n_shards= (or mesh=) to select it")
+    elif r_block is not None or row_tile is not None:
+        raise PlannerError(
+            "r_block/row_tile tune the single-device tile driver; drop "
+            "n_shards/mesh to select it")
+
     raw: dict[str, Any] = stats if stats is not None else {}
-    plan = build_plan(R, S, threshold, method=method, measure=measure,
-                      emit=emit, r_block=r_block, row_tile=row_tile,
-                      pair_capacity=pair_capacity,
-                      double_buffer=double_buffer)
-    pairs = cf_rs_join_device(R, S, threshold, stats=raw, emit=emit,
-                              pair_capacity=pair_capacity, measure=measure,
-                              fault_plan=fault_plan,
-                              checkpoint_dir=checkpoint_dir, plan=plan,
-                              device=device)
+    if not mr:
+        plan = build_plan(R, S, threshold, driver="device", method=method,
+                          measure=measure, emit=emit, r_block=r_block,
+                          row_tile=row_tile, pair_capacity=pair_capacity,
+                          double_buffer=double_buffer)
+        pairs = cf_rs_join_device(R, S, threshold, stats=raw, emit=emit,
+                                  pair_capacity=pair_capacity,
+                                  measure=measure, fault_plan=fault_plan,
+                                  checkpoint_dir=checkpoint_dir, plan=plan,
+                                  device=device)
+    else:
+        pairs = mr_cf_rs_join(R, S, threshold, n_shards, strategy=strategy,
+                              method=method, axis=axis, stats=raw, emit=emit,
+                              pad=pad, pair_capacity=pair_capacity,
+                              measure=measure, fault_plan=fault_plan,
+                              checkpoint_dir=checkpoint_dir,
+                              schedule=schedule, device=device)
+    plan_dict: Mapping[str, Any] | None = raw.get("plan")
+    plan = (JoinPlan.from_dict(plan_dict) if plan_dict is not None
+            else build_plan(driver="mr" if mr else "device", method=method,
+                            measure=measure, emit=emit))
     mask = _dense_mask(pairs, R, S) if emit == "mask" else None
     return JoinResult(pairs=frozenset(pairs), mask=mask,
                       stats=JoinStats.from_dict(raw), plan=plan)

@@ -44,9 +44,31 @@ class GlobalConfig:
         ########## single-device driver (core/tile_join.py) ##########
         self.r_block = 1024
         self.double_buffer = True
-        # fault-injection plan of the reference's resilience ladder
-        # (REPRO_FAULT); not ported, so a non-empty value raises
+
+        ########## MapReduce driver (core/distributed.py) ##########
+        # default shard padding mode: 'auto' resolves to 'bucket' on the
+        # loop path
+        self.pad_mode = "auto"
+
+        ########## resilience (core/resilience.py) ##########
+        # bounded-retry policy for transient shard faults
+        self.retry_max_attempts = 3
+        self.retry_backoff_base = 0.05
+        self.retry_backoff_cap = 1.0
+        # backoff is computed+recorded, not slept, unless this is set
+        # (tests stay wall-clock deterministic)
+        self.retry_sleep = False
+        # pre-dispatch memory guardrail: split a task whose estimated
+        # dense (rows, cols) int32 working set exceeds guardrail_budget
+        # bytes (resilience path only). The budget is the reference's
+        # vmem_budget (a TPU core's 16 MiB), kept so that task ids and
+        # guardrail_splits equal the reference's
+        self.memory_guardrail = True
+        self.guardrail_budget = 16 * 2 ** 20
+        # fault-injection plan ("site:kind[:count];..."; REPRO_FAULT) and
+        # the seed for its deterministic corruptions
         self.fault = ""
+        self.fault_seed = 0
 
         ########## dedup serving (serve/dedup.py) ##########
         # requests per padded walk micro-batch of the dedup serve engine

@@ -101,6 +101,9 @@ class LFVTNode:
     parent: Optional["LFVTNode"]
     children: list
     owners: list = dataclasses.field(default_factory=list)  # element ids with L(a) here
+    # children keyed by their first 2-tuple (siblings never share one):
+    # the insert's branch lookup, O(1) instead of a scan of ``children``
+    by_head: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def __hash__(self):
         return id(self)
@@ -131,11 +134,13 @@ class LFVT:
 
     def _split(self, child: LFVTNode, k: int) -> None:
         """Split ``child`` at tuple offset ``k`` into head + tail nodes."""
-        tail = LFVTNode(child.tuples[k:], child, child.children)
+        tail = LFVTNode(child.tuples[k:], child, child.children,
+                        by_head=child.by_head)
         for c in tail.children:
             c.parent = tail
         child.tuples = child.tuples[:k]
         child.children = [tail]
+        child.by_head = {tail.tuples[0]: tail}
         self.n_nodes += 1
         # repair element-table entries whose L(a) moved into the tail
         keep = []
@@ -151,13 +156,12 @@ class LFVT:
     def _insert(self, a: int, seq: list) -> None:
         node, i = self.root, 0  # i = matched length of seq
         while i < len(seq):
-            child = next(
-                (c for c in node.children if c.tuples and c.tuples[0] == seq[i]), None
-            )
+            child = node.by_head.get(seq[i])
             if child is None:
                 # |pref| = 0 relative to this subtree: append a fresh node
                 new = LFVTNode(list(seq[i:]), node, [])
                 node.children.append(new)
+                node.by_head[new.tuples[0]] = new
                 self.n_nodes += 1
                 self._set_entry(a, len(seq), new, len(new.tuples) - 1)
                 return

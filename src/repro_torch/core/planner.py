@@ -14,11 +14,14 @@ decision so the caller no longer has to:
   * :func:`score_methods` — a linear cost model per rep family
     (``seconds = fixed + per_byte * bytes_staged + per_unit * work +
     per_tile * row_tiles``) with the embedded default coefficients;
-  * :func:`build_plan` — the kwarg-lattice validator + planner front
-    end of the single-device driver. It emits a frozen :class:`JoinPlan`
-    (method, block/tile sizes) that ``cf_rs_join_device`` consumes, and
-    raises the named :class:`PlannerError` (a ``ValueError``) for
-    contradictory or infeasible requests (``pair_capacity`` with
+  * :func:`build_plan` — the single kwarg-lattice validator + planner
+    front end both drivers call. It emits a frozen :class:`JoinPlan`
+    (method, per-shard methods on the MR loop path, block/tile sizes,
+    pad mode, walk schedule) that ``cf_rs_join_device`` and
+    ``mr_cf_rs_join(method="auto")`` consume, and raises the named
+    :class:`PlannerError` (a ``ValueError``) for contradictory or
+    infeasible requests (``schedule=`` without the mesh lfvt path,
+    ``pad=`` on the loop lfvt path, ``pair_capacity`` with
     ``emit='mask'``).
 
 The JAX package also rescales the coefficients from its committed
@@ -48,8 +51,9 @@ from .measures import get_measure
 
 __all__ = [
     "PlannerError", "JoinPlan", "JoinStats", "probe_features",
-    "score_methods", "choose_method", "build_plan", "validate_join_args",
-    "DEFAULT_COEFFS", "KNOWN_METHODS", "AUTO_CANDIDATES",
+    "score_methods", "choose_method", "build_plan", "plan_shard_methods",
+    "validate_join_args", "DEFAULT_COEFFS", "KNOWN_METHODS",
+    "AUTO_CANDIDATES", "SHARD_CANDIDATES",
 ]
 
 
@@ -72,6 +76,11 @@ KNOWN_METHODS = ("popcount", "onehot", "kernel_bitmap", "kernel_onehot",
 #: the bitmap family to ``popcount``. ``lfvt_ref`` is scored (it is a
 #: degradation rung) but strictly dominated by ``lfvt`` in the model.
 AUTO_CANDIDATES = ("popcount", "onehot", "lfvt", "lfvt_ref")
+
+#: per-shard candidates on the MR loop path — the paper's adaptive
+#: granularity: light small-universe shards take the bitmap popcount,
+#: heavy shards take the planned LFVT walk.
+SHARD_CANDIDATES = ("popcount", "lfvt")
 
 _FAMILY_OF = {"popcount": "bitmap", "kernel_bitmap": "bitmap",
               "onehot": "onehot", "kernel_onehot": "onehot",
@@ -103,9 +112,17 @@ DEFAULT_COEFFS: dict[str, dict[str, float]] = {
 # ---------------------------------------------------------------------- #
 # input probe
 # ---------------------------------------------------------------------- #
-def probe_features(R, S, t: float,
-                   measure: str = "jaccard") -> dict[str, Any]:
-    """Cheap host probe of one join: O(m + n + total elements).
+def _rows_view(C, rows):
+    if rows is None:
+        return C.sets, C.sizes()
+    rows = np.asarray(rows, dtype=np.int64)
+    return [C.sets[int(i)] for i in rows], C.sizes()[rows]
+
+
+def probe_features(R, S, t: float, measure: str = "jaccard",
+                   r_rows=None, s_rows=None) -> dict[str, Any]:
+    """Cheap host probe of one join (optionally restricted to routed row
+    subsets, for per-shard planning): O(m + n + total elements).
 
     ``walk_units`` is the *exact* expected flat-LFVT walk traffic
     ``sum_a freq_R(a) * freq_S(a)`` — every R-side occurrence of element
@@ -115,8 +132,8 @@ def probe_features(R, S, t: float,
     the hottest chains, which is what moves the crossover).
     """
     meas = get_measure(measure)
-    r_sets, r_sizes = R.sets, R.sizes()
-    s_sets, s_sizes = S.sets, S.sizes()
+    r_sets, r_sizes = _rows_view(R, r_rows)
+    s_sets, s_sizes = _rows_view(S, s_rows)
     m, n = len(r_sets), len(s_sets)
     universe = int(max(R.universe, S.universe, 1))
     w_words = (universe + 31) // 32
@@ -334,14 +351,18 @@ class JoinStats(Mapping):
 
 
 # ---------------------------------------------------------------------- #
-# the kwarg lattice (single validation point)
+# the kwarg lattice (single validation point for both drivers)
 # ---------------------------------------------------------------------- #
-def validate_join_args(*, method: str, emit: str,
-                       pair_capacity: int | None = None) -> None:
-    """Validate the single-device driver's kwarg lattice in one place.
+def validate_join_args(*, driver: str = "device", method: str, emit: str,
+                       pad: str | None = None, pad_explicit: bool = False,
+                       schedule: str | None = None,
+                       pair_capacity: int | None = None,
+                       has_mesh: bool = False) -> None:
+    """Validate the full driver kwarg lattice in one place.
 
     Raises :class:`PlannerError` (a ``ValueError``) with the reference's
-    message text (pinned in ``tests/test_torch_join.py``).
+    message text (pinned in ``tests/test_torch_join.py`` and
+    ``tests/test_torch_mr.py``).
     """
     if emit not in ("pairs", "mask"):
         raise PlannerError(f"unknown emit mode {emit!r}")
@@ -352,42 +373,100 @@ def validate_join_args(*, method: str, emit: str,
             f"pair_capacity={pair_capacity!r} has no effect with "
             "emit='mask' (the dense mask path never compacts pairs); "
             "drop it or use emit='pairs'")
+    if driver == "device":
+        return
+    if schedule not in (None, "planned", "static"):
+        raise PlannerError(f"unknown walk schedule {schedule!r}")
+    if pad is not None and pad not in ("auto", "global", "bucket"):
+        raise PlannerError(f"unknown pad mode {pad!r}")
+    if schedule is not None and method not in ("lfvt", "auto"):
+        raise PlannerError(
+            f"schedule={schedule!r} only applies to the mesh lfvt walk; "
+            f"method={method!r} never consults it — drop the kwarg or "
+            "use method='lfvt'")
+    if (pad_explicit and pad not in (None, "auto") and not has_mesh
+            and method in ("lfvt", "lfvt_ref")):
+        raise PlannerError(
+            f"pad={pad!r} has no effect on the loop lfvt path (shards "
+            "stay ragged; padding only exists under a mesh) — drop the "
+            "kwarg or pass a mesh")
+    if has_mesh and method == "lfvt_ref":
+        raise PlannerError(
+            "method='lfvt_ref' runs on the loop path only (mesh=None); "
+            "use method='lfvt' for the bucketed shard_map mesh path")
 
 
 # ---------------------------------------------------------------------- #
 # plan construction
 # ---------------------------------------------------------------------- #
-def build_plan(R=None, S=None, t: float | None = None, *,
-               method: str = "auto", measure: str = "jaccard",
-               emit: str = "pairs", pair_capacity: int | None = None,
-               r_block: int | None = None, row_tile: int | None = None,
-               double_buffer: bool | None = None) -> JoinPlan:
-    """Validate the kwarg lattice and resolve ``method='auto'`` into a
-    concrete :class:`JoinPlan` for the single-device driver.
+def plan_shard_methods(R, S, t: float, part, *, measure: str,
+                       coeffs=None) -> tuple[str, ...]:
+    """Score each routed MR shard independently -> one method per shard
+    (the paper's per-partition adaptation granularity). Empty shards
+    keep the cheapest family."""
+    coeffs = coeffs if coeffs is not None else DEFAULT_COEFFS
+    s_rows, r_rows = part.shard_rows(R, S)
+    picks = []
+    for k in range(part.n_shards):
+        if not len(r_rows[k]) or not len(s_rows[k]):
+            picks.append(SHARD_CANDIDATES[0])
+            continue
+        f = probe_features(R, S, t, measure,
+                           r_rows=r_rows[k], s_rows=s_rows[k])
+        picks.append(choose_method(
+            score_methods(f, coeffs, SHARD_CANDIDATES), SHARD_CANDIDATES))
+    return tuple(picks)
 
-    With a forced method the cost model never runs — the plan just
-    records the request plus the resolved tuning knobs.
+
+def build_plan(R=None, S=None, t: float | None = None, *,
+               driver: str = "device", method: str = "auto",
+               measure: str = "jaccard", emit: str = "pairs",
+               has_mesh: bool = False, pad: str | None = None,
+               pad_explicit: bool = False, schedule: str | None = None,
+               pair_capacity: int | None = None, r_block: int | None = None,
+               row_tile: int | None = None,
+               double_buffer: bool | None = None, part=None) -> JoinPlan:
+    """Validate the kwarg lattice and resolve ``method='auto'`` into a
+    concrete :class:`JoinPlan`.
+
+    Both drivers call this (their legacy kwargs map onto plan overrides
+    here); ``repro_torch.join`` surfaces the result. With a forced
+    method the cost model never runs — the plan just records the request
+    plus the resolved tuning knobs. On the MR loop path (``driver='mr'``,
+    no mesh, ``part`` with more than one shard) ``'auto'`` also scores
+    every routed shard (``plan_shard_methods``).
     """
-    validate_join_args(method=method, emit=emit,
-                       pair_capacity=pair_capacity)
+    validate_join_args(driver=driver, method=method, emit=emit, pad=pad,
+                       pad_explicit=pad_explicit, schedule=schedule,
+                       pair_capacity=pair_capacity, has_mesh=has_mesh)
     requested = method
     decided = "forced"
     features: dict[str, Any] = {}
     scores: dict[str, Any] = {}
+    shard_methods: tuple[str, ...] | None = None
     if method == "auto":
         if R is None or S is None or not len(R) or not len(S):
             method, decided = "popcount", "empty"
         else:
             features = probe_features(R, S, t, measure)
-            scores = score_methods(features)
-            method = choose_method(scores)
+            # mesh shards share one shape family: the pick must be
+            # homogeneous, and only popcount/lfvt have mesh paths
+            candidates = (("popcount", "lfvt") if has_mesh
+                          else AUTO_CANDIDATES)
+            scores = score_methods(features, DEFAULT_COEFFS, candidates)
+            method = choose_method(scores, candidates)
             decided = "cost_model"
+            if (driver == "mr" and not has_mesh and part is not None
+                    and part.n_shards > 1):
+                shard_methods = plan_shard_methods(R, S, t, part,
+                                                   measure=measure)
     return JoinPlan(
-        method=method, requested=requested, driver="device",
-        measure=measure, emit=emit,
+        method=method, requested=requested, driver=driver, measure=measure,
+        emit=emit,
         r_block=int(r_block if r_block else global_config.r_block),
         row_tile=int(row_tile if row_tile else global_config.row_tile),
-        pair_capacity=pair_capacity,
+        pad=pad, schedule=schedule, pair_capacity=pair_capacity,
         double_buffer=(bool(global_config.double_buffer)
                        if double_buffer is None else bool(double_buffer)),
-        decided=decided, features=features, scores=scores)
+        shard_methods=shard_methods, decided=decided,
+        features=features, scores=scores)

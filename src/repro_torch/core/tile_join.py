@@ -19,10 +19,14 @@ Blocks are double-buffered: block k+1 is dispatched before block k's
 counts are synchronised. CUDA launches are asynchronous on the current
 stream, so no second stream is needed for the overlap; the one
 device-to-host copy of a block's pair count is its only sync before its
-pairs are fetched.
+pairs are fetched. With ``fault_plan=``/``checkpoint_dir=`` (or
+``REPRO_FAULT``) each R block is instead a task of the resilience ladder
+(``core/resilience.py``), run synchronously: the method, then the host
+oracle.
 """
 from __future__ import annotations
 
+import functools
 import weakref
 
 import numpy as np
@@ -32,8 +36,9 @@ from . import measures
 from .config import global_config
 from .device import resolve_device
 from .planner import build_plan
-from .resilience import (PairCapacityError, check_unmanaged, fault_point,
-                         resilience_stats)
+from .resilience import (PairCapacityError, build_resilience, checked_flat,
+                         collection_digest, fault_point, resilience_stats,
+                         sorted_pairs)
 from .sets import SetCollection
 
 __all__ = [
@@ -334,9 +339,14 @@ def cf_rs_join_device(R: SetCollection, S: SetCollection, t: float,
             Results are identical with it off.
     device: 'cuda' (the default) or 'cpu'; see ``resolve_device``.
 
-    ``fault_plan``/``checkpoint_dir`` (the resilience ladder) raise
-    ``NotPortedError``. ``r_block`` and ``double_buffer`` default to
-    ``global_config`` when None.
+    fault_plan / checkpoint_dir activate the resilience layer
+    (core/resilience.py, DESIGN.md §12): per-R-block tasks run under the
+    retry + degradation ladder (method -> host oracle), with optional
+    per-block checkpoints for resume. None/None (and an empty
+    ``REPRO_FAULT``) keeps the streaming path.
+
+    ``r_block`` and ``double_buffer`` default to ``global_config`` when
+    None.
     """
     r_ids, s_ids = cf_rs_join_device_ids(
         R, S, t, method=method, r_block=r_block, stats=stats, emit=emit,
@@ -371,8 +381,7 @@ def cf_rs_join_device_ids(R: SetCollection, S: SetCollection, t: float,
     double_buffer = plan.double_buffer
     R.validate()
     S.validate()
-    check_unmanaged(fault_plan if fault_plan is not None
-                    else (global_config.fault or None), checkpoint_dir)
+    res = build_resilience(checkpoint_dir, fault_plan)
     if not len(R) or not len(S):
         if stats is not None:  # consumers index these unconditionally
             stats.update(method=method, emit=emit, r_blocks=0, pair_count=0,
@@ -380,7 +389,7 @@ def cf_rs_join_device_ids(R: SetCollection, S: SetCollection, t: float,
                          double_buffered=double_buffer, regrows=0,
                          r_rep_cache_hits=0, plan=plan.to_dict(),
                          device=str(device))
-            resilience_stats(stats)
+            resilience_stats(stats, res)
         return np.empty(0, np.int64), np.empty(0, np.int64)
     from ..kernels import ops as kops  # deferred: kernels import this
 
@@ -410,11 +419,15 @@ def cf_rs_join_device_ids(R: SetCollection, S: SetCollection, t: float,
     r_out: list = []
     s_out: list = []
     m = len(R)
-    acc = {"out_sparse": 0, "out_dense": 0, "n_pairs": 0, "live": 0,
-           "total_tiles": 0, "regrows": 0, "r_rep_hits": 0,
-           "walk_steps": 0, "early_stops": 0, "walk_vmem": 0}
 
-    def fold_kernel_stats(kstats: dict) -> None:
+    def zero_acc() -> dict:
+        return {"out_sparse": 0, "out_dense": 0, "n_pairs": 0, "live": 0,
+                "total_tiles": 0, "regrows": 0, "r_rep_hits": 0,
+                "walk_steps": 0, "early_stops": 0, "walk_vmem": 0}
+
+    acc = zero_acc()
+
+    def fold_kernel_stats(acc: dict, kstats: dict) -> None:
         acc["live"] += kstats.get("live_tiles", 0)
         acc["total_tiles"] += kstats.get("total_tiles", 0)
         acc["walk_steps"] += kstats.get("walk_steps", 0)
@@ -422,7 +435,7 @@ def cf_rs_join_device_ids(R: SetCollection, S: SetCollection, t: float,
         acc["walk_vmem"] = max(acc["walk_vmem"],
                                kstats.get("walk_vmem_tile_bytes", 0))
 
-    def dispatch(start: int, stop: int) -> dict:
+    def dispatch(start: int, stop: int, acc: dict) -> dict:
         """Launch all of one R block's device work; no host syncs."""
         sl = slice(start, stop)
         r_rep, hit = _r_block_rep(R, family, W, device, start, stop)
@@ -466,9 +479,9 @@ def cf_rs_join_device_ids(R: SetCollection, S: SetCollection, t: float,
                 blk["packed"] = _compact_mask(mask, size=spec_cap)
         return blk
 
-    def finalize(blk: dict) -> None:
+    def finalize(blk: dict, acc: dict, r_out: list, s_out: list) -> None:
         """Sync one block's counts, compact (regrowing if needed) and fold
-        its pairs into the result."""
+        its pairs into ``r_out``/``s_out``."""
         start = blk["start"]
         fault_point("compact")
         if "pending" in blk:
@@ -483,7 +496,7 @@ def cf_rs_join_device_ids(R: SetCollection, S: SetCollection, t: float,
             else:
                 mask_np = kops.join_mask_finalize(blk["pending"], blk["mb"],
                                                   len(Ss), kstats)
-            fold_kernel_stats(kstats)
+            fold_kernel_stats(acc, kstats)
         elif emit == "pairs":
             n_pairs = int(blk["total"])  # the only host sync per block
             cap = spec_cap
@@ -505,18 +518,78 @@ def cf_rs_join_device_ids(R: SetCollection, S: SetCollection, t: float,
             s_out.append(Ss.ids[local[:, 1]].astype(np.int64))
         acc["n_pairs"] += n_pairs
 
-    in_flight: dict | None = None
-    for start in range(0, m, r_block):
-        # block k+1 launches before block k syncs
-        blk = dispatch(start, min(start + r_block, m))
+    if res is None:
+        in_flight: dict | None = None
+        for start in range(0, m, r_block):
+            # block k+1 launches before block k syncs
+            blk = dispatch(start, min(start + r_block, m), acc)
+            if in_flight is not None:
+                finalize(in_flight, acc, r_out, s_out)
+            if double_buffer:
+                in_flight = blk
+            else:
+                finalize(blk, acc, r_out, s_out)
         if in_flight is not None:
-            finalize(in_flight)
-        if double_buffer:
-            in_flight = blk
-        else:
-            finalize(blk)
-    if in_flight is not None:
-        finalize(in_flight)
+            finalize(in_flight, acc, r_out, s_out)
+    else:
+        # resilience path (DESIGN.md §12): per-R-block tasks, run
+        # synchronously under the retry + degradation ladder so a retry
+        # can never double-count a block's stats or pairs
+        from .join import brute_force_join  # deferred: the oracle rung
+        if res.ledger.dir:
+            res.ledger.open_run({
+                "version": 1, "driver": "cf_rs_join_device", "t": float(t),
+                "method": method, "emit": emit, "measure": measure,
+                "r_block": int(r_block),
+                "R": collection_digest(R), "S": collection_digest(S)})
+
+        def fold(delta: dict) -> None:
+            for k, v in delta.items():
+                if k in acc and isinstance(v, (int, float)) \
+                        and not isinstance(v, bool):
+                    acc[k] = max(acc[k], v) if k == "walk_vmem" \
+                        else acc[k] + v
+
+        def primary(a: int, b: int):
+            sub_acc, ro, so = zero_acc(), [], []
+            if family == "lfvt":
+                checked_flat(s_rep)  # injected-corruption detection site
+            finalize(dispatch(a, b, sub_acc), sub_acc, ro, so)
+            got = (np.stack([np.concatenate(ro), np.concatenate(so)], 1)
+                   if ro else np.zeros((0, 2), np.int64))
+            return sorted_pairs(got), sub_acc
+
+        def oracle(a: int, b: int):
+            subR = SetCollection([R.sets[i] for i in range(a, b)],
+                                 R.universe, R.ids[a:b].astype(np.int32))
+            got = brute_force_join(subR, S, t, measure=measure)
+            sub_acc = zero_acc()
+            sub_acc["n_pairs"] = len(got)
+            return sorted_pairs(got), sub_acc
+
+        budget = int(global_config.guardrail_budget)
+        for start in range(0, m, r_block):
+            stop = min(start + r_block, m)
+            spans = [(start, stop)]
+            if global_config.memory_guardrail:
+                # pre-dispatch guardrail: the dense (mb, n) count tile is
+                # the block's dominant device working set
+                est = (stop - start) * len(Ss) * 4
+                if est > budget:
+                    k = min(stop - start, -(-est // budget))
+                    cuts = np.linspace(start, stop, k + 1).astype(int)
+                    spans = [(int(cuts[i]), int(cuts[i + 1]))
+                             for i in range(k) if cuts[i + 1] > cuts[i]]
+                    res.guardrail_splits += len(spans) - 1
+            for a, b in spans:
+                tid = f"device_join/{method}/{emit}/{measure}/rows={a}-{b}"
+                got, delta = res.run(
+                    tid, [(method, functools.partial(primary, a, b)),
+                          ("oracle", functools.partial(oracle, a, b))])
+                if len(got):
+                    r_out.append(got[:, 0])
+                    s_out.append(got[:, 1])
+                fold(delta)
 
     if stats is not None:
         stats["method"] = method
@@ -544,7 +617,8 @@ def cf_rs_join_device_ids(R: SetCollection, S: SetCollection, t: float,
             stats["s_flat_bytes"] = s_rep.nbytes()
             stats["s_flat_seq_bytes"] = int(s_rep.seq_row.nbytes)
             stats["s_bitmap_bytes_equiv"] = len(Ss) * W * 4
-        resilience_stats(stats)
+        resilience_stats(stats, res)
     if not r_out:
         return np.empty(0, np.int64), np.empty(0, np.int64)
     return np.concatenate(r_out), np.concatenate(s_out)
+

@@ -6,9 +6,9 @@ against a curated corpus. ``filter_stream`` routes doc batches through
 the dedup serve engine with admission, so later docs — duplicates
 within the stream included — are judged against the survivors too.
 ``filter_batch`` joins against the static corpus through the MapReduce
-driver, which the port does not have yet: it raises ``NotPortedError``,
-and the driver's options (the reference's ``n_shards``, ``method`` and
-``mesh`` fields) wait with it.
+driver (``mr_cf_rs_join``, its loop path on ``device``), so two
+identical new docs in one batch both survive; a ``mesh`` raises
+``NotPortedError``, as the driver does.
 """
 from __future__ import annotations
 
@@ -16,8 +16,9 @@ import dataclasses
 
 import numpy as np
 
+from ..core.distributed import mr_cf_rs_join
 from ..core.sets import SetCollection
-from ..errors import NotPortedError
+from .synth import docs_to_sets
 
 __all__ = ["DedupPipeline"]
 
@@ -26,19 +27,29 @@ __all__ = ["DedupPipeline"]
 class DedupPipeline:
     curated: SetCollection         # S: the corpus we must not duplicate
     threshold: float = 0.8
+    n_shards: int = 8
     shingle: int = 1
+    method: str = "popcount"
     measure: str = "jaccard"       # cosine/dice/overlap too
-    device: object = None          # the serve engine's; None: first GPU
+    mesh: object = None            # the multi-device path: not ported
+    device: object = None          # both paths'; None: the first GPU
 
     stats: dict = dataclasses.field(default_factory=dict)
 
     def filter_batch(self, docs: np.ndarray) -> tuple[np.ndarray, dict]:
-        """docs (N, L) int tokens -> (surviving docs, stats), through
-        ``mr_cf_rs_join``: not ported yet."""
-        raise NotPortedError(
-            "DedupPipeline.filter_batch runs mr_cf_rs_join, the MapReduce "
-            "driver (ROADMAP queue 1 item 7), which the PyTorch port does "
-            "not have yet; use filter_stream")
+        """docs (N, L) int tokens -> (surviving docs, stats)."""
+        R = docs_to_sets(docs, self.shingle, universe=self.curated.universe)
+        stats: dict = {}
+        pairs = mr_cf_rs_join(R, self.curated, self.threshold, self.n_shards,
+                              method=self.method, mesh=self.mesh, stats=stats,
+                              measure=self.measure, device=self.device)
+        dup_rows = {r for (r, _) in pairs}
+        keep = np.asarray([i for i in range(len(docs)) if i not in dup_rows],
+                          dtype=np.int64)
+        stats["n_in"] = len(docs)
+        stats["n_dropped"] = len(docs) - len(keep)
+        self.stats = stats
+        return docs[keep], stats
 
     def filter_stream(self, doc_batches,
                       admit: bool = True) -> tuple[list[np.ndarray], dict]:

@@ -292,6 +292,101 @@ def test_bitmap_methods_on_cuda_match_cpu(cuda, method, emit):
             assert st_g.get(key) == st_c.get(key), (measure, key)
 
 
+MR_STATS = ("result_pairs", "regrows", "live_tiles", "total_tiles",
+            "walk_steps", "early_stops", "reduce_bytes", "dense_mask_bytes",
+            "reduce_mask_peak_bytes", "reduce_intermediate_peak_bytes",
+            "shard_block_bytes", "shard_methods", "retries",
+            "degradations", "faults_injected")
+
+
+@pytest.mark.parametrize("method", ["lfvt", "lfvt_ref", "popcount",
+                                    "onehot", "kernel_bitmap",
+                                    "kernel_onehot", "auto"])
+@pytest.mark.parametrize("emit", ["pairs", "mask"])
+def test_mr_join_on_cuda_matches_cpu(cuda, method, emit):
+    """The MapReduce loop path on the card, every method: pairs and
+    counters equal to the CPU driver's, at 4 load-aware shards and with
+    all of S on every shard (hash); each shard launches its kernel."""
+    from repro_torch.core.distributed import mr_cf_rs_join
+    R, S = skewed(21, 600, 300, 40), skewed(22, 500, 300, 40)
+    kernel = {"lfvt": lfvt_walk.lfvt_walk_live_tiled,
+              "kernel_bitmap": bitmap_join.bitmap_join_live_tiled,
+              "kernel_onehot": onehot_join.onehot_join_live_tiled,
+              "popcount": bitmap_join.bitmap_join_tiled,
+              "onehot": bitmap_join.bitmap_join_tiled}.get(method)
+    if emit == "mask" and method.startswith("kernel_"):
+        kernel = (bitmap_join.bitmap_join_tiled if method == "kernel_bitmap"
+                  else onehot_join.onehot_join_tiled)
+    for measure, strategy in (("jaccard", "load_aware"),
+                              ("cosine", "hash"), ("overlap", "load_aware")):
+        st_g: dict = {}
+        st_c: dict = {}
+        if kernel is not None:
+            kernel.launches = 0
+        got = mr_cf_rs_join(R, S, 0.6, 4, strategy=strategy, method=method,
+                            measure=measure, emit=emit, stats=st_g)
+        want = mr_cf_rs_join(R, S, 0.6, 4, strategy=strategy, method=method,
+                             measure=measure, emit=emit, stats=st_c,
+                             device="cpu")
+        assert got == want and got, (measure, strategy)
+        assert {k: st_g.get(k) for k in MR_STATS} == {
+            k: st_c.get(k) for k in MR_STATS}, (measure, strategy)
+        if kernel is not None:
+            assert kernel.launches >= 1, (measure, strategy)
+
+
+def test_mr_managed_join_on_cuda_matches_cpu(cuda):
+    """A fault plan on the card: the same pairs and resilience counters
+    as on the CPU (the walk degrades to the whole-block walk where the
+    plan injects an OOM)."""
+    from repro_torch.core.distributed import mr_cf_rs_join
+    R, S = skewed(23, 400, 300, 40), skewed(24, 400, 300, 40)
+    for plan in ("compact:transient;flat_tables:corrupt",
+                 "walk_dispatch:oom"):
+        st_g: dict = {}
+        st_c: dict = {}
+        got = mr_cf_rs_join(R, S, 0.6, 4, method="lfvt", stats=st_g,
+                            fault_plan=plan)
+        want = mr_cf_rs_join(R, S, 0.6, 4, method="lfvt", stats=st_c,
+                             fault_plan=plan, device="cpu")
+        assert got == want and got
+        assert {k: st_g.get(k) for k in MR_STATS} == {
+            k: st_c.get(k) for k in MR_STATS}, plan
+        assert st_g["faults_injected"] > 0
+
+
+@pytest.mark.parametrize("measure", ["jaccard", "overlap"])
+def test_mr_popcount_shard_mask_is_k3(cuda, measure):
+    """A popcount shard's dense mask (``local_join_mask``) comes from K3
+    on the card, and equals ``_popcount_qualify`` over the same operands
+    on the card and on the CPU."""
+    from repro_torch.core.distributed import local_join_mask, shard_blocks
+    from repro_torch.core.partition import load_aware_partition
+    from repro_torch.core.tile_join import _popcount_qualify
+    R, S = skewed(25, 500, 300, 40), skewed(26, 400, 300, 40)
+    part = load_aware_partition(R, S, 0.6, 3, measure=measure)
+    blocks, _ = shard_blocks(R, S, part, 0.6, pad="bucket")
+    hits = 0
+    for block in blocks:
+        for lk in range(block.n_local):
+            ops_ = block.shard(lk, cuda)
+            bitmap_join.bitmap_join_tiled.launches = 0
+            mask = local_join_mask(*ops_, 0.6, "popcount", measure)
+            assert bitmap_join.bitmap_join_tiled.launches == 1
+            r_bm, r_sz, s_bm, s_sz, lo, hi = ops_
+            rows = [torch.tensor(x, device=cuda) for x in (r_sz, s_sz, lo,
+                                                           hi)]
+            want = _popcount_qualify(r_bm, rows[0], s_bm, rows[1], rows[2],
+                                     rows[3], t=0.6, measure=measure)
+            assert torch.equal(mask, want)
+            cpu = [x.cpu() for x in (r_bm, *rows[:1], s_bm, *rows[1:])]
+            assert torch.equal(mask.cpu(), _popcount_qualify(
+                cpu[0], cpu[1], cpu[2], cpu[3], cpu[4], cpu[5], t=0.6,
+                measure=measure))
+            hits += int(mask.sum())
+    assert hits
+
+
 def test_popcount_join_on_cuda_builds_the_compressed_s_once(cuda,
                                                             monkeypatch):
     """On the card the popcount joins read S through one compressed S per

@@ -11,9 +11,12 @@ blocks and tiles occur; and for the popcount and one-hot families
 measures x 2 thresholds x both emits, where the whole stats mapping and
 the plan must be equal. Also: the regrow protocol, empty inputs, the
 planner's ``JoinPlan`` and ``method="auto"``, the driver's default
-method, the port's import hygiene, and every error the port raises for
-what it does not run yet.
+method, the port's import hygiene, the paths that raised until they were
+ported (the MapReduce loop path, the resilience kwargs, the dedup
+pipeline's batch filter), which now equal the reference, and the error
+the port still raises for the multi-device path.
 """
+import functools
 import os
 import pathlib
 import re
@@ -231,8 +234,9 @@ def test_driver_ids_are_the_pair_set(collections, method, emit):
 
 
 def test_port_never_loads_jax_or_repro():
-    """A port join, a served request and a few generated tokens of a
-    smoke LLM (both attention paths) in a fresh interpreter leave jax,
+    """A port join, a served request, MapReduce joins, a managed join
+    (fault plan and checkpoint, run twice) and a few generated tokens of
+    a smoke LLM (both attention paths) in a fresh interpreter leave jax,
     repro and ml_dtypes unloaded, and no source line of the port imports
     any of them."""
     code = ("import sys; import numpy as np; import repro_torch\n"
@@ -247,6 +251,18 @@ def test_port_never_loads_jax_or_repro():
             "device='cpu', schedule=sch)\n"
             "    e.submit(np.arange(5))\n"
             "    assert e.drain()[0].matches == (0,), sch\n"
+            "import tempfile\n"
+            "R = repro_torch.as_collection([np.arange(5), np.arange(3)])\n"
+            "for m in ('lfvt', 'auto', 'kernel_bitmap'):\n"
+            "    assert repro_torch.mr_cf_rs_join(R, S, 0.5, 2, method=m, "
+            "device='cpu') == {(0, 0), (1, 0)}, m\n"
+            "d = tempfile.mkdtemp()\n"
+            "for _ in range(2):\n"
+            "    st = {}\n"
+            "    r = repro_torch.join(R, S, 0.5, method='lfvt', device='cpu', "
+            "stats=st, fault_plan='compact:transient', checkpoint_dir=d)\n"
+            "    assert r.pairs == {(0, 0), (1, 0)} and st['retries'] + "
+            "st['tasks_resumed'] >= 1, st\n"
             "import dataclasses, torch\n"
             "from repro_torch.models.params import init_params\n"
             "for impl in ('flash', 'jnp'):\n"
@@ -291,22 +307,54 @@ def test_default_device_without_gpu_raises(monkeypatch):
     (dict(fault_plan="compact:transient"), "fault_plan"),
     (dict(checkpoint_dir="ckpt"), "checkpoint_dir"),
 ])
-def test_not_ported_paths_raise(kwargs, match):
+def test_not_ported_paths_raise(kwargs, match, tmp_path, monkeypatch):
+    """``mesh=`` (the multi-device path, ROADMAP item 9) still raises
+    ``NotPortedError``. The MapReduce loop path (``n_shards=``) and the
+    resilience kwargs raised until they were ported: they now run and
+    equal ``repro.join`` with the same kwargs (each package in a
+    directory of its own, so that ``checkpoint_dir`` starts empty)."""
     r, s = sample_sets(n_r=8, n_s=6)
-    with pytest.raises(NotPortedError, match=match):
-        repro_torch.join(r, s, 0.5, device="cpu", **kwargs)
-    assert issubclass(NotPortedError, ValueError)
+    if "mesh" in kwargs:
+        with pytest.raises(NotPortedError, match=match) as err:
+            repro_torch.join(r, s, 0.5, device="cpu", **kwargs)
+        assert "item 9" in str(err.value)
+        assert issubclass(NotPortedError, ValueError)
+        return
+    monkeypatch.setattr(ref_config, "planner_calibrate", False)
+    for cfg in (ref_config, port_config):
+        monkeypatch.setattr(cfg, "fault", "")
+    out = {}
+    for name, fn in (("ref", repro.join), ("port", functools.partial(
+            repro_torch.join, device="cpu"))):
+        (tmp_path / name).mkdir()
+        monkeypatch.chdir(tmp_path / name)
+        out[name] = fn(r, s, 0.5, **kwargs)
+    a, b = out["ref"], out["port"]
+    assert b.pairs == a.pairs and b.pairs
+    assert b.plan.to_dict() == a.plan.to_dict()
+    want = {k: v for k, v in a.stats.raw.items() if k not in CACHE_STATS}
+    got = {k: v for k, v in b.stats.raw.items() if k not in CACHE_STATS}
+    assert got == want
+    if "checkpoint_dir" in kwargs:
+        assert sorted(os.listdir(tmp_path / "port" / "ckpt")) == sorted(
+            os.listdir(tmp_path / "ref" / "ckpt"))
 
 
-def test_not_ported_kernel_paths_raise():
+def test_not_ported_kernel_paths_raise(monkeypatch):
     """The dedup pipeline's static-corpus filter runs the MapReduce
-    driver, which the port does not have yet: a named error, not a
-    silent fallback."""
-    R = repro_torch.as_collection(sample_sets(n_r=8, n_s=6)[0])
-    pipe = repro_torch.DedupPipeline(R, threshold=0.5, device="cpu")
-    docs = np.asarray([[1, 2, 3], [4, 5, 6]])
-    with pytest.raises(NotPortedError, match="MapReduce driver"):
-        pipe.filter_batch(docs)
+    driver; it raised until the driver was ported, and now drops the
+    reference's documents with the reference's stats."""
+    from repro.data.pipeline import DedupPipeline as RefPipeline
+    monkeypatch.setattr(ref_config, "planner_calibrate", False)
+    sets = sample_sets(n_r=8, n_s=6)[0]
+    docs = np.asarray([np.resize(x, 4) for x in sets] + [[1, 2, 3, 4]])
+    ref = RefPipeline(repro.as_collection(sets), threshold=0.5)
+    pipe = repro_torch.DedupPipeline(repro_torch.as_collection(sets),
+                                     threshold=0.5, device="cpu")
+    (want, st_a), (got, st_b) = ref.filter_batch(docs), pipe.filter_batch(
+        docs)
+    np.testing.assert_array_equal(got, want)
+    assert st_b == st_a and st_b["n_dropped"] >= 1
 
 
 def test_planner_errors_match_reference():
