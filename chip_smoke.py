@@ -16,7 +16,9 @@ through these phases, in order; any failure raises and exits non-zero:
   2. measures phase: at |R| = |S| = 4 000, all 4 measures x
      t in {0.5, 0.7, 0.9, 2/3} x both emit modes, for ``lfvt``
      (``dblp``-shaped) and for ``popcount``, ``onehot``,
-     ``kernel_bitmap`` and ``kernel_onehot`` (``kosarak``-shaped),
+     ``kernel_bitmap`` and ``kernel_onehot`` (``kosarak``-shaped; the
+     last two take ``emit="mask"``, where they run K3 and K5 as
+     ``popcount`` and ``onehot`` do, at t = 0.9 only),
      through the port's driver on the card and, meanwhile, in CPU worker
      processes (one of which makes the livej data first); the two must
      give identical pairs (compared as sorted int64 keys) and counters.
@@ -26,14 +28,23 @@ through these phases, in order; any failure raises and exits non-zero:
      driver (``repro_torch.mr_cf_rs_join``, 4 load-aware shards) on the
      same data, on the card and in the workers (``mr_configs``): every
      method and ``auto``, each measure at its ``MR_T`` (dice at exactly
-     2/3), both emits; ``hash`` with ``lfvt``; one managed run per
+     2/3; the bitmap methods at jaccard and dice), both emits; ``hash``
+     with ``lfvt``; one managed run per
      measure under a seeded ``MR_FAULT_PLANS`` plan, whose pairs and
      resilience counters must equal the CPU's and whose only
      degradations may be the injected ones. Meanwhile one MR join runs in
      a child process on the card with a checkpoint directory and is
      killed (SIGKILL) at its 2nd checkpoint write; a second child
-     resumes it and must give the uninterrupted run's pairs. The pool is
-     done before any timed phase starts;
+     resumes it and must give the uninterrupted run's pairs. The
+     multi-device path (``mesh=make_host_mesh(4)``, 4 slots on the card)
+     runs ``lfvt`` on dblp under both schedules and both emits and the
+     stacked ``popcount`` and ``kernel_onehot`` reduces on kosarak with
+     ``emit="mask"`` (``MESH_MEASURE_CALLS``): each must equal the card's
+     loop-path MR call in pairs and in the stats the two share, and
+     launch K6, K1, K3 or K5. Each host baseline (``core/baselines.py``)
+     runs once in a worker on a 1 000 x 1 000 kosarak slice at Jaccard
+     t = 0.8, and its pairs must equal the card's ``lfvt`` join of the
+     slice. The pool is done before any timed phase starts;
   3. join phase: ``repro_torch.join(R, S, 0.8, method="lfvt")`` on the
      card with the ``livej``-shaped dataset (|R| = |S| = 100 000), the K1
      launch count read around it, and its pairs for 64 sampled R rows
@@ -41,7 +52,9 @@ through these phases, in order; any failure raises and exits non-zero:
      overlaps computed here with numpy; then the join repeated, once on
      the host clock and once under ``torch.profiler`` (device-busy time,
      K1's share, the idle share);
-  4. front-door phase: ``repro_torch.join(R, S, 0.8)`` with no method
+  4. front-door phase: the planner's calibration scales (from the
+     committed ``BENCH_pr*.json`` rows) printed; ``repro_torch.join(R,
+     S, 0.8)`` with no method
      (``method="auto"``; it picks ``popcount``, kernel K3) at the same
      size, cold, warm and profiled; then ``kernel_bitmap`` and
      ``kernel_onehot`` with ``emit="pairs"`` (K2, K4) and ``onehot``
@@ -52,12 +65,21 @@ through these phases, in order; any failure raises and exits non-zero:
      ``kernel_bitmap`` and ``kernel_onehot`` under ``torch.profiler``
      (device-busy time, K2's or K4's share, the idle share); then the
      MapReduce driver at the same size: ``repro_torch.join(R, S, 0.8,
-     n_shards=8)`` with ``lfvt`` (cold, warm, profiled: K1 must launch
+     n_shards=8)`` with ``lfvt`` (cold, then warm under the profiler: K1
+     must launch
      once for each shard with a live row), ``auto`` (its per-shard picks
      printed) and ``kernel_bitmap`` (K2 per shard, profiled), each equal
      to the lfvt join's pairs, with the partition's ``psi``, intervals,
      shard loads, R replication and shuffle bytes, and the host's
-     partition, routing and per-shard LFVT encode timed apart;
+     partition, routing and per-shard LFVT encode timed apart; then the
+     multi-device path, ``repro_torch.join(R, S, 0.8,
+     mesh=make_host_mesh(8))`` (8 slots on the one card): ``lfvt`` under
+     ``schedule="planned"`` (K6 once per shard with rows on both sides;
+     counted, then profiled: device-busy, K6's share, the idle share) and
+     ``"static"`` (K1 as often), with ``n_buckets``, pad waste and live
+     tiles, and the stacked ``popcount`` reduce with ``emit="pairs"``
+     (K3 per shard; the host's globally padded shard packing timed
+     apart), each equal to the lfvt join's pairs;
   5. serve phase: ``repro_torch.DedupServeEngine`` on the card, with the
      livej S side (100 000 sets) as its corpus, at t = 0.8. Stream A:
      4 096 requests (half exact copies of corpus sets, half livej R
@@ -69,8 +91,9 @@ through these phases, in order; any failure raises and exits non-zero:
      the default micro-batch (16). Stream C: 1 024 requests, a quarter of
      them repeats, with ``admit="survivors"`` under both schedules
      (identical results, duplicates caught within and across batches),
-     then K6 (and K1 on its live tiles) on a 256-row probe against the
-     grown corpus, bit-equal to its plain version, with the count of the
+     then K6 (and K1 on its live tiles) on a 256-row probe (a stream-C
+     micro-batch) against the grown corpus, bit-equal to its plain
+     version, with the count of the
      table's hops that do not lower the row, then ``compact()``, after
      which the probe must give the same pairs as on the grown corpus.
      Then K6 on a partial batch of A's last
@@ -182,13 +205,14 @@ MR_SHARDS = 8
 MR_MEASURE_SHARDS = 4
 # the measures phase's MR calls, load-aware: (dataset, methods, emits
 # per measure, measures); each measure at its MR_T, the exact-2/3
-# boundary with dice. The bitmap methods take one emit a measure, in
-# turn (their plain versions cost the CPU workers 10-50 s a call), and
-# the whole-block walk (lfvt_ref, 43 s a call there) two measures.
+# boundary with dice. The bitmap methods take jaccard and dice, one emit
+# a measure, in turn (their plain versions cost the CPU workers 10-50 s
+# a call), and the whole-block walk (lfvt_ref, 43 s a call there) two
+# measures.
 MR_T = {"jaccard": 0.5, "cosine": 0.7, "dice": 2 / 3, "overlap": 0.9}
 MR_SETS = (("dblp", ("lfvt", "auto"), 2, MEASURES),
            ("dblp", ("lfvt_ref",), 1, MEASURES[:2]),
-           ("kosarak", BITMAP_METHODS + ("auto",), 1, MEASURES))
+           ("kosarak", BITMAP_METHODS + ("auto",), 1, MEASURES[::2]))
 # its managed runs, one per measure (dblp, lfvt, emit pairs): seeded
 # plans whose only possible degradation is the injected one, the walk
 # to the whole-block walk (oom, storm); the transient plans retry only
@@ -205,6 +229,37 @@ MR_COUNTERS = ("result_pairs", "regrows", "live_tiles", "total_tiles",
 # the kill-and-resume child: its join is the measures phase's first MR
 # config, killed at its 2nd checkpoint write
 MR_KILL_PLAN = "checkpoint_write:kill:2"
+# the multi-device path (mesh=) in the measures phase, on
+# MR_MEASURE_SHARDS slots of the one card: (dataset, method, measure,
+# schedule, emit), each against the card's loop-path MR call of the same
+# dataset, method, measure and emit; the stacked-bitmap reduce with
+# emit="mask" (a measure whose loop call has that emit)
+MESH_MEASURE_CALLS = (
+    [("dblp", "lfvt", "jaccard", sched, emit)
+     for sched in ("planned", "static") for emit in ("pairs", "mask")]
+    + [("kosarak", method, "dice", None, "mask")
+       for method in ("popcount", "kernel_onehot")])
+# the stats a mesh call shares with the loop path's, by its kind (not
+# regrows: the mesh compaction starts at one capacity grain, the loop
+# path's at each shard's exact count)
+MESH_SHARED = {"planned": ("result_pairs", "live_tiles", "walk_steps",
+                           "early_stops"),
+               "static": ("result_pairs",),
+               None: ("result_pairs",)}
+# the host baselines (core/baselines.py), one CPU worker task each, on a
+# BASELINE_ROWS x BASELINE_ROWS slice of the kosarak measures data at
+# Jaccard t = BASELINE_T (the dblp slice has no pair there); mr_rp_ppjoin
+# and fs_join at MR_MEASURE_SHARDS shards
+BASELINES = ("allpairs_join", "ppjoin_join", "mr_rp_ppjoin", "fs_join",
+             "fasttelp_sj")
+BASELINE_SET = "kosarak"
+BASELINE_ROWS = 1000
+BASELINE_T = 0.8
+# one livej mesh shard's body against its plain version (on the CPU):
+# row tiles around the first pair's R row, and size-0 S columns past the
+# shard's own, as a bucket with a larger sibling pads them
+MESH_SLICE_TILES = 16
+MESH_SLICE_PAD_COLS = 5
 # the serve phase, on the livej S side as the corpus, at t = MAIN_T
 SERVE_REQUESTS = 4096      # stream A: half corpus copies, half R sets
 SERVE_BATCH = 256          # streams A and C: requests per micro-batch
@@ -1722,10 +1777,14 @@ def bitmap_smem_lines() -> list[str]:
 
 def measures_configs():
     """Every (dataset, method, measure, threshold, emit) of the measures
-    phase."""
+    phase. With ``emit="mask"`` the ``kernel_*`` methods run K3/K5, the
+    dense path ``popcount``/``onehot`` take at every threshold, so they
+    take it at ``FRONT_DOOR_T`` only (the front door's calls)."""
     return [(name, method, m, t, e) for name, methods in MEASURE_SETS
             for method in methods for m in MEASURES for t in THRESHOLDS
-            for e in ("pairs", "mask")]
+            for e in ("pairs", "mask")
+            if e == "pairs" or not method.startswith("kernel_")
+            or t == FRONT_DOOR_T]
 
 
 def front_door_configs():
@@ -1743,9 +1802,9 @@ def measures_cuda(configs):
     t0 = time.perf_counter()
     data = {name: measures_data(name) for name, _ in MEASURE_SETS}
     out = []
-    for cfg in configs:
+    for k, cfg in enumerate(configs):
         out.append(port_join(*data[cfg[0]], *cfg[1:]))
-        if cfg[2:] == (MEASURES[-1], THRESHOLDS[-1], "mask"):
+        if k + 1 == len(configs) or configs[k + 1][:2] != cfg[:2]:
             log(f"[measures] cuda {cfg[0]} {cfg[1]} done")
     log(f"[measures] cuda driver side s={time.perf_counter() - t0:.3f}")
     t0 = time.perf_counter()
@@ -1784,8 +1843,9 @@ def measures_compare(configs, cuda_out, fronts, sizes, cpu_async) -> None:
         for method in methods:
             n_pairs = [a[0][0] for c, a in zip(configs, cuda_out)
                        if c[:2] == (name, method) and c[4] == "pairs"]
+            n = sum(c[:2] == (name, method) for c in configs)
             log(f"[measures] {name} {method} |R|=|S|={sizes[name]} "
-                f"configs={2 * len(n_pairs)} cuda==cpu pairs={n_pairs}")
+                f"configs={n} cuda==cpu pairs={n_pairs}")
 
 
 def mr_measures_cuda(cfgs):
@@ -1840,6 +1900,86 @@ def mr_measures_compare(cfgs, cuda_out, mr_async) -> None:
         [a[0][0] for c, a in zip(cfgs, cuda_out) if c[5] == "hash"]))
 
 
+def baseline_slice(R, S):
+    """The first BASELINE_ROWS sets of each side (ids kept)."""
+    from repro_torch.core.sets import SetCollection
+    return tuple(SetCollection(C.sets[:BASELINE_ROWS], C.universe,
+                               C.ids[:BASELINE_ROWS]) for C in (R, S))
+
+
+def cpu_baseline(name):
+    """Pool worker: one host baseline on the kosarak slice -> (its pairs
+    as sorted int64 keys' digest, its stats, the seconds it took)."""
+    from repro_torch.core import baselines
+    R, S = baseline_slice(*_WORKER_DATA[BASELINE_SET])
+    args = (MR_MEASURE_SHARDS,) if name in ("mr_rp_ppjoin", "fs_join") else ()
+    st: dict = {}
+    t0 = time.perf_counter()
+    pairs = getattr(baselines, name)(R, S, BASELINE_T, *args, stats=st)
+    pr = np.asarray(sorted(pairs), np.int64).reshape(-1, 2)
+    return pair_digest(pr[:, 0], pr[:, 1]), st, time.perf_counter() - t0
+
+
+def baselines_compare(base_async) -> None:
+    """Each baseline's pairs (from the CPU workers) against the card's
+    ``lfvt`` join of the same slice."""
+    import repro_torch
+    R, S = baseline_slice(*measures_data(BASELINE_SET))
+    t0 = time.perf_counter()
+    res = repro_torch.join(R, S, BASELINE_T, method="lfvt")
+    pr = np.asarray(sorted(res.pairs), np.int64).reshape(-1, 2)
+    want = pair_digest(pr[:, 0], pr[:, 1])
+    card_s = time.perf_counter() - t0
+    for name, (digest, st, sec) in zip(BASELINES, base_async.get(),
+                                       strict=True):
+        if digest != want:
+            raise AssertionError(f"baseline {name}: {digest[0]} pairs, the "
+                                 f"card's lfvt join {want[0]}")
+        log(f"[baselines] {name} {BASELINE_SET} {BASELINE_ROWS}x"
+            f"{BASELINE_ROWS} t={BASELINE_T} pairs={digest[0]} (== card "
+            f"lfvt join) stats={json.dumps(st)} worker_s={sec:.3f}")
+    log(f"[baselines] card lfvt join of the slice s={card_s:.3f}")
+
+
+def mesh_measures(cfgs, loop_out) -> None:
+    """The measures phase's mesh calls on the card (MESH_MEASURE_CALLS at
+    MR_MEASURE_SHARDS slots on one card): each must equal the card's
+    loop-path MR call (``mr_configs``) in pairs and in the stats the two
+    share, and launch its kernel: K6 under ``"planned"``, K1 under
+    ``"static"``, K3 for ``popcount``, K5 for ``kernel_onehot``."""
+    import repro_torch
+    mesh = repro_torch.make_host_mesh(MR_MEASURE_SHARDS)
+    loop = {c[:5]: out for c, out in zip(cfgs, loop_out)
+            if c[5] == "load_aware" and c[6] is None}
+    kernel = {("lfvt", "planned"): "K6", ("lfvt", "static"): "K1",
+              ("popcount", None): "K3", ("kernel_onehot", None): "K5"}
+    t0 = time.perf_counter()
+    for name, method, measure, schedule, emit in MESH_MEASURE_CALLS:
+        cfg = (name, method, measure, MR_T[measure], emit, "load_aware", None)
+        kw = {"schedule": schedule} if schedule else {}
+        (digest, st), launches = counted(lambda: mr_join(
+            *measures_data(name), cfg, mesh=mesh, **kw))
+        want_digest, want = loop[cfg[:5]]
+        shared = MESH_SHARED[schedule] + (
+            ("reduce_bytes",) if method == "lfvt" and emit == "mask" else ())
+        kid = kernel[method, schedule]
+        if (digest != want_digest
+                or any(st[k] != want[k] for k in shared)
+                or launches[kid] < 1
+                or (schedule == "static"
+                    and st["live_tiles"] != st["total_tiles"])):
+            raise AssertionError(f"mesh {cfg} schedule={schedule}: "
+                                 f"{digest} {st} {launches} vs the loop "
+                                 f"path's {want_digest} {want}")
+        log(f"[measures mesh] {name} {method} {measure} emit={emit} "
+            f"schedule={schedule} slots={MR_MEASURE_SHARDS} pairs="
+            f"{digest[0]} (== loop path) shared="
+            f"{json.dumps({k: st[k] for k in shared})} live_tiles="
+            f"{st['live_tiles']}/{st['total_tiles']} {kid}={launches[kid]}")
+    log(f"[measures mesh] calls={len(MESH_MEASURE_CALLS)} "
+        f"s={time.perf_counter() - t0:.3f}")
+
+
 def kill_and_resume(want) -> None:
     """Run the first MR config in a child process on the card, killed
     (SIGKILL) at its 2nd checkpoint write, then resume it in a second
@@ -1892,11 +2032,12 @@ def mr_live_shards(R, S, t) -> int:
     return live
 
 
-def mr_phase(R, Ss, want, runs) -> None:
+def mr_phase(R, Ss, want, runs) -> dict:
     """The MapReduce driver at full size: ``repro_torch.join(R, S, 0.8,
-    n_shards=8)`` with ``lfvt`` (cold, warm, profiled), ``auto`` and
+    n_shards=8)`` with ``lfvt`` (cold, then warm and profiled), ``auto`` and
     ``kernel_bitmap``; each must give ``want`` (the single-device join's
-    pairs) and launch its kernels as counted."""
+    pairs) and launch its kernels as counted -> the ``lfvt`` call's
+    stats."""
     import repro_torch
     from repro_torch.core.partition import load_aware_partition, route
     from repro_torch.core.sets import SetCollection
@@ -1932,27 +2073,26 @@ def mr_phase(R, Ss, want, runs) -> None:
             f"{st['shuffle_bytes']} shard_block_bytes="
             f"{st['shard_block_bytes']} reduce_bytes={st['reduce_bytes']} "
             f"live_tiles={st.get('live_tiles')}/{st.get('total_tiles')} "
-            f"walk_steps={st.get('walk_steps')} regrows={st['regrows']} "
+            f"walk_steps={st.get('walk_steps')} early_stops="
+            f"{st.get('early_stops')} regrows={st['regrows']} "
             f"shard_methods={st.get('shard_methods')} max_memory_allocated="
             f"{torch.cuda.max_memory_allocated()} launches={launches}")
         runs[f"mr_{label}"] = launches
-        return launches
+        return launches, st
 
-    got = call("lfvt", method="lfvt")
+    got, lfvt_stats = call("lfvt", method="lfvt")
     if got["K1"] != live:
         raise AssertionError(f"MR lfvt launched K1 {got['K1']} times, "
                              f"{live} shards have live rows")
-    t0 = time.perf_counter()
-    repro_torch.join(R, Ss, MAIN_T, n_shards=MR_SHARDS, method="lfvt")
-    log(f"[mr lfvt] warm_wall_s={time.perf_counter() - t0:.3f}")
+    # warm: its wall is the profile's
     log_profile("warm mr lfvt join", device_profile(
         lambda: repro_torch.join(R, Ss, MAIN_T, n_shards=MR_SHARDS,
                                  method="lfvt"),
         ("lfvt_walk_kernel",)), "K1")
-    got = call("auto")
+    got, _ = call("auto")
     if got["K1"] + got["K3"] < 1:
         raise AssertionError(f"MR auto launched no kernel: {got}")
-    got = call("kernel_bitmap", method="kernel_bitmap")
+    got, _ = call("kernel_bitmap", method="kernel_bitmap")
     if not live <= got["K2"] <= MR_SHARDS:
         raise AssertionError(f"MR kernel_bitmap launched K2 {got['K2']} "
                              f"times for {live} live shards")
@@ -1960,6 +2100,180 @@ def mr_phase(R, Ss, want, runs) -> None:
         lambda: repro_torch.join(R, Ss, MAIN_T, n_shards=MR_SHARDS,
                                  method="kernel_bitmap"),
         ("bitmap_join_kernel", "bitmap_union_kernel")), "K2")
+    return lfvt_stats
+
+
+def mesh_shard_check(R, Ss, s_rows, r_rows, want, dev) -> str:
+    """One livej shard's mesh body (``_lfvt_local_mask``) on the card,
+    under ``"planned"`` (K6) and ``"static"`` (K1), against its plain
+    version (the same call on the CPU, where the walk's plain PyTorch
+    version runs): mask, walk steps, early stops and live tiles bit-equal.
+    The rows are MESH_SLICE_TILES row tiles of the shard that finds the
+    first pair, around its R row, in the shard's size order; the table
+    is padded as a bucket with a larger sibling pads it (entries and
+    sequence to the next power of two, MESH_SLICE_PAD_COLS size-0 S
+    columns, one dead row tile) -> the check's text for the kernels
+    line."""
+    from repro_torch import global_config
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.device import upload
+    from repro_torch.core.sets import SetCollection
+    t0 = time.perf_counter()
+    tm = global_config.row_tile  # as the mesh join tiles its rows
+    r_id, s_id = min(want)
+    row = int(np.nonzero(R.ids == r_id)[0][0])
+    k = next(k for k in range(len(r_rows))
+             if np.isin(row, r_rows[k]) and np.isin(s_id, Ss.ids[s_rows[k]]))
+    rs = r_rows[k][np.argsort(-R.sizes()[r_rows[k]], kind="stable")]
+    first = max(0, (int(np.nonzero(rs == row)[0][0]) // tm
+                    - MESH_SLICE_TILES // 2) * tm)
+    rs = rs[first:first + MESH_SLICE_TILES * tm]
+    ss = s_rows[k]
+    flat = SetCollection([Ss.sets[int(j)] for j in ss], Ss.universe,
+                         Ss.ids[ss].astype(np.int32)).flat_lfvt()
+    lr = max(int(R.sizes()[rs].max()), 1)
+    caps = ((-(-len(rs) // tm) + 1) * tm, flat.n_sets + MESH_SLICE_PAD_COLS,
+            1 << (len(flat.entry_elem) - 1).bit_length(),
+            1 << (len(flat.seq_row) - 1).bit_length(), flat.max_seq_len)
+    arrays, r_ids, s_ids, _, _ = dist._lfvt_bucket_arrays(
+        [(k, flat, rs, lr)], caps, lr, R.padded()[0], R.sizes(), R.ids,
+        MAIN_T, "jaccard")
+    kw = dict(t=MAIN_T, measure="jaccard", max_steps=caps[4], tm=tm)
+    found, plain_s = None, 0.0
+    for schedule in ("planned", "static"):
+        t1 = time.perf_counter()
+        want_out = dist._lfvt_local_mask(
+            *(torch.from_numpy(a[0]) for a in arrays), schedule=schedule,
+            **kw)
+        plain_s += time.perf_counter() - t1
+        got = dist._lfvt_local_mask(*(upload(a[0], dev) for a in arrays),
+                                    schedule=schedule, **kw)
+        for name, g, w in zip(("mask", "walk_steps", "early_stops",
+                               "live_tiles"), got, want_out):
+            if not torch.equal(g.cpu(), w):
+                raise AssertionError(
+                    f"mesh shard {k} ({schedule}): {name} on the card "
+                    f"differs from its plain version")
+        rr, cc = np.nonzero(want_out[0].numpy())
+        found = {(int(r_ids[0, i]), int(s_ids[0, j])) for i, j in zip(rr, cc)}
+        steps = [int(x) for x in want_out[1:]]
+        log(f"[mesh shard] shard={k} {schedule}: rows={len(rs)} "
+            f"mp={caps[0]} n={flat.n_sets} np={caps[1]} "
+            f"E={len(flat.entry_elem)}->{caps[2]} "
+            f"T={len(flat.seq_row)}->{caps[3]} max_steps={caps[4]} "
+            f"walk_steps, early_stops, live_tiles={steps} pairs={len(found)}")
+    if (r_id, s_id) not in found or not found <= want:
+        raise AssertionError(f"mesh shard {k}: the slice's pairs {found} "
+                             f"miss ({r_id}, {s_id}) or leave the join's")
+    log(f"[mesh shard] card == plain (CPU) under both schedules: "
+        f"plain_s={plain_s:.3f} s={time.perf_counter() - t0:.3f}")
+    return (f"bit-equal to its plain version on {MESH_SLICE_TILES} row "
+            f"tiles of a livej mesh shard (bucket-padded tables)")
+
+
+def mesh_phase(R, Ss, want, runs, loop, dev) -> str:
+    """The multi-device path at full size: ``repro_torch.join(R, S, 0.8,
+    mesh=make_host_mesh(8))`` (8 slots on the one card) with ``lfvt``
+    under ``"planned"`` (K6 once per shard with rows on both sides;
+    then profiled) and ``"static"`` (K1 as often), then the stacked
+    ``popcount`` reduce with ``emit="pairs"`` (K3 per shard); each must
+    give ``want``, the single-device join's pairs. The lfvt calls must
+    equal ``loop`` (the loop path's ``lfvt`` stats) in walk steps and
+    early stops, and under ``"planned"`` in live tiles; then one shard's
+    body against its plain version (``mesh_shard_check``) -> that
+    check's text."""
+    import repro_torch
+    from repro_torch.core.distributed import shard_blocks
+    from repro_torch.core.partition import load_aware_partition, route
+    mesh = repro_torch.make_host_mesh(MR_SHARDS)
+    part = load_aware_partition(R, Ss, MAIN_T, MR_SHARDS)
+    s_rows, r_rows, _ = route(R, Ss, part)
+    walked = sum(1 for rs, ss in zip(r_rows, s_rows) if len(rs) and len(ss))
+    live = mr_live_shards(R, Ss, MAIN_T)
+    log(f"[mesh] slots={len(mesh.devices)} devices="
+        f"{sorted({str(d) for d in mesh.devices})} shards_with_rows="
+        f"{walked} shards_with_live_rows={live}")
+
+    def call(label, profiled=(), **kw):
+        """One counted mesh join; under ``torch.profiler`` too when
+        ``profiled`` names the kernels whose share to log."""
+        st: dict = {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+
+        def run():
+            return repro_torch.join(R, Ss, MAIN_T, mesh=mesh, stats=st, **kw)
+
+        if profiled:
+            got = {}
+            prof, launches = counted(lambda: device_profile(
+                lambda: got.setdefault("out", run()), profiled))
+            out = got["out"]
+        else:
+            out, launches = counted(run)
+        wall = time.perf_counter() - t0
+        if out.pairs != want:
+            raise AssertionError(f"mesh {label}: {len(out.pairs)} pairs, "
+                                 f"the single-device join {len(want)}")
+        if profiled:
+            log_profile(f"warm mesh {label} join", prof, "K6")
+        log(f"[mesh {label}] pairs={len(out.pairs)} (== single-device) "
+            f"wall_s={wall:.3f} n_buckets={st['n_buckets']} pad="
+            f"{st['pad']} pad_waste_mean={st['pad_waste_mean']} "
+            f"pad_waste_max={st['pad_waste_max']} flat_pad_waste="
+            f"{st.get('flat_pad_waste')} live_tiles={st.get('live_tiles')}/"
+            f"{st.get('total_tiles')} walk_steps={st.get('walk_steps')} "
+            f"early_stops={st.get('early_stops')} walk_schedule="
+            f"{st.get('walk_schedule')} mesh_devices="
+            f"{st.get('mesh_devices')} shard_block_bytes="
+            f"{st['shard_block_bytes']} dense_mask_bytes="
+            f"{st['dense_mask_bytes']} reduce_bytes={st['reduce_bytes']} "
+            f"regrows={st['regrows']} max_memory_allocated="
+            f"{torch.cuda.max_memory_allocated()} launches={launches}")
+        runs[f"mesh_{label}"] = launches
+        return launches, st
+
+    def same_walk(label, st, keys):
+        """The mesh walk's counters against the loop path's: the same
+        lanes walk the same live tiles."""
+        diff = {k: (st[k], loop[k]) for k in keys if st[k] != loop[k]}
+        if diff:
+            raise AssertionError(f"mesh {label} (mesh, loop path): {diff}")
+
+    # counted and profiled in one run (the kernels are built and loaded;
+    # nothing else is cached across calls)
+    got, st = call("lfvt", ("lfvt_walk_planned_kernel",), method="lfvt",
+                   schedule="planned")
+    if got["K6"] != walked or got["K1"]:
+        raise AssertionError(f"mesh lfvt (planned) launched K6 {got['K6']} "
+                             f"and K1 {got['K1']} times for {walked} "
+                             "shards with rows")
+    same_walk("lfvt", st, ("walk_steps", "early_stops", "live_tiles"))
+    got, st = call("lfvt_static", method="lfvt", schedule="static")
+    if got["K1"] != walked or got["K6"]:
+        raise AssertionError(f"mesh lfvt (static) launched K1 {got['K1']} "
+                             f"and K6 {got['K6']} times for {walked} "
+                             "shards with rows")
+    # "static" also walks the tiles the loop path's host plan skips; with
+    # every real tile live (livej at t = 0.8) the counters are the same
+    if loop["live_tiles"] == loop["total_tiles"]:
+        same_walk("lfvt_static", st, ("walk_steps", "early_stops"))
+    elif st["walk_steps"] < loop["walk_steps"]:
+        raise AssertionError(f"mesh lfvt (static) walked {st['walk_steps']} "
+                             f"steps, the loop path {loop['walk_steps']}")
+    # the stacked reduce packs one globally padded block on the host
+    t0 = time.perf_counter()
+    blocks, _ = shard_blocks(R, Ss, part, MAIN_T, pad="global")
+    log(f"[mesh popcount] host shard_blocks(pad='global') s="
+        f"{time.perf_counter() - t0:.3f} block_bytes="
+        f"{blocks[0].block_bytes()} m_pad={blocks[0].m_pad} "
+        f"n_pad={blocks[0].n_pad}")
+    del blocks
+    got, _ = call("popcount", method="popcount")
+    if not live <= got["K3"] <= MR_SHARDS:
+        raise AssertionError(f"mesh popcount launched K3 {got['K3']} times "
+                             f"for {live} live shards")
+    return mesh_shard_check(R, Ss, s_rows, r_rows, want, dev)
 
 
 def main() -> int:
@@ -1970,6 +2284,9 @@ def main() -> int:
               "one GPU", file=sys.stderr)
         return 2
     import repro_torch
+    from repro_torch import global_config
+    from repro_torch.core.planner import (BENCH_GLOB, DEFAULT_COEFFS,
+                                          effective_coeffs)
     from repro_torch.data.synth import make_join_dataset
     from repro_torch.kernels import _build, bitmap_join
 
@@ -2024,13 +2341,16 @@ def main() -> int:
         cpu_async = pool.map_async(cpu_join, configs, chunksize=1)
         mr_cfgs = mr_configs()
         mr_async = pool.map_async(cpu_mr_join, mr_cfgs, chunksize=1)
+        base_async = pool.map_async(cpu_baseline, BASELINES, chunksize=1)
 
         # ---- phase 2: the measures phase ----------------------------- #
         cuda_out, fronts, sizes = measures_cuda(configs)
         mr_out = mr_measures_cuda(mr_cfgs)
+        mesh_measures(mr_cfgs, mr_out)
         kill_and_resume(mr_out[0][0])
         measures_compare(configs, cuda_out, fronts, sizes, cpu_async)
         mr_measures_compare(mr_cfgs, mr_out, mr_async)
+        baselines_compare(base_async)
         R, S = livej_async.get()
         gen_s = time.perf_counter() - t0
     finally:
@@ -2112,6 +2432,11 @@ def main() -> int:
             f"launches={runs[label]}")
         return out
 
+    eff = effective_coeffs()
+    log(f"[planner] calibration from {BENCH_GLOB} "
+        f"(planner_calibrate={global_config.planner_calibrate}): scales " +
+        json.dumps({fam: eff[fam]["fixed"] / c["fixed"]
+                    for fam, c in DEFAULT_COEFFS.items()}))
     auto = front_door("auto")
     log(f"[auto] scores={json.dumps(auto.plan.scores)}")
     if auto.plan.method != "popcount":
@@ -2147,13 +2472,17 @@ def main() -> int:
 
     # ---- phase 4b: the MapReduce driver at full size ----------------- #
     t0 = time.perf_counter()
-    mr_phase(R, Ss, res.pairs, runs)
+    loop_stats = mr_phase(R, Ss, res.pairs, runs)
     log(f"[mr] phase_s={time.perf_counter() - t0:.3f}")
+    t0 = time.perf_counter()
+    mesh_note = mesh_phase(R, Ss, res.pairs, runs, loop_stats, dev)
+    log(f"[mesh] phase_s={time.perf_counter() - t0:.3f}")
 
     # ---- phase 5: the dedup service on the livej corpus -------------- #
     t0 = time.perf_counter()
     k6 = serve_phase(R, Ss, runs, dev)
     k6["registers"] = walk_regs
+    k6["check"] += "; " + mesh_note
     log(f"[serve] phase_s={time.perf_counter() - t0:.3f}")
 
     # ---- phase 6: LLM serving (qwen2-1.5b, K7) ------------------------ #
@@ -2204,7 +2533,7 @@ def main() -> int:
         library_note="no single PyTorch call computes the walk with "
                      "its counters",
         check=f"bit-equal to its plain version on the card at "
-              f"t={MAIN_T} and t={WIDE_T}"), "K6": k6}
+              f"t={MAIN_T} and t={WIDE_T}; {mesh_note}"), "K6": k6}
 
     rows_blk = slice(block * BLOCK_ROWS, (block + 1) * BLOCK_ROWS)
     W = max((max(R.universe, Ss.universe) + 31) // 32, 1)
@@ -2344,7 +2673,11 @@ def main() -> int:
         out.append({"name": name, "id": kid, "status": "ported",
                     "route": "cuda", "source": source, "replaces": replaces,
                     "launches": runs[MAIN_RUN[kid]][kid],
-                    "main_run": MAIN_RUN[kid], **kernels[kid]})
+                    "main_run": MAIN_RUN[kid],
+                    # the other paths that launched it, counted alike
+                    "other_runs": {label: n[kid] for label, n in runs.items()
+                                   if label != MAIN_RUN[kid] and n[kid]},
+                    **kernels[kid]})
     not_ported = [{"id": k, "name": n, "status": "not_ported", "replaces": r}
                   for k, n, r in NOT_PORTED]
     log(f"[total] s={time.perf_counter() - T_START:.3f} of the 1200 s "

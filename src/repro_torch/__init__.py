@@ -6,6 +6,7 @@ The public surface mirrors the JAX package's front door::
     result = repro_torch.join(R, S, 0.8)   # on the GPU, method="auto"
     result.pairs, result.stats, result.plan
     repro_torch.join(R, S, 0.8, n_shards=8)   # MR-CF-RS-Join, 8 shards
+    repro_torch.join(R, S, 0.8, mesh=repro_torch.make_host_mesh(8))
 
     engine = repro_torch.DedupServeEngine(corpus, threshold=0.8)
     rid = engine.submit([3, 17, 4096])   # then engine.drain() / step()
@@ -43,11 +44,14 @@ _EXPORTS = {
     "DedupResult": "repro_torch.serve.dedup",
     "IncrementalLFVT": "repro_torch.core.lfvt_flat",
     "DedupPipeline": "repro_torch.data.pipeline",
+    "Mesh": "repro_torch.launch.mesh",
+    "make_host_mesh": "repro_torch.launch.mesh",
     "ServeEngine": "repro_torch.serve.engine",
     "build_model": "repro_torch.models.transformer",
     "get_config": "repro_torch.configs",
     "NotPortedError": "repro_torch.errors",
     "DeviceUnavailableError": "repro_torch.errors",
+    "MeshTypeError": "repro_torch.errors",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -10,10 +10,10 @@ present and the CPU was not asked for.
 The port runs both drivers with every method of the reference's:
 ``'auto'`` (the default), ``'popcount'``, ``'onehot'``,
 ``'kernel_bitmap'``, ``'kernel_onehot'``, ``'lfvt'`` and ``'lfvt_ref'``;
-the single-device driver by default, the MapReduce driver's loop path
-with ``n_shards=``, each with the resilience kwargs
-(``fault_plan=``/``checkpoint_dir=``/``REPRO_FAULT``). The multi-device
-path (``mesh=``) raises :class:`~repro_torch.errors.NotPortedError`.
+the single-device driver by default, the MapReduce driver with
+``n_shards=`` (its loop path) or ``mesh=`` (its multi-device path, a
+:class:`~repro_torch.launch.mesh.Mesh`), each with the resilience kwargs
+(``fault_plan=``/``checkpoint_dir=``/``REPRO_FAULT``).
 
 Inputs may be :class:`~repro_torch.core.sets.SetCollection` instances or
 plain sequences of integer element arrays (coerced with ``np.unique``,
@@ -31,7 +31,7 @@ from .core.distributed import mr_cf_rs_join
 from .core.planner import JoinPlan, JoinStats, PlannerError, build_plan
 from .core.sets import SetCollection
 from .core.tile_join import cf_rs_join_device
-from .errors import NotPortedError
+from .launch.mesh import check_mesh
 
 __all__ = ["join", "JoinResult", "as_collection"]
 
@@ -111,32 +111,35 @@ def join(R, S, threshold: float, *, measure: str = "jaccard",
     emit: 'pairs' returns the compacted pair set only; 'mask' also
         materializes the dense ``(|R|, |S|)`` bool matrix in
         ``result.mask``.
-    n_shards / strategy / pad / schedule: MapReduce controls — any of
-        them selects ``mr_cf_rs_join`` (its loop path: the shards run one
-        after another on the device); all None runs the single-device
-        tile driver. ``mesh=`` (the multi-device path) raises
-        NotPortedError; ``axis`` names its mesh axis.
+    n_shards / strategy / mesh / axis / pad / schedule: MapReduce
+        controls — any of them selects ``mr_cf_rs_join`` (``n_shards``
+        defaults to the mesh axis size when only ``mesh`` is given);
+        all None runs the single-device tile driver. Without ``mesh``
+        the shards run one after another on the device; with it, shard
+        ``k`` runs on slot ``k`` of the mesh.
     r_block / row_tile / pair_capacity / double_buffer: device tuning
         overrides folded into the :class:`JoinPlan`.
     fault_plan / checkpoint_dir: resilience ladder + task ledger
         (DESIGN.md §12), forwarded verbatim.
     stats: optional dict to share the raw driver stats mapping with the
         caller (the same object wrapped by ``result.stats``).
-    device: 'cuda' (default, the first GPU) or 'cpu'.
+    device: 'cuda' (default, the first GPU) or 'cpu'; with a mesh, the
+        mesh's first slot by default.
 
     Every kwarg combination is validated up front through the planner's
     lattice; invalid ones raise
     :class:`~repro_torch.core.planner.PlannerError`.
     """
+    if mesh is not None:
+        check_mesh(mesh)
+        if device is None:
+            device = mesh.devices[0]
     device = resolve_device(device)
     R = as_collection(R)
     S = as_collection(S)
-    if mesh is not None:
-        raise NotPortedError(
-            "mesh= selects the MapReduce driver's multi-device path "
-            "(ROADMAP queue 1 item 9), which the PyTorch port does not "
-            "have yet; pass n_shards= alone to run its loop path")
-    mr = n_shards is not None
+    mr = n_shards is not None or mesh is not None
+    if mr and n_shards is None:
+        n_shards = len(mesh.devices)
     if not mr:
         for name, val in (("strategy", strategy != "load_aware"),
                           ("pad", pad is not None),
@@ -163,8 +166,9 @@ def join(R, S, threshold: float, *, measure: str = "jaccard",
                                   device=device)
     else:
         pairs = mr_cf_rs_join(R, S, threshold, n_shards, strategy=strategy,
-                              method=method, axis=axis, stats=raw, emit=emit,
-                              pad=pad, pair_capacity=pair_capacity,
+                              method=method, mesh=mesh, axis=axis,
+                              stats=raw, emit=emit, pad=pad,
+                              pair_capacity=pair_capacity,
                               measure=measure, fault_plan=fault_plan,
                               checkpoint_dir=checkpoint_dir,
                               schedule=schedule, device=device)

@@ -46,8 +46,9 @@ class GlobalConfig:
         self.double_buffer = True
 
         ########## MapReduce driver (core/distributed.py) ##########
-        # default shard padding mode: 'auto' resolves to 'bucket' on the
-        # loop path
+        # default shard padding mode: 'auto' resolves per path (bucket on
+        # the loop and mesh-lfvt paths, global for the stacked-bitmap
+        # mesh reduce)
         self.pad_mode = "auto"
 
         ########## resilience (core/resilience.py) ##########
@@ -58,6 +59,9 @@ class GlobalConfig:
         # backoff is computed+recorded, not slept, unless this is set
         # (tests stay wall-clock deterministic)
         self.retry_sleep = False
+        # raise on empty R/S collections in the drivers (default: empty
+        # inputs legally produce empty results)
+        self.strict_validation = False
         # pre-dispatch memory guardrail: split a task whose estimated
         # dense (rows, cols) int32 working set exceeds guardrail_budget
         # bytes (resilience path only). The budget is the reference's
@@ -77,6 +81,10 @@ class GlobalConfig:
         self.serve_lane_grain = 8
 
         ########## cost-model planner (core/planner.py) ##########
+        # rescale the per-family coefficients from the BENCH artifacts in
+        # the working directory (planner.BENCH_GLOB); the embedded
+        # defaults apply when no artifact parses
+        self.planner_calibrate = True
         # Zipf head-mass probe: fraction of distinct elements counted as
         # the "head" (top-k by S-side frequency)
         self.planner_head_frac = 0.01

@@ -1,22 +1,31 @@
-"""MR-CF-RS-Join: the paper's single MapReduce job, loop path.
+"""MR-CF-RS-Join: the paper's single MapReduce job.
 
-The port of the JAX package's ``core/distributed.py`` on one device
-(DESIGN.md §2, §7):
+The port of the JAX package's ``core/distributed.py`` (DESIGN.md §2, §7):
 
   map     -> host routing via ``core.partition`` (length-range, Eq. 2-3)
   shuffle -> the per-shard layout (``shard_blocks``, or each shard's
              compiled ``FlatLFVT``); bytes counted exactly
-  reduce  -> per-shard candidate-free join on the device, one shard after
-             another; with ``emit='pairs'`` each shard's qualifying pairs
-             are compacted on the device into a power-of-two pair buffer
-             plus an exact count, and only the count's rows come back.
+  reduce  -> per-shard candidate-free join on the device; with
+             ``emit='pairs'`` each shard's qualifying pairs are compacted
+             on the device into a power-of-two pair buffer plus an exact
+             count, and only the count's rows come back.
 
-Every shard runs on the same card through the single-device kernels:
-the LFVT walk (K1) for ``lfvt`` shards, the popcount join (K3 dense, K2
-live tiles) for the bitmap shards and the one-hot product (K5, K4) for
-``kernel_onehot``. The reference's ``lax.map`` over a stacked bucket is
-a Python loop over its shards here. The multi-device path (``mesh=``)
-is not ported: it raises ``NotPortedError``.
+Two execution paths share the shard-local compute:
+
+  * the loop path (no ``mesh``): the shards run one after another on one
+    device through the single-device kernels — the LFVT walk (K1) for
+    ``lfvt`` shards, the popcount join (K3 dense, K2 live tiles) for the
+    bitmap shards and the one-hot product (K5, K4) for
+    ``kernel_onehot``. The reference's ``lax.map`` over a stacked bucket
+    is a Python loop over its shards here;
+  * the mesh path (``mesh=``, a ``launch.mesh.Mesh``): shard ``k`` of a
+    stacked bucket runs on slot ``k``'s device, the counterpart of the
+    reference's ``shard_map``. ``lfvt`` sentinel-pads each shard's flat
+    tables into pow-2 buckets (``_lfvt_mesh_join``) and walks each shard
+    with the device-planned walk (K6) or every tile (K1); the bitmap
+    methods stack one globally padded block and run K3 (K5 for
+    ``kernel_onehot``) per shard. Every shard of a bucket is launched
+    before the host reads anything back, once per device.
 
 With ``fault_plan=``/``checkpoint_dir=`` (or ``REPRO_FAULT``) each shard
 (LFVT paths) or bucket (bitmap paths) is a task of the resilience ladder
@@ -25,13 +34,14 @@ and counters.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 
 import numpy as np
 import torch
 
-from ..errors import NotPortedError
+from ..launch.mesh import check_mesh
 from .config import global_config
 from .device import resolve_device, upload
 from .measures import get_measure
@@ -39,7 +49,7 @@ from .partition import Partitioning, hash_partition, load_aware_partition, route
 from .planner import build_plan, validate_join_args
 from .resilience import (build_resilience, checked_flat, collection_digest,
                          fault_point, resilience_stats, sorted_pairs)
-from .sets import SetCollection
+from .sets import EmptyCollectionError, SetCollection
 from .tile_join import _compact_mask, _mask_total, round_capacity, window_bounds
 
 __all__ = ["mr_cf_rs_join", "shard_blocks", "local_join_mask", "ShardBlock"]
@@ -49,6 +59,41 @@ def _words(a: np.ndarray, device) -> torch.Tensor:
     """uint32 bitmap words -> an int32 tensor with the same bits on
     ``device`` (the layout the popcount and one-hot kernels read)."""
     return upload(np.ascontiguousarray(a).view(np.int32), device)
+
+
+def _on(device):
+    """Make ``device`` the current CUDA device while a shard's kernels
+    launch (they run on the current device's stream); a no-op on the
+    CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def _host(tensors) -> list[np.ndarray]:
+    """Copy device tensors to the host with one wait per device: every
+    copy is queued first (into pinned memory, without blocking), then
+    each device is synchronised once."""
+    outs = [x.to("cpu", non_blocking=True) for x in tensors]
+    for dev in {x.device for x in tensors if x.device.type == "cuda"}:
+        torch.cuda.synchronize(dev)
+    return [o.numpy() for o in outs]
+
+
+def _place(arrays, devices) -> list[list[torch.Tensor]]:
+    """Stacked host arrays (leading dim K) -> per shard the list of its
+    rows as tensors, shard ``k``'s on ``devices[k]``: one upload of each
+    array per device, however many slots share it."""
+    out = [[None] * len(arrays) for _ in devices]
+    slots: dict = {}
+    for k, dev in enumerate(devices):
+        slots.setdefault(dev, []).append(k)
+    for dev, ks in slots.items():
+        for i, a in enumerate(arrays):
+            up = upload(a[ks], dev)
+            for j, k in enumerate(ks):
+                out[k][i] = up[j]
+    return out
 
 
 # ---------------------------------------------------------------------- #
@@ -246,6 +291,22 @@ def _loop_reduce(block: ShardBlock, *, t: float, method: str, measure: str,
         for lk in range(block.n_local)])
 
 
+def _shard_map_reduce(block: ShardBlock, mesh, *, t: float, method: str,
+                      measure: str) -> np.ndarray:
+    """The stacked-bitmap mesh reduce: shard ``lk`` of ``block`` on
+    ``mesh.devices[lk]``, every shard launched before any mask comes back
+    -> the stacked (K, m_pad, n_pad) host masks."""
+    fault_point("device_upload")
+    devices = mesh.devices[:block.n_local]
+    placed = [block.shard(lk, dev) for lk, dev in enumerate(devices)]
+    fault_point("shard_map")
+    masks = []
+    for args, dev in zip(placed, devices):
+        with _on(dev):
+            masks.append(local_join_mask(*args, t, method, measure))
+    return np.stack(_host(masks))
+
+
 # ---------------------------------------------------------------------- #
 # reduce phase — shard-sparse (emit='pairs'): each shard's mask is
 # compacted on the device; only (cap, 2) buffers + counts stay there
@@ -257,35 +318,58 @@ def _shard_pairs_body(mask: torch.Tensor, cap: int):
     return _compact_mask(mask, size=cap), _mask_total(mask)
 
 
-def _loop_reduce_pairs(shards, *, t: float, method: str, cap: int,
-                       measure: str):
-    """Every shard in turn -> ((K, cap, 2) int32 pairs, (K,) int32 counts)
-    on the device. One shard's dense mask exists at a time."""
-    out = [_shard_pairs_body(local_join_mask(*a, t, method, measure), cap)
-           for a in shards]
-    return (torch.stack([p for p, _ in out]),
-            torch.stack([c for _, c in out]))
+def _reduce_pairs(shards, devices, *, t: float, method: str, cap: int,
+                  measure: str, masks=None):
+    """Every shard on its device -> (per-shard (cap, 2) int32 device pair
+    buffers, (K,) host counts). All shards are launched before the counts
+    are read, once per device. Without ``masks`` each shard's join runs
+    here and its dense mask lives only until its compaction (on the loop
+    path every device is the one device, so one mask exists at a time);
+    with them (the mesh path's masks, kept across a regrow) only the
+    compaction runs."""
+    out = []
+    for k, (args, dev) in enumerate(zip(shards, devices)):
+        with _on(dev):
+            mask = (masks[k] if masks is not None
+                    else local_join_mask(*args, t, method, measure))
+            out.append(_shard_pairs_body(mask, cap))
+    return [p for p, _ in out], np.asarray(_host([c for _, c in out]))
 
 
 def _block_pairs_reduce(block: ShardBlock, *, t: float, method: str,
-                        cap_hint: int, measure: str, device):
+                        cap_hint: int, measure: str, device, mesh=None):
     """Run the shard-sparse reduce for one bucket with the power-of-two
     regrow protocol: per-shard counts are exact, so an overflow regrows the
-    capacity in one step and reruns at most once.
+    capacity in one step and reruns at most once. With ``mesh`` shard
+    ``lk`` runs on ``mesh.devices[lk]``, else every shard on ``device``.
 
-    Returns (pairs (K, cap, 2) device tensor, counts (K,) np, cap,
+    On the mesh, as on the mesh lfvt path, the shards upload once and
+    their masks are kept: a regrow reruns the compaction only.
+
+    Returns (per-shard (cap, 2) device pair buffers, counts (K,) np, cap,
     regrows); the caller transfers only each shard's ``[:count]`` slice.
     """
     cap = round_capacity(max(cap_hint, 1))
     regrows = 0
     fault_point("device_upload")
+    devices = (mesh.devices[:block.n_local] if mesh is not None
+               else (device,) * block.n_local)
     # upload once; a regrow rerun reuses the placement
-    placed = [block.shard(lk, device) for lk in range(block.n_local)]
+    placed = [block.shard(lk, dev) for lk, dev in enumerate(devices)]
+    masks = None
     while True:
         fault_point("compact")
-        pairs_dev, counts_dev = _loop_reduce_pairs(
-            placed, t=t, method=method, cap=cap, measure=measure)
-        counts = counts_dev.cpu().numpy().reshape(-1)
+        if mesh is not None:
+            fault_point("shard_map")
+            if masks is None:
+                masks = []
+                for args, dev in zip(placed, devices):
+                    with _on(dev):
+                        masks.append(local_join_mask(*args, t, method,
+                                                     measure))
+        pairs_dev, counts = _reduce_pairs(placed, devices, t=t,
+                                          method=method, cap=cap,
+                                          measure=measure, masks=masks)
         mx = int(counts.max(initial=0))
         if mx <= cap:
             return pairs_dev, counts, cap, regrows
@@ -604,6 +688,398 @@ def _lfvt_loop_join(R: SetCollection, S: SetCollection, t: float, part,
 
 
 # ---------------------------------------------------------------------- #
+# reduce phase — mesh flat-LFVT path (method='lfvt' with a mesh,
+# DESIGN.md §11): bucketed pow-2 sentinel padding makes the per-shard
+# flat tables rectangular, so a bucket stacks them
+# ---------------------------------------------------------------------- #
+def _lfvt_local_mask(entry_elem, entry_pos, entry_len, seq, nxt, s_sizes,
+                     r_padded, r_sizes, lo, hi, *, t: float, measure: str,
+                     max_steps: int, tm: int, schedule: str = "planned"):
+    """One shard's flat-LFVT walk + qualify, on its operands' device.
+
+    The shard-local compute of the mesh path, the reference's traced
+    shard body: a sparse entry lookup (binary search over the sorted
+    entry table; entry rows arrive resolved to absolute walk positions,
+    ``lfvt_flat.entry_positions``, so the node table never ships), the
+    lanes of each row ordered by remaining walk length (descending,
+    stable, as ``jnp.argsort``), then the row-tiled walk. Under
+    ``schedule='planned'`` (the default) the live-tile plan is made on
+    the device (``plan_row_tiles_device``: the host planner's exact
+    ``any(lo < hi)`` criterion, live ids first) and the planned walk
+    (K6) walks only the live tiles — fully-dead row tiles (bucket pad
+    rows, window-dead R rows) cost no walk steps, and nothing waits for
+    the device. ``schedule='static'`` walks every tile with K1. Masks
+    are bit-identical across schedules. Sentinel rows (padded
+    entries/seq/sets) are unreachable: pad entries have ``entry_len`` 0,
+    no real hop chain points past the original T, and padded S columns
+    have size 0 — outside every window and failing the f > 0 predicate.
+    K6 zeroes dead tiles' mask rows in 16-byte stores, so the S side is
+    padded to whole 16 columns the same way and the mask sliced back.
+
+    Returns (mask (mp, n) bool, walk_steps, early_stops, live_tiles —
+    0-d int32 tensors on the device; the counters are per-tile sums, as
+    the kernels count them; under 'static' live_tiles is the full tile
+    count, every tile having been walked).
+    """
+    from ..kernels import lfvt_walk as _lw  # deferred: kernels import core
+
+    mp = r_padded.shape[0]
+    n = s_sizes.shape[0]
+    E = entry_elem.shape[0]
+    idx = torch.clamp(torch.searchsorted(entry_elem, r_padded), max=E - 1)
+    present = (r_padded >= 0) & (entry_elem[idx] == r_padded)
+    zero = torch.zeros((), dtype=torch.int32, device=r_padded.device)
+    pos = torch.where(present, entry_pos[idx], zero)
+    rem = torch.where(present, entry_len[idx], zero)
+    order = torch.argsort(-rem, dim=1, stable=True)
+    lane_pos = torch.gather(pos, 1, order).contiguous()
+    lane_rem = torch.gather(rem, 1, order).contiguous()
+    lo32, hi32 = lo.reshape(-1, 1), hi.reshape(-1, 1)
+    ssz = torch.nn.functional.pad(s_sizes, (0, -n % 16)).reshape(1, -1)
+    operands = (lane_pos, lane_rem, nxt.reshape(1, -1), seq.reshape(1, -1),
+                ssz, r_sizes.reshape(-1, 1), lo32, hi32)
+    kw = dict(t=t, measure=measure, max_steps=max_steps, tm=tm)
+    if schedule == "planned":
+        ti_sorted, live = _lw.plan_row_tiles_device(lo32, hi32, tm)
+        masks, _, steps, stops = _lw.lfvt_walk_planned(ti_sorted, live,
+                                                      *operands, **kw)
+    else:
+        ti = torch.arange(mp // tm, dtype=torch.int32,
+                          device=r_padded.device)
+        masks, _, steps, stops = _lw.lfvt_walk_live_tiled(ti, *operands,
+                                                          **kw)
+        live = torch.full((), mp // tm, dtype=torch.int32,
+                          device=r_padded.device)
+    return (masks.reshape(mp, -1)[:, :n], steps.sum(dtype=torch.int32),
+            stops.sum(dtype=torch.int32), live)
+
+
+def _lfvt_bucket_arrays(bucket, caps, Lr, r_pad_all, r_sizes_all, R_ids,
+                        t: float, measure: str):
+    """Stack one bucket's shards into rectangular sentinel-padded arrays.
+
+    ``bucket`` is [(shard_id, FlatLFVT, r_row_indices, max|r|)]; ``caps``
+    the bucket maxima (mp, np_, Ep, Tp, max_steps) and ``Lr`` the bucket
+    lane width (max|r| over the bucket — R rows are sliced to it, which
+    only drops -1 pad columns). Returns (host operand tuple, r_ids
+    (K, mp), s_ids (K, np_), used/alloc int32 cell counts per shard for
+    the pad-waste stats).
+    """
+    from .lfvt_flat import PAD_SENTINEL, entry_positions, pad_flat_tables
+
+    mp, np_, Ep, Tp, _ = caps
+    K = len(bucket)
+    ee = np.full((K, Ep), PAD_SENTINEL, np.int32)
+    epos = np.zeros((K, Ep), np.int32)
+    elen = np.zeros((K, Ep), np.int32)
+    seq = np.zeros((K, Tp), np.int32)
+    nxt = np.full((K, Tp), -1, np.int32)
+    ssz = np.zeros((K, np_), np.int32)
+    s_ids = np.full((K, np_), -1, np.int64)
+    rpad = np.full((K, mp, Lr), -1, np.int32)
+    rsz = np.zeros((K, mp), np.int32)
+    lo = np.zeros((K, mp), np.int32)
+    hi = np.zeros((K, mp), np.int32)
+    r_ids = np.full((K, mp), -1, np.int64)
+    used = np.zeros(K, np.float64)
+    for lk, (_, flat, rs, lr_k) in enumerate(bucket):
+        mk, nk = len(rs), flat.n_sets
+        Ek, Tk = len(flat.entry_elem), len(flat.seq_row)
+        padded = pad_flat_tables(flat, n_entries=Ep, n_seq=Tp, n_sets=np_)
+        ee[lk] = padded.entry_elem
+        epos[lk] = entry_positions(padded)
+        elen[lk] = padded.entry_len
+        seq[lk] = padded.seq_row
+        nxt[lk] = padded.seq_next
+        ssz[lk] = padded.s_sizes
+        s_ids[lk] = padded.s_ids
+        rpad[lk, :mk] = r_pad_all[rs][:, :Lr]
+        rsz[lk, :mk] = r_sizes_all[rs]
+        l, h = window_bounds(r_sizes_all[rs], flat.s_sizes, t, measure)
+        lo[lk, :mk] = l
+        hi[lk, :mk] = h
+        r_ids[lk, :mk] = R_ids[rs]
+        # shipped walk-table cells: R side mk·(max|r|+3) [elements +
+        # size/lo/hi at the shard's own lane width], S side 3·E + 2·T
+        # + n [entry triplet + seq/hop + set sizes]
+        used[lk] = mk * (lr_k + 3) + 3 * Ek + 2 * Tk + nk
+    alloc = float(mp * (Lr + 3) + 3 * Ep + 2 * Tp + np_)
+    arrays = (ee, epos, elen, seq, nxt, ssz, rpad, rsz, lo, hi)
+    return arrays, r_ids, s_ids, used, alloc
+
+
+def _lfvt_mesh_join(R: SetCollection, S: SetCollection, t: float, part,
+                    mesh, *, emit: str, pad: str,
+                    pair_capacity: int | None, measure: str,
+                    stats: dict | None, device, res=None,
+                    schedule: str | None = None) -> set:
+    """MR-CF-RS-Join/LFVT on the mesh: the paper's headline method as
+    the reference runs it (DESIGN.md §11).
+
+    Map phase (host): route rows, compile each shard's S partition to a
+    ``FlatLFVT``, resolve entries to absolute walk positions, then group
+    shards into pow-2 footprint buckets (the ``ShardBlock`` bucketing
+    extended to the flat node/seq/entry tables) and sentinel-pad each
+    bucket to its own maxima, with pad waste reported like the packing
+    stats.
+
+    Reduce phase (device): per bucket, shard ``lk`` on the mesh's slot
+    ``lk``; each runs the flat-array walk (``_lfvt_local_mask``) and —
+    for emit='pairs' — the in-shard fixed-cap compaction with the
+    power-of-two regrow protocol (upload once, rerun the compaction
+    only on overflow). Only the count's rows of each pair buffer, the
+    counts and the walk counters leave a shard.
+
+    ``schedule``: 'planned' (the default) plans the live row tiles on the device and walks them with K6;
+    'static' walks every tile with K1. Results are bit-identical.
+
+    With ``res`` each bucket is a task of the ladder mesh -> loop (the
+    whole-block walk, shard by shard on ``device``) -> host oracle; a
+    bucket whose dense masks would pass ``guardrail_budget`` starts at
+    the loop rung.
+    """
+    from ..kernels import lfvt_walk as _lw  # deferred: kernels import core
+
+    schedule = schedule or "planned"
+    s_rows, r_rows, route_stats = route(R, S, part)
+    r_sizes_all = R.sizes()
+    r_pad_all, _ = R.padded()
+    Lr = r_pad_all.shape[1] if r_pad_all.ndim == 2 else 0
+    n_devices = len(mesh.devices)
+
+    shards = []
+    for k in range(part.n_shards):
+        rs, ss = r_rows[k], s_rows[k]
+        if not len(rs) or not len(ss):
+            continue
+        # size-sort each shard's R rows (stable, descending — the loop
+        # dispatch's order): rows with near-identical Lemma-3.1 windows
+        # share a row tile, so window-dead rows cluster into fully-dead
+        # tiles the planned schedule skips; pairs are id-mapped, so the
+        # row order never changes results
+        rs = rs[np.argsort(-r_sizes_all[rs], kind="stable")]
+        sub = SetCollection([S.sets[int(j)] for j in ss], S.universe,
+                            S.ids[ss].astype(np.int32))
+        shards.append((k, sub.flat_lfvt(), rs))
+
+    # pow-2 bucketing over the flat-table footprint axes (m, n, E, T)
+    # plus the shard-local R lane width max|r|; the key only groups, each
+    # bucket pads to its own per-axis maxima, so bucketed padding never
+    # exceeds the global-max packing. pad='global' keeps one all-shards
+    # bucket at the cost of global-cap padding.
+    buckets: dict[tuple, list] = {}
+    for k, flat, rs in shards:
+        lr_k = max(int(r_sizes_all[rs].max(initial=0)), 1)
+        key = (1,) if pad == "global" else (
+            _ceil_pow2(len(rs)), _ceil_pow2(flat.n_sets),
+            _ceil_pow2(max(len(flat.entry_elem), 1)),
+            _ceil_pow2(max(len(flat.seq_row), 1)), _ceil_pow2(lr_k))
+        buckets.setdefault(key, []).append((k, flat, rs, lr_k))
+
+    pairs: set = set()
+
+    def zero_acc() -> dict:
+        return {"reduce": 0, "result": 0, "regrows": 0, "dense": 0,
+                "peak_mask": 0, "peak_inter": 0, "ship": 0,
+                "walk_steps": 0, "early_stops": 0, "walk_vmem": 0,
+                "live": 0, "total": 0,
+                "waste_sum": 0.0, "waste_max": 0.0, "waste_n": 0}
+
+    acc = zero_acc()
+    cap_hint = pair_capacity if pair_capacity else global_config.pair_cap_grain
+    tm = global_config.row_tile
+
+    def run_bucket(bucket, caps, lr_b, acc: dict, out_pairs: set) -> None:
+        """One bucket's pack + walk + emit (the mesh rung body)."""
+        K = len(bucket)
+        for _, flat, _, _ in bucket:
+            checked_flat(flat)  # injected-corruption detection site
+        arrays, r_ids, s_ids, used, alloc = _lfvt_bucket_arrays(
+            bucket, caps, lr_b, r_pad_all, r_sizes_all, R.ids, t, measure)
+        w = 1.0 - used / alloc
+        acc["waste_sum"] += float(w.sum())
+        acc["waste_max"] = max(acc["waste_max"], float(w.max(initial=0.0)))
+        acc["waste_n"] += len(w)
+        acc["ship"] += 4 * K * int(alloc)
+        mp, np_ = caps[0], caps[1]
+        acc["dense"] += K * mp * np_
+        devices = mesh.devices[:K]  # shard lk of the bucket on slot lk
+        fault_point("device_upload")
+        placed = _place(arrays, devices)
+        fault_point("shard_map")
+        masks, counters = [], []
+        for args, dev in zip(placed, devices):
+            with _on(dev):
+                mask, *ctr = _lfvt_local_mask(
+                    *args, t=t, measure=measure, max_steps=caps[4], tm=tm,
+                    schedule=schedule)
+            masks.append(mask)
+            counters.append(torch.stack(ctr))
+        if emit == "pairs":
+            cap = round_capacity(max(cap_hint, 1))
+            while True:  # regrow: exact counts, compaction-only rerun
+                fault_point("compact")
+                packed = []
+                for mask, dev in zip(masks, devices):
+                    with _on(dev):
+                        packed.append(_shard_pairs_body(mask, cap))
+                got = _host([c for _, c in packed] + counters)
+                counts = np.asarray(got[:K])
+                mx = int(counts.max(initial=0))
+                if mx <= cap:
+                    break
+                fault_point("regrow")
+                cap = round_capacity(mx)
+                acc["regrows"] += 1
+            for lk in range(K):
+                c = int(counts[lk])
+                if c:
+                    local = packed[lk][0][:c].cpu().numpy()
+                    rid = r_ids[lk, local[:, 0]]
+                    sid = s_ids[lk, local[:, 1]]
+                    keep = (rid >= 0) & (sid >= 0)
+                    out_pairs.update(zip(map(int, rid[keep]),
+                                         map(int, sid[keep])))
+            acc["reduce"] += int(counts.sum()) * 8 + K * 4
+            acc["result"] += int(counts.sum())
+            acc["peak_mask"] = max(acc["peak_mask"], mp * np_)
+            acc["peak_inter"] = max(acc["peak_inter"],
+                                    mp * np_ + K * (cap * 8 + 4))
+        else:
+            got = _host(masks + counters)
+            # per-shard mask cells (mk x n_k real rows/cols, the loop
+            # path's truth) — the stacked (K, mp, np_) transfer includes
+            # sentinel padding, which is an artifact of the bucket
+            # rectangle, not reduce output
+            cells = ((r_ids >= 0).sum(axis=1).astype(np.int64)
+                     * (s_ids >= 0).sum(axis=1))
+            for lk in range(K):
+                rr, cc = np.nonzero(got[lk])
+                out_pairs.update(
+                    (int(r_ids[lk, i]), int(s_ids[lk, j]))
+                    for i, j in zip(rr, cc)
+                    if r_ids[lk, i] >= 0 and s_ids[lk, j] >= 0)
+            acc["reduce"] += int(cells.sum())
+            acc["peak_mask"] = max(acc["peak_mask"],
+                                   int(cells.max(initial=0)))
+            acc["peak_inter"] = max(acc["peak_inter"],
+                                    int(cells.max(initial=0)))
+        ctr = np.stack(got[K:])
+        acc["walk_steps"] += int(ctr[:, 0].sum())
+        acc["early_stops"] += int(ctr[:, 1].sum())
+        acc["live"] += int(ctr[:, 2].sum())
+        acc["total"] += K * (mp // tm)
+        # the per-tile working set of this bucket's layout, by the
+        # reference's accounting
+        acc["walk_vmem"] = max(
+            acc["walk_vmem"],
+            _lw.walk_vmem_tile_bytes(tm, lr_b, np_, caps[3]))
+
+    for key in sorted(buckets):
+        bucket = buckets[key]
+        K = len(bucket)
+        # mp rounds up to the row-tile multiple: the shard-local walk is
+        # row-tiled, and the extra rows are -1-padded with lo = hi = 0
+        # (dead lanes — under the planned schedule whole pad tiles are
+        # skipped by the device live-tile plan); lane width slices to
+        # the bucket max|r| (columns past a row's own size are -1 pads,
+        # so slicing drops only dead lanes)
+        caps = (-(-max(len(rs) for _, _, rs, _ in bucket) // tm) * tm,
+                max(f.n_sets for _, f, _, _ in bucket),
+                max(max(len(f.entry_elem), 1) for _, f, _, _ in bucket),
+                max(max(len(f.seq_row), 1) for _, f, _, _ in bucket),
+                max(f.max_seq_len for _, f, _, _ in bucket))
+        lr_b = min(max(lr for _, _, _, lr in bucket), Lr) if Lr else 1
+        if res is None:
+            run_bucket(bucket, caps, lr_b, acc, pairs)
+            continue
+        # resilience ladder per bucket (DESIGN.md §12): mesh -> per-shard
+        # loop walk -> host oracle; an over-budget bucket skips straight
+        # to the loop rung (memory guardrail)
+        from ..kernels import ops as kops  # deferred: kernels import core
+        from .join import brute_force_join  # deferred: the oracle rung
+        tid = (f"lfvt_mesh/{emit}/{measure}/shards="
+               + "-".join(str(k) for k, _, _, _ in bucket))
+
+        def mesh_rung(bucket=bucket, caps=caps, lr_b=lr_b):
+            sub_acc, sub_pairs = zero_acc(), set()
+            run_bucket(bucket, caps, lr_b, sub_acc, sub_pairs)
+            return sorted_pairs(sub_pairs), sub_acc
+
+        def loop_rung(bucket=bucket):
+            sub_acc, sub_pairs = zero_acc(), set()
+            for _, flat, rs, _ in bucket:
+                checked_flat(flat)
+                sz = r_sizes_all[rs]
+                lo, hi = window_bounds(sz, flat.s_sizes, t, measure)
+                pp, nk = kops.join_pairs_finalize(
+                    kops.lfvt_join_pairs_dispatch(
+                        flat, upload(r_pad_all[rs], device), sz, lo, hi, t,
+                        measure=measure), capacity=pair_capacity)
+                local = pp[:nk].cpu().numpy()
+                if len(local):
+                    rid = R.ids[rs[local[:, 0]]]
+                    sid = flat.s_ids[local[:, 1]]
+                    sub_pairs.update(zip(map(int, rid), map(int, sid)))
+                if emit == "pairs":
+                    sub_acc["result"] += nk
+                sub_acc["reduce"] += 8 * nk + 4
+            return sorted_pairs(sub_pairs), sub_acc
+
+        def oracle_rung(bucket=bucket):
+            sub_acc, sub_pairs = zero_acc(), set()
+            for _, flat, rs, _ in bucket:
+                ss = np.nonzero(np.isin(
+                    np.asarray(S.ids), np.asarray(flat.s_ids)))[0]
+                got = brute_force_join(_sub_collection(R, rs),
+                                       _sub_collection(S, ss), t,
+                                       measure=measure)
+                sub_pairs.update(got)
+                if emit == "pairs":
+                    sub_acc["result"] += len(got)
+            return sorted_pairs(sub_pairs), sub_acc
+
+        rungs = [("mesh", mesh_rung)]
+        mp, np_ = caps[0], caps[1]
+        if (global_config.memory_guardrail
+                and K * mp * np_ * 4 > int(global_config.guardrail_budget)):
+            res.degradations.append(f"{tid}:mesh->loop(guardrail)")
+            rungs = []
+        rungs += [("loop", loop_rung), ("oracle", oracle_rung)]
+        got, delta = res.run(tid, rungs)
+        pairs.update((int(a), int(b)) for a, b in got)
+        _fold_delta(acc, delta)
+
+    n_result = acc["result"] if emit == "pairs" else len(pairs)
+    if stats is not None:
+        stats.update(route_stats)
+        stats.update(
+            intervals=part.intervals, psi=part.psi, n_shards=part.n_shards,
+            emit=emit, measure=measure, result_pairs=n_result,
+            pair_bytes=n_result * 8, reduce_bytes=acc["reduce"],
+            dense_mask_bytes=acc["dense"],
+            reduce_intermediate_peak_bytes=acc["peak_inter"],
+            reduce_mask_peak_bytes=acc["peak_mask"],
+            walk_steps=acc["walk_steps"], early_stops=acc["early_stops"],
+            # per-shard device-plan live counts summed across the mesh
+            # ('static' reports every tile as walked)
+            live_tiles=acc["live"], total_tiles=acc["total"],
+            walk_schedule=schedule,
+            walk_vmem_tile_bytes=acc["walk_vmem"],
+            regrows=acc["regrows"], pad=pad, n_buckets=len(buckets),
+            mesh_devices=n_devices,
+            shard_block_bytes=acc["ship"],
+            shard_block_bytes_per_shard=acc["ship"] / max(part.n_shards, 1),
+            pad_waste_max=acc["waste_max"],
+            pad_waste_mean=(acc["waste_sum"] / acc["waste_n"]
+                            if acc["waste_n"] else 0.0),
+            flat_pad_waste=(acc["waste_sum"] / acc["waste_n"]
+                            if acc["waste_n"] else 0.0))
+        resilience_stats(stats, res)
+    return pairs
+
+
+# ---------------------------------------------------------------------- #
 # the driver
 # ---------------------------------------------------------------------- #
 def _emit_shard_pairs(block: ShardBlock, lk: int, local: np.ndarray,
@@ -628,7 +1104,7 @@ def _collect_block_pairs(block: ShardBlock, pairs_dev,
     for lk in range(len(counts)):
         c = int(counts[lk])
         if c:
-            _emit_shard_pairs(block, lk, pairs_dev[lk, :c].cpu().numpy(),
+            _emit_shard_pairs(block, lk, pairs_dev[lk][:c].cpu().numpy(),
                               out)
 
 
@@ -642,8 +1118,7 @@ def mr_cf_rs_join(R: SetCollection, S: SetCollection, t: float,
                   checkpoint_dir: str | None = None,
                   schedule: str | None = None, plan=None,
                   device=None) -> set:
-    """Distributed candidate-free R-S join on one device. Returns
-    {(r_id, s_id)}.
+    """Distributed candidate-free R-S join. Returns {(r_id, s_id)}.
 
     strategy: 'load_aware' (paper Eq. 2-3) | 'hash' (ablation baseline:
               all of S on every shard, R split round-robin)
@@ -657,19 +1132,25 @@ def mr_cf_rs_join(R: SetCollection, S: SetCollection, t: float,
               blocks) | 'lfvt' / 'lfvt_ref' — each shard's S partition
               is compiled to a ``FlatLFVT`` (DESIGN.md §9); nothing
               |S|·W-shaped is materialized. 'lfvt' reduces through the
-              live row-tiled walk (K1), 'lfvt_ref' through the
-              whole-block walk.
+              live row-tiled walk (K1) on the loop path and — with a mesh
+              — through the bucketed sentinel-padded mesh path (K6, or K1
+              under ``schedule='static'``); 'lfvt_ref' through the
+              whole-block walk (loop path only).
     measure:  'jaccard' | 'cosine' | 'dice' | 'overlap' — qualify
               predicate, per-shard windows and map-phase R replication
               all specialize per measure (DESIGN.md §8)
-    mesh:     the multi-device path; not ported (``NotPortedError``).
-              ``axis`` names its mesh axis and is not read here.
+    mesh:     a ``repro_torch.launch.mesh.Mesh``: the reduce runs shard
+              ``k`` on slot ``k``'s device along ``axis`` (the mesh's
+              axis by default; its size must equal ``n_shards``);
+              otherwise a sequential shard loop.
+              Anything else raises ``MeshTypeError``.
     emit:     'pairs' (default) — each shard's pairs are compacted on the
               device into a (cap, 2) buffer + exact count (regrown on
               overflow, power-of-two protocol); ``reduce_bytes`` counts
               the compacted slices (the paper's Fig. 8 model). 'mask' —
               every per-shard boolean mask comes back to the host.
-    pad:      'auto' (bucket) | 'global' | 'bucket' — see
+    pad:      'auto' (bucket on the loop and mesh-lfvt paths, global for
+              the stacked-bitmap mesh reduce) | 'global' | 'bucket' — see
               ``shard_blocks``; defaults to ``global_config.pad_mode``.
     pair_capacity: initial per-shard pair-buffer capacity hint for
               emit='pairs'; regrown automatically on overflow.
@@ -680,10 +1161,16 @@ def mr_cf_rs_join(R: SetCollection, S: SetCollection, t: float,
     checkpoint_dir: directory for the shard task ledger; completed shard
               tasks are checkpointed and skipped on resume (bit-identical
               output, ``stats['tasks_resumed']`` counts the skips).
-    schedule: the mesh walk's tile schedule ('planned' | 'static');
-              validated as the reference does and not read on the loop
-              path, which plans live tiles on the host.
-    device:   'cuda' (the default) or 'cpu'; see ``resolve_device``.
+    schedule: mesh-lfvt shard-body tile schedule — 'planned' (the
+              default) plans the live row
+              tiles on the device and walks them with K6; 'static' walks
+              every tile with K1. Bit-identical results either way; only
+              ``walk_steps``/``live_tiles`` (and wall clock) move. Not
+              read off the mesh-lfvt path (the loop path plans live tiles
+              on the host).
+    device:   'cuda' (the default) or 'cpu'; see ``resolve_device``. With
+              a mesh it defaults to the mesh's first slot, where the
+              resilience ladder's loop rung runs.
 
     ``pad`` defaults to ``global_config`` when None. ``plan`` optionally
     injects a precomputed ``core.planner.JoinPlan`` (the front door's
@@ -691,21 +1178,26 @@ def mr_cf_rs_join(R: SetCollection, S: SetCollection, t: float,
     ``core.planner.build_plan``.
     """
     if mesh is not None:
-        raise NotPortedError(
-            "mesh= selects the MapReduce driver's multi-device path "
-            "(ROADMAP queue 1 item 9), which the PyTorch port does not "
-            "have yet; drop it to run the shards one after another on "
-            "one device")
+        check_mesh(mesh)
+        if device is None:
+            device = mesh.devices[0]
     device = resolve_device(device)
+    if mesh is not None:
+        axis = axis or mesh.axis_names[0]
     pad_explicit = pad is not None
     pad = pad or global_config.pad_mode
     validate_join_args(driver="mr", method=method, emit=emit, pad=pad,
                        pad_explicit=pad_explicit, schedule=schedule,
-                       pair_capacity=pair_capacity, has_mesh=False)
+                       pair_capacity=pair_capacity,
+                       has_mesh=mesh is not None)
     R.validate()
     S.validate()
     res = build_resilience(checkpoint_dir, fault_plan)
     if not len(R) or not len(S):
+        if global_config.strict_validation:
+            side = "R" if not len(R) else "S"
+            raise EmptyCollectionError(
+                f"empty {side} collection (strict_validation is on)")
         if stats is not None:  # consumers index these unconditionally
             stats.update(
                 n_shards=0, emit=emit, measure=measure, result_pairs=0,
@@ -718,7 +1210,8 @@ def mr_cf_rs_join(R: SetCollection, S: SetCollection, t: float,
                 pad_waste_mean=0.0, pad=pad, n_buckets=0, intervals=[],
                 psi=0.0,
                 plan=build_plan(R, S, t, driver="mr", method=method,
-                                measure=measure, emit=emit, pad=pad,
+                                measure=measure, emit=emit,
+                                has_mesh=mesh is not None, pad=pad,
                                 pad_explicit=pad_explicit,
                                 schedule=schedule,
                                 pair_capacity=pair_capacity).to_dict())
@@ -729,11 +1222,13 @@ def mr_cf_rs_join(R: SetCollection, S: SetCollection, t: float,
         t, max(int(R.sizes().max(initial=0)), int(S.sizes().max(initial=0))))
     part = (load_aware_partition if strategy == "load_aware" else hash_partition)(
         R, S, t, n_shards, measure=measure)
-    # resolve method='auto': the cost model scores the routed inputs,
-    # per shard
+    # resolve method='auto': the cost model scores the routed inputs —
+    # per shard on the loop path, one homogeneous pick under a mesh
+    # (a stacked bucket cannot mix rep families)
     if plan is None:
         plan = build_plan(R, S, t, driver="mr", method=method,
-                          measure=measure, emit=emit, pad=pad,
+                          measure=measure, emit=emit,
+                          has_mesh=mesh is not None, pad=pad,
                           pad_explicit=pad_explicit, schedule=schedule,
                           pair_capacity=pair_capacity, part=part)
     method = plan.method
@@ -749,7 +1244,7 @@ def mr_cf_rs_join(R: SetCollection, S: SetCollection, t: float,
             "method": method, "emit": emit, "measure": measure,
             "pad": pad, "R": collection_digest(R),
             "S": collection_digest(S)})
-    if shard_methods is not None:
+    if shard_methods is not None and mesh is None:
         if len(set(shard_methods)) > 1:
             # heterogeneous plan: per-shard dispatch on the loop path
             return _lfvt_loop_join(R, S, t, part, emit=emit,
@@ -759,19 +1254,34 @@ def mr_cf_rs_join(R: SetCollection, S: SetCollection, t: float,
                                    shard_methods=shard_methods)
         # homogeneous per-shard pick: reuse the plain single-method paths
         method = shard_methods[0]
+    if mesh is not None and mesh.shape.get(axis) != part.n_shards:
+        raise ValueError(
+            f"the mesh's {axis!r} axis has "
+            f"{mesh.shape.get(axis)} slots (shape {mesh.shape}); it must "
+            f"equal n_shards={part.n_shards}")
     if method in ("lfvt", "lfvt_ref"):
+        if mesh is not None:
+            # lfvt_ref + mesh already rejected by validate_join_args
+            return _lfvt_mesh_join(
+                R, S, t, part, mesh, emit=emit,
+                pad=pad if pad != "auto" else "bucket",
+                pair_capacity=pair_capacity, measure=measure, stats=stats,
+                device=device, res=res, schedule=schedule)
         return _lfvt_loop_join(R, S, t, part, emit=emit,
                                pair_capacity=pair_capacity, measure=measure,
                                stats=stats, device=device,
                                impl="ref" if method == "lfvt_ref" else
                                "kernel", res=res)
-    pad_mode = pad if pad != "auto" else "bucket"
+    pad_mode = pad if pad != "auto" else ("global" if mesh is not None
+                                          else "bucket")
+    if mesh is not None and pad_mode != "global":
+        raise ValueError("shard_map path requires pad='global'")
     blocks, route_stats = shard_blocks(R, S, part, t, pad=pad_mode)
 
     pairs: set = set()
     dense_bytes = sum(b.n_local * b.m_pad * b.n_pad for b in blocks)
     cap_hint = pair_capacity if pair_capacity else global_config.pair_cap_grain
-    kernel_loop = (emit == "pairs"
+    kernel_loop = (mesh is None and emit == "pairs"
                    and method in ("kernel_bitmap", "kernel_onehot"))
 
     def zero_block_acc() -> dict:
@@ -780,8 +1290,8 @@ def mr_cf_rs_join(R: SetCollection, S: SetCollection, t: float,
 
     acc = zero_block_acc()
 
-    def run_block(block, acc: dict, out_pairs: set) -> None:
-        """One ShardBlock's reduce + emit (primary rung body)."""
+    def run_block(block, acc: dict, out_pairs: set, use_mesh) -> None:
+        """One ShardBlock's reduce + emit (primary / loop rung body)."""
         if kernel_loop:
             per_shard, counts, out_b, rg, lv, tt, staged = (
                 _kernel_block_pairs(block, t=t, method=method,
@@ -801,7 +1311,7 @@ def mr_cf_rs_join(R: SetCollection, S: SetCollection, t: float,
         elif emit == "pairs":
             pairs_dev, counts, cap, rg = _block_pairs_reduce(
                 block, t=t, method=method, cap_hint=cap_hint,
-                measure=measure, device=device)
+                measure=measure, device=device, mesh=use_mesh)
             _collect_block_pairs(block, pairs_dev, counts, out_pairs)
             # variable-length reduce output: each shard ships its exact
             # slice + one count; the cap buffer never leaves the device
@@ -816,8 +1326,12 @@ def mr_cf_rs_join(R: SetCollection, S: SetCollection, t: float,
                 acc["peak_inter"],
                 block.m_pad * block.n_pad + block.n_local * (cap * 8 + 4))
         else:
-            masks = _loop_reduce(block, t=t, method=method, measure=measure,
-                                 device=device)
+            if use_mesh is not None:
+                masks = _shard_map_reduce(block, use_mesh, t=t,
+                                          method=method, measure=measure)
+            else:
+                masks = _loop_reduce(block, t=t, method=method,
+                                     measure=measure, device=device)
             for lk in range(block.n_local):
                 _emit_shard_pairs(block, lk, np.argwhere(masks[lk]),
                                   out_pairs)
@@ -827,20 +1341,22 @@ def mr_cf_rs_join(R: SetCollection, S: SetCollection, t: float,
 
     if res is None:
         for block in blocks:
-            run_block(block, acc, pairs)
+            run_block(block, acc, pairs, mesh)
     else:
         # resilience ladder per block (DESIGN.md §12): primary reduce ->
-        # host oracle over the shards' original sets (ids mapped back
-        # through R.ids/S.ids)
+        # single-device loop rerun (mesh runs only) -> host oracle over
+        # the shards' original sets (ids mapped back through R.ids/S.ids)
         from .join import brute_force_join  # deferred: the oracle rung
         r_rowmap = {int(v): i for i, v in enumerate(np.asarray(R.ids))}
         s_rowmap = {int(v): i for i, v in enumerate(np.asarray(S.ids))}
 
         for bi, block in enumerate(blocks):
-            def primary(block=block):
-                sub_acc, sub_pairs = zero_block_acc(), set()
-                run_block(block, sub_acc, sub_pairs)
-                return sorted_pairs(sub_pairs), sub_acc
+            def primary(use_mesh, block=block):
+                def run():
+                    sub_acc, sub_pairs = zero_block_acc(), set()
+                    run_block(block, sub_acc, sub_pairs, use_mesh)
+                    return sorted_pairs(sub_pairs), sub_acc
+                return run
 
             def oracle(block=block):
                 sub_acc, sub_pairs = zero_block_acc(), set()
@@ -860,7 +1376,11 @@ def mr_cf_rs_join(R: SetCollection, S: SetCollection, t: float,
                 return sorted_pairs(sub_pairs), sub_acc
 
             tid = f"block_join/{method}/{emit}/{measure}/block={bi}"
-            got, delta = res.run(tid, [(method, primary), ("oracle", oracle)])
+            rungs = [("mesh" if mesh is not None else method, primary(mesh))]
+            if mesh is not None:
+                rungs.append(("loop", primary(None)))
+            rungs.append(("oracle", oracle))
+            got, delta = res.run(tid, rungs)
             pairs.update((int(a), int(b)) for a, b in got)
             _fold_delta(acc, delta)
 

@@ -7,9 +7,11 @@ byte-for-byte the reference's encoder) compiles the pointer-based
 uploads the arrays the walk reads as torch tensors, once per device;
 ``from_arrays`` rebuilds a table from the reference's ``arrays()`` so a
 table encoded by either package can feed the other's walk.
-``pad_flat_tables`` sentinel-pads a table to given capacities, and
-``IncrementalLFVT`` grows a padded table in place as sets are admitted
-(the dedup service's corpus, ``serve/dedup.py``).
+``pad_flat_tables`` sentinel-pads a table to given capacities and
+``entry_positions`` resolves its entries to walk positions (the mesh
+path's shard tables, ``core/distributed.py``); ``IncrementalLFVT``
+grows a padded table in place as sets are admitted (the dedup service's
+corpus, ``serve/dedup.py``).
 
 Array schema (node 0 is the root: empty sequence, parent -1):
 
@@ -59,7 +61,8 @@ from .fvt import FVT, LFVT
 from .sets import SetCollection
 
 __all__ = ["FlatLFVT", "FlatLFVTDevice", "FlatLFVTError", "IncrementalLFVT",
-           "encode", "flat_join_mask", "flat_walk_caps", "pad_flat_tables"]
+           "encode", "entry_positions", "flat_join_mask", "flat_walk_caps",
+           "pad_flat_tables"]
 
 
 class FlatLFVTError(ValueError):
@@ -396,6 +399,18 @@ def encode(S: SetCollection, tree: FVT | LFVT | None = None) -> FlatLFVT:
 #: element id of padded entry rows: int32 max keeps the entry table
 #: sorted and never equals a real element (ids are < universe <= 2^31-1)
 PAD_SENTINEL = 2 ** 31 - 1
+
+
+def entry_positions(flat: FlatLFVT) -> np.ndarray:
+    """(E,) absolute walk start per entry: ``node_seq_off[entry_node] +
+    entry_off``. Precomputed on the host so mesh shards ship only the
+    entry/seq tables — the walk never needs the node table once entries
+    are resolved to positions (the fused ``seq_next`` hop already
+    encodes the parent chain)."""
+    if not len(flat.entry_elem):
+        return np.zeros(0, np.int32)
+    return (flat.node_seq_off[flat.entry_node]
+            + flat.entry_off).astype(np.int32)
 
 
 def flat_walk_caps(flat: FlatLFVT) -> dict:

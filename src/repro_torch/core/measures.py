@@ -143,6 +143,14 @@ class Measure:
     # ------------------------------------------------------------------ #
     # derived filters
     # ------------------------------------------------------------------ #
+    def prefix_min_overlap(self, size: int, t: float) -> int:
+        """Lower bound on |x ∩ y| over all partners y in the size window —
+        the prefix-filter bound of the baselines (prefix length = size -
+        this + 1). Equals the window's lower size bound for all four
+        measures."""
+        lo, _ = self.size_window(size, t)
+        return max(1, lo)
+
     def window_fraction(self, r_sizes: np.ndarray, s_sizes: np.ndarray,
                         t: float) -> float:
         """Mean Lemma-3.1 window width over R as a fraction of |S|.

@@ -13,7 +13,9 @@ decision so the caller no longer has to:
     sum_a freq_R(a) * freq_S(a));
   * :func:`score_methods` — a linear cost model per rep family
     (``seconds = fixed + per_byte * bytes_staged + per_unit * work +
-    per_tile * row_tiles``) with the embedded default coefficients;
+    per_tile * row_tiles``) with embedded default coefficients,
+    re-scaled per family from whatever ``BENCH_pr*.json`` artifacts are
+    present in the working directory (:func:`load_calibration`);
   * :func:`build_plan` — the single kwarg-lattice validator + planner
     front end both drivers call. It emits a frozen :class:`JoinPlan`
     (method, per-shard methods on the MR loop path, block/tile sizes,
@@ -24,10 +26,10 @@ decision so the caller no longer has to:
     ``pad=`` on the loop lfvt path, ``pair_capacity`` with
     ``emit='mask'``).
 
-The JAX package also rescales the coefficients from its committed
-``BENCH_pr*.json`` rows. Those rows are CPU timings of the JAX package
-and say nothing about the GPU, so the port scores with the defaults
-alone; the plan equals the reference's with its calibration off.
+The calibration reads rows of the reference's schema. The committed
+rows are CPU timings of the JAX package, so on the card the port
+rescales from them exactly as the reference does (its plans equal the
+reference's, calibrated or not) until rows timed on the card exist.
 
 Every decision lands in driver stats (``stats["plan"]``); planning
 alters which method runs, never the result.
@@ -41,7 +43,10 @@ so the pick flips from bitmap to lfvt as U grows.
 from __future__ import annotations
 
 import dataclasses
+import glob
+import json
 import math
+import os
 from typing import Any, Iterator, Mapping
 
 import numpy as np
@@ -52,8 +57,10 @@ from .measures import get_measure
 __all__ = [
     "PlannerError", "JoinPlan", "JoinStats", "probe_features",
     "score_methods", "choose_method", "build_plan", "plan_shard_methods",
-    "validate_join_args", "DEFAULT_COEFFS", "KNOWN_METHODS",
-    "AUTO_CANDIDATES", "SHARD_CANDIDATES",
+    "load_calibration", "effective_coeffs", "validate_join_args",
+    "BENCH_GLOB",
+    "DEFAULT_COEFFS", "KNOWN_METHODS", "AUTO_CANDIDATES",
+    "SHARD_CANDIDATES",
 ]
 
 
@@ -201,7 +208,7 @@ def score_methods(features: Mapping[str, Any],
     work_units, tiles, seconds}}``. Bitmap/onehot scores grow linearly
     with the universe; the walk scores do not — the structural source of
     the bitmap->lfvt flip as U grows."""
-    coeffs = coeffs if coeffs is not None else DEFAULT_COEFFS
+    coeffs = coeffs if coeffs is not None else effective_coeffs()
     out: dict[str, dict[str, float]] = {}
     for meth in candidates:
         fam = _FAMILY_OF[meth]
@@ -223,6 +230,129 @@ def choose_method(scores: Mapping[str, Mapping[str, float]],
         raise PlannerError("no feasible method candidate to choose from")
     return min(ranked, key=lambda m: (scores[m]["seconds"],
                                       ranked.index(m)))
+
+
+# ---------------------------------------------------------------------- #
+# calibration from committed BENCH artifacts
+# ---------------------------------------------------------------------- #
+def _bench_workload(method: str, impl: str, met: Mapping[str, Any]):
+    """Reconstruct (family, workload) from one BENCH method_axis row's
+    metrics; None when the row lacks what the model needs."""
+    m, n, U = met.get("m"), met.get("n"), met.get("universe")
+    if not all(isinstance(v, (int, float)) and v for v in (m, n, U)):
+        return None
+    W = (int(U) + 31) // 32
+    if method == "bitmap":
+        # bench workloads run t=0.5 Jaccard over Zipf sizes: the window
+        # keeps about half the sheet — close enough for a scale fit
+        return "bitmap", {"bytes_staged": float((m + n) * W * 4),
+                          "work_units": 0.5 * m * n * W, "tiles": 0.0}
+    if method == "onehot":
+        return "onehot", {"bytes_staged": float((m + n) * U * 4),
+                          "work_units": float(m) * n * U, "tiles": 0.0}
+    if method == "lfvt":
+        steps = met.get("walk_steps") or met.get("total_seq_tuples")
+        if not isinstance(steps, (int, float)):
+            return None
+        fam = "lfvt_ref" if impl == "ref" else "lfvt"
+        byts = met.get("s_flat_bytes")
+        if not isinstance(byts, (int, float)):
+            byts = 4.0 * 5 * met.get("total_seq_tuples", 0)
+        tiles = max(1, -(-int(m) // max(int(global_config.row_tile), 1)))
+        return fam, {"bytes_staged": float(byts),
+                     "work_units": float(steps), "tiles": float(tiles)}
+    return None
+
+
+#: the BENCH artifacts calibration reads, relative to the working directory
+BENCH_GLOB = "BENCH_pr*.json"
+#: clamp on a family's scale, so one noisy BENCH row cannot invert a
+#: decision
+SCALE_MIN, SCALE_MAX = 0.2, 5.0
+
+
+def load_calibration(paths) -> dict[str, dict[str, float]]:
+    """Per-family rescale of :data:`DEFAULT_COEFFS` from the
+    ``method_axis`` rows of the given BENCH artifacts.
+
+    Only the current consolidated row schema is read; older dict-keyed
+    artifacts and rows with ``seconds=null`` (infeasible
+    cells) are skipped silently — with no usable rows the defaults stand.
+    The scale is the *geometric mean* of per-row measured/predicted
+    ratios (a log-space one-parameter fit): every row counts equally,
+    so a family whose corpus mixes second-scale full runs with
+    millisecond smoke rows is not fit solely to the big rows — the
+    failure mode of a dot-product least-squares fit, which can invert
+    the popcount/onehot ordering at mid sizes. The scale is clamped to
+    ``[SCALE_MIN, SCALE_MAX]`` so a noisy artifact
+    cannot swing a decision arbitrarily, and multiplies every
+    coefficient of its family uniformly.
+    """
+    pred: dict[str, list[float]] = {}
+    meas: dict[str, list[float]] = {}
+    for path in paths:
+        try:
+            with open(path) as fh:
+                doc = json.load(fh)
+            rows = doc.get("rows", []) if isinstance(doc, dict) else []
+        except (OSError, json.JSONDecodeError):
+            continue
+        for row in rows:
+            if not isinstance(row, dict):
+                continue
+            if not str(row.get("config", "")).startswith("method_axis/"):
+                continue
+            met = row.get("metrics", {})
+            secs = met.get("seconds")
+            if not isinstance(secs, (int, float)) or secs <= 0:
+                continue
+            got = _bench_workload(row.get("method", ""),
+                                  row.get("impl", ""), met)
+            if got is None:
+                continue
+            fam, w = got
+            c = DEFAULT_COEFFS[fam]
+            p = (c["fixed"] + c["per_byte"] * w["bytes_staged"]
+                 + c["per_unit"] * w["work_units"]
+                 + c.get("per_tile", 0.0) * w["tiles"])
+            pred.setdefault(fam, []).append(p)
+            meas.setdefault(fam, []).append(float(secs))
+    coeffs = {fam: dict(c) for fam, c in DEFAULT_COEFFS.items()}
+    for fam, ps in pred.items():
+        ratios = [mv / pv for pv, mv in zip(ps, meas[fam]) if pv > 0.0]
+        if not ratios:
+            continue
+        scale = float(np.exp(np.mean(np.log(ratios))))
+        scale = min(max(scale, SCALE_MIN), SCALE_MAX)
+        coeffs[fam] = {k: v * scale for k, v in coeffs[fam].items()}
+    return coeffs
+
+
+_calib_cache: dict[tuple, dict] = {}
+
+
+def effective_coeffs() -> dict[str, dict[str, float]]:
+    """The coefficients in force: defaults, rescaled from whatever
+    ``BENCH_GLOB`` artifacts exist in the working directory
+    (memoized per file-stat signature; ``planner_calibrate=False``
+    pins the embedded defaults)."""
+    if not global_config.planner_calibrate:
+        return DEFAULT_COEFFS
+    paths = sorted(glob.glob(BENCH_GLOB))
+    sig = []
+    for p in paths:
+        try:
+            st = os.stat(p)
+            sig.append((p, st.st_mtime_ns, st.st_size))
+        except OSError:
+            continue
+    key = tuple(sig)
+    got = _calib_cache.get(key)
+    if got is None:
+        got = load_calibration([p for p, _, _ in sig])
+        _calib_cache.clear()  # signatures change rarely; keep one entry
+        _calib_cache[key] = got
+    return got
 
 
 # ---------------------------------------------------------------------- #
@@ -404,7 +534,7 @@ def plan_shard_methods(R, S, t: float, part, *, measure: str,
     """Score each routed MR shard independently -> one method per shard
     (the paper's per-partition adaptation granularity). Empty shards
     keep the cheapest family."""
-    coeffs = coeffs if coeffs is not None else DEFAULT_COEFFS
+    coeffs = coeffs if coeffs is not None else effective_coeffs()
     s_rows, r_rows = part.shard_rows(R, S)
     picks = []
     for k in range(part.n_shards):
@@ -448,18 +578,19 @@ def build_plan(R=None, S=None, t: float | None = None, *,
         if R is None or S is None or not len(R) or not len(S):
             method, decided = "popcount", "empty"
         else:
+            coeffs = effective_coeffs()
             features = probe_features(R, S, t, measure)
             # mesh shards share one shape family: the pick must be
             # homogeneous, and only popcount/lfvt have mesh paths
             candidates = (("popcount", "lfvt") if has_mesh
                           else AUTO_CANDIDATES)
-            scores = score_methods(features, DEFAULT_COEFFS, candidates)
+            scores = score_methods(features, coeffs, candidates)
             method = choose_method(scores, candidates)
             decided = "cost_model"
             if (driver == "mr" and not has_mesh and part is not None
                     and part.n_shards > 1):
-                shard_methods = plan_shard_methods(R, S, t, part,
-                                                   measure=measure)
+                shard_methods = plan_shard_methods(
+                    R, S, t, part, measure=measure, coeffs=coeffs)
     return JoinPlan(
         method=method, requested=requested, driver=driver, measure=measure,
         emit=emit,

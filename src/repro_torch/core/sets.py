@@ -20,7 +20,9 @@ from typing import Sequence
 
 import numpy as np
 
-__all__ = ["SetCollection", "CollectionValidationError", "similarity"]
+__all__ = ["SetCollection", "CollectionValidationError",
+           "EmptyCollectionError", "length_filter_bounds", "jaccard",
+           "similarity"]
 
 
 class CollectionValidationError(ValueError):
@@ -29,6 +31,12 @@ class CollectionValidationError(ValueError):
     mismatched id rows). Raised by constructors and ``validate()`` so
     bad inputs fail with a named error instead of an opaque downstream
     index fault."""
+
+
+class EmptyCollectionError(ValueError):
+    """An empty R or S collection reached a driver running with
+    ``global_config.strict_validation`` on. By default empty inputs are
+    legal (they produce empty joins); strict mode names them instead."""
 
 
 def _write_protect(out) -> None:
@@ -249,9 +257,31 @@ class SetCollection:
         return int(self.sizes().sum())
 
 
+# ---------------------------------------------------------------------- #
+# similarity + filter helpers (host reference semantics, float64)
+# ---------------------------------------------------------------------- #
+def jaccard(a: np.ndarray, b: np.ndarray) -> float:
+    inter = len(np.intersect1d(a, b, assume_unique=True))
+    union = len(a) + len(b) - inter
+    return inter / union if union else 1.0
+
+
 def similarity(a: np.ndarray, b: np.ndarray,
                measure: str = "jaccard") -> float:
     """Float64 reference similarity of two element-sorted sets."""
     from .measures import get_measure  # deferred: sets is a leaf module
     inter = len(np.intersect1d(a, b, assume_unique=True))
     return get_measure(measure).similarity(inter, len(a), len(b))
+
+
+def length_filter_bounds(r_size: int | np.ndarray, t: float,
+                         measure: str = "jaccard"):
+    """Lemma 3.1 size window, generalized per measure (DESIGN.md §8).
+
+    Jaccard: ceil(t|R|) <= |S| <= floor(|R|/t); see
+    ``measures.Measure.size_window`` for the other three. Integer-exact
+    (the threshold is resolved to a rational, no float ceil/floor).
+    """
+    from .measures import get_measure  # deferred: sets is a leaf module
+    return get_measure(measure).size_window_arrays(
+        np.asarray(r_size, dtype=np.int64), t)

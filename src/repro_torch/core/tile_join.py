@@ -39,7 +39,7 @@ from .planner import build_plan
 from .resilience import (PairCapacityError, build_resilience, checked_flat,
                          collection_digest, fault_point, resilience_stats,
                          sorted_pairs)
-from .sets import SetCollection
+from .sets import EmptyCollectionError, SetCollection
 
 __all__ = [
     "popcount_row_block",
@@ -381,6 +381,10 @@ def cf_rs_join_device_ids(R: SetCollection, S: SetCollection, t: float,
     double_buffer = plan.double_buffer
     R.validate()
     S.validate()
+    if global_config.strict_validation and (not len(R) or not len(S)):
+        side = "R" if not len(R) else "S"
+        raise EmptyCollectionError(
+            f"empty {side} collection (strict_validation is on)")
     res = build_resilience(checkpoint_dir, fault_plan)
     if not len(R) or not len(S):
         if stats is not None:  # consumers index these unconditionally

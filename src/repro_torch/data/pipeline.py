@@ -6,9 +6,9 @@ against a curated corpus. ``filter_stream`` routes doc batches through
 the dedup serve engine with admission, so later docs — duplicates
 within the stream included — are judged against the survivors too.
 ``filter_batch`` joins against the static corpus through the MapReduce
-driver (``mr_cf_rs_join``, its loop path on ``device``), so two
-identical new docs in one batch both survive; a ``mesh`` raises
-``NotPortedError``, as the driver does.
+driver (``mr_cf_rs_join``: its loop path on ``device``, or its
+multi-device path on ``mesh``, a ``launch.mesh.Mesh`` with ``n_shards``
+slots), so two identical new docs in one batch both survive.
 """
 from __future__ import annotations
 
@@ -31,8 +31,8 @@ class DedupPipeline:
     shingle: int = 1
     method: str = "popcount"
     measure: str = "jaccard"       # cosine/dice/overlap too
-    mesh: object = None            # the multi-device path: not ported
-    device: object = None          # both paths'; None: the first GPU
+    mesh: object = None            # launch.mesh.Mesh: multi-device path
+    device: object = None          # None: the first GPU (or mesh slot)
 
     stats: dict = dataclasses.field(default_factory=dict)
 

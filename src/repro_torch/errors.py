@@ -1,7 +1,7 @@
 """Named errors of the PyTorch port that have no counterpart in ``repro``."""
 from __future__ import annotations
 
-__all__ = ["NotPortedError", "DeviceUnavailableError"]
+__all__ = ["NotPortedError", "DeviceUnavailableError", "MeshTypeError"]
 
 
 class NotPortedError(ValueError):
@@ -14,3 +14,9 @@ class DeviceUnavailableError(RuntimeError):
     """A CUDA device was asked for (explicitly or by default) but torch
     sees none. The port never falls back to the CPU on its own: pass
     ``device="cpu"`` to run the plain PyTorch path."""
+
+
+class MeshTypeError(TypeError):
+    """``mesh=`` got an object that is not the port's
+    ``repro_torch.launch.mesh.Mesh`` (a ``jax.sharding.Mesh``, say). The
+    port never imports jax to look at it."""

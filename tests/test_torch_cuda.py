@@ -355,6 +355,82 @@ def test_mr_managed_join_on_cuda_matches_cpu(cuda):
         assert st_g["faults_injected"] > 0
 
 
+MESH_STATS = MR_STATS + ("mesh_devices", "walk_schedule", "flat_pad_waste",
+                         "n_buckets", "pad_waste_mean", "pad_waste_max")
+
+
+@pytest.mark.parametrize("method,schedule", [
+    ("lfvt", "planned"), ("lfvt", "static"), ("popcount", None),
+    ("onehot", None), ("kernel_bitmap", None), ("kernel_onehot", None)])
+@pytest.mark.parametrize("emit", ["pairs", "mask"])
+def test_mesh_join_on_cuda_matches_cpu(cuda, method, schedule, emit):
+    """The multi-device path on 4 slots of the card against 4 CPU slots:
+    pairs and stats equal, under both walk schedules and every stacked
+    method; K6 (planned), K1 (static), K3 or (``kernel_onehot``) K5
+    launches at least once and at most once per shard."""
+    from repro_torch.core.distributed import mr_cf_rs_join
+    from repro_torch.launch.mesh import make_host_mesh
+    R, S = skewed(21, 600, 300, 40), skewed(22, 500, 300, 40)
+    kernel = {"planned": lfvt_walk.lfvt_walk_planned,
+              "static": lfvt_walk.lfvt_walk_live_tiled}.get(
+        schedule, onehot_join.onehot_join_tiled
+        if method == "kernel_onehot" else bitmap_join.bitmap_join_tiled)
+    kw = {"schedule": schedule} if schedule else {}
+    for measure, strategy in (("jaccard", "load_aware"),
+                              ("cosine", "hash"), ("overlap", "load_aware")):
+        st_g: dict = {}
+        st_c: dict = {}
+        kernel.launches = 0
+        got = mr_cf_rs_join(R, S, 0.6, 4, strategy=strategy, method=method,
+                            measure=measure, emit=emit, stats=st_g,
+                            mesh=make_host_mesh(4), **kw)
+        launches = kernel.launches
+        want = mr_cf_rs_join(R, S, 0.6, 4, strategy=strategy, method=method,
+                             measure=measure, emit=emit, stats=st_c,
+                             mesh=make_host_mesh(4, device="cpu"), **kw)
+        assert got == want and got, (measure, strategy)
+        assert {k: st_g.get(k) for k in MESH_STATS} == {
+            k: st_c.get(k) for k in MESH_STATS}, (measure, strategy)
+        # the masks stay on the card across a regrow, which reruns the
+        # compaction only: at most one launch per shard
+        assert 1 <= launches <= 4, (measure, strategy, launches)
+
+
+def test_mesh_shard_body_never_waits_for_the_device(cuda):
+    """One shard of a mesh bucket on the card: uploads, the entry
+    lookup, the lane order, the device plan and K6 run under sync debug
+    mode "error"; mask and counters equal the CPU's."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.device import upload
+    from repro_torch.core.partition import load_aware_partition, route
+    R, S = skewed(31, 500, 300, 40), skewed(32, 400, 300, 40)
+    S = S.sort_by_size()
+    part = load_aware_partition(R, S, 0.6, 2)
+    s_rows, r_rows, _ = route(R, S, part)
+    rs = r_rows[0][np.argsort(-R.sizes()[r_rows[0]], kind="stable")]
+    ss = s_rows[0]
+    flat = SetCollection([S.sets[int(j)] for j in ss], S.universe,
+                         S.ids[ss].astype(np.int32)).flat_lfvt()
+    lr = int(R.sizes()[rs].max())
+    caps = (-(-len(rs) // 16) * 16, flat.n_sets, len(flat.entry_elem),
+            len(flat.seq_row), flat.max_seq_len)
+    arrays, *_ = dist._lfvt_bucket_arrays(
+        [(0, flat, rs, lr)], caps, lr, R.padded()[0], R.sizes(), R.ids, 0.6,
+        "jaccard")
+    kw = dict(t=0.6, measure="jaccard", max_steps=caps[4], tm=16)
+    want = dist._lfvt_local_mask(*(torch.from_numpy(a[0]) for a in arrays),
+                                 **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = dist._lfvt_local_mask(*(upload(a[0], cuda) for a in arrays),
+                                    **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got[0].cpu(), want[0]) and bool(want[0].any())
+    assert [int(x) for x in got[1:]] == [int(x) for x in want[1:]]
+
+
 @pytest.mark.parametrize("measure", ["jaccard", "overlap"])
 def test_mr_popcount_shard_mask_is_k3(cuda, measure):
     """A popcount shard's dense mask (``local_join_mask``) comes from K3

@@ -34,7 +34,7 @@ from repro.core.planner import build_plan as ref_build_plan
 from repro_torch.core.config import global_config as port_config
 from repro_torch.core.planner import PlannerError
 from repro_torch.core.planner import build_plan as port_build_plan
-from repro_torch.errors import DeviceUnavailableError, NotPortedError
+from repro_torch.errors import DeviceUnavailableError, MeshTypeError
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 MEASURES = ("jaccard", "cosine", "dice", "overlap")
@@ -177,9 +177,10 @@ def _plan_inputs(universe):
 
 @pytest.mark.parametrize("universe", [256, 2 ** 21])
 def test_auto_plan_matches_reference(monkeypatch, universe):
-    """Same probe, same scores, same pick with the reference's
-    calibration off (the port scores with the default coefficients)."""
-    monkeypatch.setattr(ref_config, "planner_calibrate", False)
+    """Same probe, same scores, same pick with calibration off in both
+    packages (both score with the default coefficients)."""
+    for cfg in (ref_config, port_config):
+        monkeypatch.setattr(cfg, "planner_calibrate", False)
     r, s = _plan_inputs(universe)
     args = (0.5,)
     a = ref_build_plan(repro.as_collection(r), repro.as_collection(s), *args,
@@ -302,25 +303,28 @@ def test_default_device_without_gpu_raises(monkeypatch):
 
 @pytest.mark.parametrize("kwargs,match", [
     (dict(n_shards=2), "MapReduce"),
-    (dict(mesh=object()), "MapReduce"),
+    (dict(mesh=object()), "launch.mesh.Mesh"),
     (dict(fault_plan=""), "fault_plan"),
     (dict(fault_plan="compact:transient"), "fault_plan"),
     (dict(checkpoint_dir="ckpt"), "checkpoint_dir"),
 ])
 def test_not_ported_paths_raise(kwargs, match, tmp_path, monkeypatch):
-    """``mesh=`` (the multi-device path, ROADMAP item 9) still raises
-    ``NotPortedError``. The MapReduce loop path (``n_shards=``) and the
+    """``mesh=`` raised ``NotPortedError`` until the multi-device path
+    was ported; it now takes the port's ``Mesh`` only, and any other
+    object (a jax mesh, say) raises the named ``MeshTypeError`` (a
+    ``TypeError``). The MapReduce loop path (``n_shards=``) and the
     resilience kwargs raised until they were ported: they now run and
     equal ``repro.join`` with the same kwargs (each package in a
     directory of its own, so that ``checkpoint_dir`` starts empty)."""
     r, s = sample_sets(n_r=8, n_s=6)
     if "mesh" in kwargs:
-        with pytest.raises(NotPortedError, match=match) as err:
+        with pytest.raises(MeshTypeError, match=match) as err:
             repro_torch.join(r, s, 0.5, device="cpu", **kwargs)
-        assert "item 9" in str(err.value)
-        assert issubclass(NotPortedError, ValueError)
+        assert "object" in str(err.value)
+        assert issubclass(MeshTypeError, TypeError)
         return
-    monkeypatch.setattr(ref_config, "planner_calibrate", False)
+    for cfg in (ref_config, port_config):
+        monkeypatch.setattr(cfg, "planner_calibrate", False)
     for cfg in (ref_config, port_config):
         monkeypatch.setattr(cfg, "fault", "")
     out = {}
@@ -345,7 +349,8 @@ def test_not_ported_kernel_paths_raise(monkeypatch):
     driver; it raised until the driver was ported, and now drops the
     reference's documents with the reference's stats."""
     from repro.data.pipeline import DedupPipeline as RefPipeline
-    monkeypatch.setattr(ref_config, "planner_calibrate", False)
+    for cfg in (ref_config, port_config):
+        monkeypatch.setattr(cfg, "planner_calibrate", False)
     sets = sample_sets(n_r=8, n_s=6)[0]
     docs = np.asarray([np.resize(x, 4) for x in sets] + [[1, 2, 3, 4]])
     ref = RefPipeline(repro.as_collection(sets), threshold=0.5)

@@ -20,6 +20,7 @@ from repro.core import distributed as ref_dist
 from repro.core import partition as ref_part
 from repro.core.config import global_config as ref_config
 from repro_torch.core import distributed as port_dist
+from repro_torch.core.config import global_config as port_config
 from repro_torch.core import partition as port_part
 from tests._mr_cases import (MEASURES, SHARD_COUNTS, THRESHOLDS, both,
                              run_both, same, sample_sets)
@@ -28,7 +29,8 @@ from tests._mr_cases import (MEASURES, SHARD_COUNTS, THRESHOLDS, both,
 @pytest.fixture(autouse=True)
 def uncalibrated(monkeypatch):
     """Both planners score with ``DEFAULT_COEFFS``."""
-    monkeypatch.setattr(ref_config, "planner_calibrate", False)
+    for cfg in (ref_config, port_config):
+        monkeypatch.setattr(cfg, "planner_calibrate", False)
 
 
 @pytest.fixture(scope="module")

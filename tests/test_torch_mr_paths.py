@@ -7,7 +7,8 @@ Pallas kernels in interpret mode, so two calls a measure), both
 strategies and pad modes, a tiny ``pair_capacity`` (regrows), empty
 collections and empty shards, a mixed per-shard ``auto`` plan, the front
 door (``repro_torch.join(n_shards=)``, ``DedupPipeline.filter_batch``),
-``mesh=`` (not ported) and the MR kwarg lattice's error texts.
+``mesh=`` with a foreign mesh object and the MR kwarg lattice's error
+texts.
 """
 import numpy as np
 import pytest
@@ -20,7 +21,7 @@ from repro.data.pipeline import DedupPipeline as RefPipeline
 from repro_torch.core import distributed as port_dist
 from repro_torch.core.config import global_config as port_config
 from repro_torch.core.planner import PlannerError
-from repro_torch.errors import NotPortedError
+from repro_torch.errors import MeshTypeError
 from tests._mr_cases import (MEASURES, THRESHOLDS, assert_same_stats,
                              both, run_both, sample_sets)
 
@@ -28,7 +29,8 @@ from tests._mr_cases import (MEASURES, THRESHOLDS, assert_same_stats,
 @pytest.fixture(autouse=True)
 def uncalibrated(monkeypatch):
     """Both planners score with ``DEFAULT_COEFFS``."""
-    monkeypatch.setattr(ref_config, "planner_calibrate", False)
+    for cfg in (ref_config, port_config):
+        monkeypatch.setattr(cfg, "planner_calibrate", False)
 
 
 @pytest.fixture(scope="module")
@@ -158,11 +160,14 @@ def test_filter_batch_matches_reference(method):
 
 
 def test_mesh_raises_not_ported(collections):
+    """``mesh=`` raised ``NotPortedError`` until the multi-device path
+    was ported; now an object that is not the port's ``Mesh`` raises the
+    named ``MeshTypeError`` in the driver and in the pipeline."""
     _, _, Rt, St = collections
-    with pytest.raises(NotPortedError, match="item 9"):
+    with pytest.raises(MeshTypeError, match="builtins.object"):
         port_dist.mr_cf_rs_join(Rt, St, 0.5, 2, mesh=object(), device="cpu")
     pipe = repro_torch.DedupPipeline(St, mesh=object(), device="cpu")
-    with pytest.raises(NotPortedError, match="item 9"):
+    with pytest.raises(MeshTypeError, match="make_host_mesh"):
         pipe.filter_batch(np.asarray([[1, 2, 3]]))
 
 

@@ -62,11 +62,11 @@ assert ORACLE
 
 @pytest.fixture(autouse=True)
 def fault_free_env(monkeypatch):
-    """No REPRO_FAULT plan from the environment; the reference plans
-    uncalibrated, as the port does."""
+    """No REPRO_FAULT plan from the environment; both packages plan
+    uncalibrated."""
     for cfg in (ref_config, port_config):
         monkeypatch.setattr(cfg, "fault", "")
-    monkeypatch.setattr(ref_config, "planner_calibrate", False)
+        monkeypatch.setattr(cfg, "planner_calibrate", False)
 
 
 def counters(st: dict) -> dict:
