@@ -44,7 +44,11 @@ through these phases, in order; any failure raises and exits non-zero:
      launch K6, K1, K3 or K5. Each host baseline (``core/baselines.py``)
      runs once in a worker on a 1 000 x 1 000 kosarak slice at Jaccard
      t = 0.8, and its pairs must equal the card's ``lfvt`` join of the
-     slice. The pool is done before any timed phase starts;
+     slice. The one-call wrappers of ``kernels/ops.py`` (``OPS_CALLS``:
+     ``join_pairs`` for ``bitmap`` (K2), ``onehot`` (K4), ``lfvt`` (K1)
+     and ``lfvt_ref``, and ``lfvt_walk_join_mask`` (K1)) run once each
+     on the card and in a worker at Jaccard t = 0.5: equal pairs and
+     stats. The pool is done before any timed phase starts;
   3. join phase: ``repro_torch.join(R, S, 0.8, method="lfvt")`` on the
      card with the ``livej``-shaped dataset (|R| = |S| = 100 000), the K1
      launch count read around it, and its pairs for 64 sampled R rows
@@ -117,7 +121,21 @@ through these phases, in order; any failure raises and exits non-zero:
      top-2 gap exceeds it (the steps compared are printed; the weights as
      drawn, before the rescaling, are compared too and only logged); then
      the prefill and 3 decode steps under ``torch.profiler`` (device-busy
-     time, K7's share, the idle share, device events per step);
+     time, K7's share, the idle share, device events per step); then the
+     other families (``FAMILY_RUNS``), each at full width from seeded
+     bf16 weights made on the card (attention conditioned), freed before
+     the next: qwen2-moe-a2.7b (24 layers, 8 x 2 048 tokens),
+     recurrentgemma-2b (26 layers, 4 x 4 096 tokens: K7 at D = 256 with
+     its 2 048 window, the ring cache wrapping), xlstm-350m (24 layers,
+     4 x 512), musicgen-large (48 layers, 4 x 1 024, D = 64), llava-
+     next-34b (16 of 60 layers, the 576-patch stub through
+     ``prefill(extra_embeds=)`` and 8 decode steps) and phi3.5-moe (8
+     of 32 layers, 8 x 256 tokens, 8 decode steps); each prefill must
+     launch K7 once per attention layer, and its last-token logits must
+     agree with an ``attn_impl="jnp"`` build's within ``LLM_LOGIT_TOL``
+     (the MoE builds under the flash build's routing, ``RouteLog``,
+     with the share of (token, layer) top-k sets they route alike on
+     their own logged);
   7. kernel phase: the 1024-row R block, as ``cf_rs_join_device`` cuts
      it, that holds the most paired rows of the join, against the full S, at
      t = 0.8 and t = 0.5: K1 (size-sorted and tile-padded as its dispatch
@@ -142,11 +160,14 @@ through these phases, in order; any failure raises and exits non-zero:
      KV heads, read in place: B = 8, L = 2 048, D = 128), the same shape
      in the merged (B*H, L, D) layout, a ragged L = 2 000, the
      starcoder2-3b shape with its window (24 heads, L = 8 192, window
-     4 096; merged, and with its 2 KV heads in place) and two float32
-     cases, each timed beside its bound and, without a window, beside
-     one ``scaled_dot_product_attention(is_causal=True)`` (with
-     ``enable_gqa=True`` for the in-place cases); the bf16 kernel's
-     registers and spills as ``nvcc -Xptxas -v`` reports them;
+     4 096; merged, and with its 2 KV heads in place), two float32
+     cases, the recurrentgemma-2b prefill (B = 4, L = 4 096, 10 heads on
+     1 KV head of D = 256, window 2 048) and a float32 D = 256 case, each
+     timed beside its bound and beside one
+     ``scaled_dot_product_attention`` (``is_causal=True``, or the
+     window's band as a boolean mask; ``enable_gqa=True`` for the
+     in-place cases); the bf16 kernel's registers and spills as ``nvcc
+     -Xptxas -v`` reports them;
   8. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Exits 2 without a result when torch sees no CUDA device. ``python3
@@ -296,6 +317,31 @@ MAIN_RUN = {"K1": "lfvt", "K2": "kernel_bitmap", "K3": "auto",
             "K7": "llm_prefill"}
 #: TPU kernels without a counterpart on the card: none since K7
 NOT_PORTED: list = []
+# item 13's one-call wrappers of kernels/ops.py at the measures size
+# (|R| = |S| = 4 000), Jaccard t = OPS_T, on the card and in a CPU
+# worker: (label, dataset); "walk_mask" is lfvt_walk_join_mask, the
+# others join_pairs(label, ...)
+OPS_CALLS = (("bitmap", "kosarak"), ("onehot", "kosarak"),
+             ("lfvt", "dblp"), ("lfvt_ref", "dblp"), ("walk_mask", "dblp"))
+OPS_T = 0.5
+OPS_STATS = ("pair_count", "live_tiles", "total_tiles", "dense_mask_bytes",
+             "pair_bytes", "counts_bytes", "output_bytes", "regrows",
+             "walk_steps", "early_stops", "walk_vmem_tile_bytes")
+# the model-families phase: (arch, layers kept (None: all), prompts,
+# prompt tokens, greedy tokens). Width is always full. llava-next-34b
+# keeps 16 of its 60 layers (34.4 B parameters would be 68.9 GB in bf16,
+# and init_params draws a leaf whole in float32: the MLP leaf alone would
+# be 35 GB) and serves its 576-patch stub through prefill(extra_embeds=)
+# and 8 decode steps; phi3.5-moe keeps 8 of 32 (41.9 B parameters, 83.8
+# GB in bf16, do not fit in 80 GB)
+FAMILY_RUNS = (
+    ("qwen2-moe-a2.7b", None, 8, 2048, 16),
+    ("recurrentgemma-2b", None, 4, 4096, 16),
+    ("xlstm-350m", None, 4, 512, 16),
+    ("musicgen-large", None, 4, 1024, 16),
+    ("llava-next-34b", 16, 4, 64, 9),
+    ("phi3.5-moe-42b-a6.6b", 8, 8, 256, 9),
+)
 # the LLM serve phase: qwen2-1.5b at full width and depth, bf16
 LLM_ARCH = "qwen2-1.5b"
 LLM_BATCH = 8              # prompts served together
@@ -333,7 +379,13 @@ K7_CASES = (
     ("float32", 1, 300, 4, None, 64, None, torch.float32),
     ("float32 windowed, GQA in place", 2, 300, 4, 2, 128, 50,
      torch.float32),
+    ("recurrentgemma-2b prefill, window 2048, MQA in place", 4, 4096, 10, 1,
+     256, 2048, torch.bfloat16),
+    ("D=256 ragged causal, float32", 1, 1000, 2, 1, 256, None,
+     torch.float32),
 )
+#: the K7 case of RecurrentGemma's head dim 256, timed for its own row
+K7_D256 = "recurrentgemma-2b prefill, window 2048, MQA in place"
 #: K7's kernels as torch.profiler names them
 K7_KERNEL_NAMES = ("flash_attention_wgmma", "flash_attention_f32")
 # the reference's tolerances for K7 (tests/test_flash_attention.py):
@@ -1652,6 +1704,243 @@ def last_logits_rel_l2(model, plain, params, toks) -> float:
     return float((lf - lp).norm() / lp.norm())
 
 
+def ops_call(label, dataset, device=None):
+    """One of item 13's one-call wrappers (``kernels/ops.py``) on the
+    measures data at Jaccard t = OPS_T, S sorted by size, Lemma-3.1
+    windows -> (pair digest, stats). ``bitmap`` and ``onehot`` take the
+    two sides' bitmaps (K2, K4 on the card); ``lfvt`` / ``lfvt_ref`` the
+    S side's FlatLFVT and R's padded lists (K1; the whole-block walk);
+    ``walk_mask`` is ``lfvt_walk_join_mask`` (K1), its mask's pairs."""
+    from repro_torch.core.tile_join import window_bounds
+    from repro_torch.kernels import ops
+    dev = torch.device(device or "cuda")
+    R, S = measures_data(dataset)
+    Ss = S.sort_by_size()
+    lo, hi = window_bounds(R.sizes(), Ss.sizes(), OPS_T, "jaccard")
+    if label in ("bitmap", "onehot"):
+        W = (max(R.universe, Ss.universe) + 31) // 32
+        args = (torch.tensor(R.bitmaps(W).view(np.int32), device=dev),
+                R.sizes().astype(np.int32),
+                torch.tensor(Ss.bitmaps(W).view(np.int32), device=dev),
+                Ss.sizes().astype(np.int32), lo, hi)
+    else:
+        r_pad, r_sz = R.padded()
+        args = (Ss.flat_lfvt(), torch.tensor(r_pad, device=dev), r_sz, lo,
+                hi)
+    st: dict = {}
+    if label == "walk_mask":
+        rows, cols = np.nonzero(ops.lfvt_walk_join_mask(*args, OPS_T,
+                                                        stats=st))
+    else:
+        pairs, n = ops.join_pairs(label, *args, OPS_T, stats=st)
+        rows, cols = pairs[:n].cpu().numpy().T
+    return pair_digest(rows, cols), {k: st.get(k) for k in OPS_STATS}
+
+
+def cpu_ops_call(task):
+    """Pool worker: ``ops_call`` on the CPU -> (its result, seconds)."""
+    t0 = time.perf_counter()
+    out = ops_call(*task, device="cpu")
+    return out, time.perf_counter() - t0
+
+
+def ops_compare(ops_async) -> None:
+    """Item 13's wrappers on the card (K2, K4, K1 launched) against the
+    CPU workers': equal pairs and stats."""
+    t0 = time.perf_counter()
+    card = []
+    for label, dataset in OPS_CALLS:
+        out, launches = counted(lambda: ops_call(label, dataset))
+        want = {"bitmap": "K2", "onehot": "K4", "lfvt": "K1",
+                "walk_mask": "K1"}.get(label)
+        if want and launches[want] <= 0:
+            raise AssertionError(f"ops {label} never launched {want}")
+        card.append((out, launches))
+    card_s = time.perf_counter() - t0
+    cpu = ops_async.get()
+    for (label, dataset), (got, launches), (want, sec) in zip(
+            OPS_CALLS, card, cpu):
+        if got != want:
+            raise AssertionError(f"ops {label} on {dataset}: card {got} "
+                                 f"vs cpu {want}")
+        log(f"[ops] {label} ({dataset}, jaccard t={OPS_T}) card == cpu: "
+            f"pairs={got[0][0]} stats={json.dumps(got[1])} "
+            f"launches={ {k: n for k, n in launches.items() if n} } "
+            f"cpu_worker_s={sec:.3f}")
+    log(f"[ops] card side s={card_s:.3f}")
+
+
+class RouteLog:
+    """Stands in for ``models.moe.route``: records each call's top-k
+    experts and, with ``replay`` set (the calls of another run, in
+    order), routes to those experts instead, weighting them by this
+    run's own renormalised probabilities. Top-k is discontinuous: a near
+    tie that bf16 rounding flips is not the attention kernel's error, so
+    the flash and plain MoE builds are compared under one routing."""
+
+    def __init__(self, route, replay=None):
+        self.route, self.replay, self.calls = route, replay, []
+
+    def __call__(self, router, xt, moe_cfg, n_experts):
+        probs, top_w, top_e = self.route(router, xt, moe_cfg, n_experts)
+        self.calls.append(top_e)
+        if self.replay is not None:
+            top_e = self.replay[len(self.calls) - 1]
+            w = probs.gather(1, top_e)
+            top_w = w / w.sum(dim=-1, keepdim=True)
+        return probs, top_w, top_e
+
+
+def routed_alike(a, b) -> float:
+    """Share of (token, layer) top-k sets two runs' ``RouteLog``s hold in
+    common."""
+    same = sum(int((x.sort(dim=-1).values == y.sort(dim=-1).values)
+                   .all(dim=-1).sum()) for x, y in zip(a, b))
+    return same / sum(x.shape[0] for x in a)
+
+
+def family_run(name, layers, batch, prompt, new, runs, dev):
+    """Serve one arch on the card: seeded bf16 weights made there, an
+    ``attn_impl="flash"`` build against an ``attn_impl="jnp"`` one on the
+    same weights; the counted prefill's launches go to
+    ``runs["family " + name]``."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.models import moe
+    from repro_torch.models.frontend import make_frontend_stub
+    from repro_torch.models.params import init_params, tree_leaves
+    cfg = dataclasses.replace(repro_torch.get_config(name),
+                              attn_impl="flash")
+    full_layers = cfg.n_layers
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    model = repro_torch.build_model(cfg)
+    plain = repro_torch.build_model(dataclasses.replace(cfg,
+                                                        attn_impl="jnp"))
+    n_attn = cfg.layer_kinds().count("attn")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    params = init_params(model.param_specs(),
+                         torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    if n_attn:
+        condition_attention(params, model.dims, cfg.d_model)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_phase
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (batch, prompt)).astype(
+        np.int32)
+    toks = torch.from_numpy(prompts).to(dev)
+    extra = make_frontend_stub(cfg, batch, rng, device=dev).get(
+        "extra_embeds")
+    n_stub = 0 if extra is None else extra.shape[1]
+    cache = n_stub + prompt + new
+    label = f"family {name}"
+
+    def prefill(m):
+        with torch.inference_mode():
+            return m.prefill(params, toks, cache, extra_embeds=extra)
+
+    def serve():
+        """Prefill, then greedy decode: the engine, or the same loop
+        by hand where the stub embeddings go in (the engine takes
+        tokens only)."""
+        if extra is None:
+            return repro_torch.ServeEngine(model, params, max_seq_len=cache
+                                           ).generate(prompts, new)
+        with torch.inference_mode():
+            logits, state = prefill(model)
+            out = [logits[:, -1].argmax(dim=-1).int()[:, None]]
+            for step in range(new - 1):
+                logits, state = model.decode_step(
+                    params, out[-1], n_stub + prompt + step, state)
+                out.append(logits[:, -1].argmax(dim=-1).int()[:, None])
+        return torch.cat(out, dim=1).cpu().numpy()
+
+    prefill(model)   # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, runs[label] = counted(lambda: prefill(model))
+    prefill_s = time.perf_counter() - t0
+    if runs[label]["K7"] != n_attn:
+        raise AssertionError(f"{name}: the prefill launched K7 "
+                             f"{runs[label]['K7']} times, not once per "
+                             f"attention layer ({n_attn})")
+    t0 = time.perf_counter()
+    out, gen_runs = counted(serve)
+    gen_s = time.perf_counter() - t0
+    if (out.shape != (batch, new) or out.min() < 0
+            or out.max() >= cfg.vocab_size or gen_runs["K7"] != n_attn):
+        raise AssertionError(f"{name}: generated {out.shape} tokens in "
+                             f"[{out.min()}, {out.max()}], K7 launches "
+                             f"{gen_runs['K7']}")
+    peak = torch.cuda.max_memory_allocated()
+
+    # flash against plain attention on the same weights; the MoE builds
+    # under the flash build's routing (RouteLog), their own routing's
+    # agreement logged
+    route = moe.route
+    note = ""
+    try:
+        if cfg.moe is not None:
+            moe.route = flash_log = RouteLog(route)
+            lf = prefill(model)[0][:, -1].float()
+            moe.route = own_log = RouteLog(route)
+            free = prefill(plain)[0][:, -1].float()
+            moe.route = RouteLog(route, replay=flash_log.calls)
+            lp = prefill(plain)[0][:, -1].float()
+            note = (f" routed_alike={routed_alike(flash_log.calls, own_log.calls):.5f}"
+                    f" ((token, layer) top-{cfg.moe.top_k} sets, own "
+                    f"routing) own_routing_max_err_over_max_logit="
+                    f"{float(((lf - free).abs().amax(dim=-1) / free.abs().amax(dim=-1)).max()):.4f}")
+        else:
+            lf = prefill(model)[0][:, -1].float()
+            lp = prefill(plain)[0][:, -1].float()
+    finally:
+        moe.route = route
+    if not (torch.isfinite(lf).all() and torch.isfinite(lp).all()):
+        raise AssertionError(f"{name}: the prefill logits are not finite")
+    err = (lf - lp).abs().amax(dim=-1)
+    tol = LLM_LOGIT_TOL * lp.abs().amax(dim=-1)
+    if (err > tol).any():
+        raise AssertionError(f"{name}: flash and plain prefill logits "
+                             f"differ by {err.tolist()} (tolerance "
+                             f"{tol.tolist()})")
+    wall = time.perf_counter() - t_phase
+    log(f"[family {name}] family={cfg.family} layers={cfg.n_layers}"
+        f"{'' if layers is None else f' of {full_layers}'} kinds="
+        f"{ {k: cfg.layer_kinds().count(k) for k in dict.fromkeys(cfg.layer_kinds())} } "
+        f"d_model={cfg.d_model} heads={cfg.n_heads} kv_heads="
+        f"{cfg.n_kv_heads} head_dim={cfg.resolved_head_dim} window="
+        f"{cfg.window} params={n_params} weight_bytes={2 * n_params} "
+        f"init_s={init_s:.3f} prompts={batch}x{prompt}"
+        f"{f'+{n_stub} stub' if n_stub else ''} new_tokens={new} "
+        f"prefill_s={prefill_s:.4f} generate_s={gen_s:.3f} "
+        f"decode_ms_per_step={(gen_s - prefill_s) / max(new - 1, 1) * 1e3:.2f} "
+        f"max_memory_allocated={peak} launches={runs[label]}; flash vs "
+        f"plain last-token logits max_err_over_max_logit="
+        f"{float((err / lp.abs().amax(dim=-1)).max()):.4f} (tolerance "
+        f"{LLM_LOGIT_TOL}){note} wall_s={wall:.3f}")
+    del params, toks, extra, lf, lp
+    torch.cuda.empty_cache()
+    return wall, peak
+
+
+def families_phase(runs, dev) -> None:
+    """Serve every other family on the card (``FAMILY_RUNS``), each model
+    freed before the next."""
+    t0 = time.perf_counter()
+    walls = {}
+    for name, layers, batch, prompt, new in FAMILY_RUNS:
+        walls[name] = family_run(name, layers, batch, prompt, new, runs,
+                                 dev)
+    log(f"[families] phase_s={time.perf_counter() - t0:.3f} (wall_s, "
+        f"peak bytes) per arch: {json.dumps(walls)}")
+
+
 def k7_pairs(l, window):
     """(q, k) pairs K7's masks keep in one head: sum over q < l of
     min(q + 1, window)."""
@@ -1661,8 +1950,8 @@ def k7_pairs(l, window):
 
 def k7_check(label, b, l, h, kv, d, window, dtype, dev):
     """K7 against its plain version on seeded normal q, k, v -> a dict of
-    its numbers: error, times, bound, and SDPA's time where the case has
-    no window. ``kv`` None: the merged (B*H, L, D) layout through
+    its numbers: error, times, bound, and SDPA's time (causal, or with
+    the window's band as a boolean mask; not for float32 windows). ``kv`` None: the merged (B*H, L, D) layout through
     ``flash_attention_bhld``; else q (B, L, H, D) and k, v (B, L, KV, D)
     through ``flash_attention_blhd``."""
     from repro_torch.kernels import flash_attention as fa
@@ -1700,9 +1989,19 @@ def k7_check(label, b, l, h, kv, d, window, dtype, dev):
         ev[1]), tol=tol)
     del want, diff
     out["ms"] = cuda_ms(lambda: kernel(q, k, v, **kw), 20)
-    out["library_ms"] = (cuda_ms(lambda: sdpa(q4, k4, v4, is_causal=True,
-                                              enable_gqa=gqa), 20)
-                         if window is None else None)
+    if window is None:
+        out["library_ms"] = cuda_ms(lambda: sdpa(
+            q4, k4, v4, is_causal=True, enable_gqa=gqa), 20)
+    elif dtype == torch.bfloat16:
+        # SDPA takes no window: the causal band as a boolean mask
+        pos = torch.arange(l, device=dev)
+        band = ((pos[None, :] <= pos[:, None])
+                & (pos[None, :] > pos[:, None] - window))
+        out["library_ms"] = cuda_ms(lambda: sdpa(
+            q4, k4, v4, attn_mask=band, enable_gqa=gqa), 20)
+        del band
+    else:
+        out["library_ms"] = None
     # Q and O at H heads, K and V at the heads the kernel reads
     moved = 2 * (h + kv_heads) * b * l * d * q.element_size()
     flops = 4 * b * h * k7_pairs(l, window) * d
@@ -2342,6 +2641,7 @@ def main() -> int:
         mr_cfgs = mr_configs()
         mr_async = pool.map_async(cpu_mr_join, mr_cfgs, chunksize=1)
         base_async = pool.map_async(cpu_baseline, BASELINES, chunksize=1)
+        ops_async = pool.map_async(cpu_ops_call, OPS_CALLS, chunksize=1)
 
         # ---- phase 2: the measures phase ----------------------------- #
         cuda_out, fronts, sizes = measures_cuda(configs)
@@ -2351,6 +2651,7 @@ def main() -> int:
         measures_compare(configs, cuda_out, fronts, sizes, cpu_async)
         mr_measures_compare(mr_cfgs, mr_out, mr_async)
         baselines_compare(base_async)
+        ops_compare(ops_async)
         R, S = livej_async.get()
         gen_s = time.perf_counter() - t0
     finally:
@@ -2489,6 +2790,9 @@ def main() -> int:
     t0 = time.perf_counter()
     llm_phase(runs, dev)
     log(f"[llm] phase_s={time.perf_counter() - t0:.3f}")
+
+    # ---- phase 6b: the other model families (K7 at D = 64, 128, 256) -- #
+    families_phase(runs, dev)
     for kid, label in MAIN_RUN.items():
         if runs[label][kid] <= 0:
             raise AssertionError(f"the {label} run never launched {kid}")
@@ -2656,7 +2960,11 @@ def main() -> int:
             f"{c['bound_ms'] / c['ms']:.3f} tflops="
             f"{c['flops'] / c['ms'] / 1e9:.1f} sdpa_ms={lib} over_sdpa="
             f"{c['ms'] / lib if lib else None}")
+    d256 = k7[[case[0] for case in K7_CASES].index(K7_D256)]
     kernels["K7"] = dict(
+        d256={key: d256[key] for key in ("label", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms", "max_abs_err")},
         max_abs_err=max(c["max_abs_err"] for c in k7), ms=k7[0]["ms"],
         plain_ms=k7[0]["plain_ms"], bound_ms=k7[0]["bound_ms"],
         bound_by=k7[0]["bound_by"], library_ms=k7[0]["library_ms"],

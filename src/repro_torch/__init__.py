@@ -14,7 +14,7 @@ The public surface mirrors the JAX package's front door::
     from repro_torch.models.params import init_params
     cfg = dataclasses.replace(repro_torch.get_config("qwen2-1.5b"),
                               attn_impl="flash")
-    model = repro_torch.build_model(cfg)          # a dense transformer
+    model = repro_torch.build_model(cfg)          # any of the 10 archs
     params = init_params(model.param_specs(), torch.Generator(device="cuda"))
     tokens = repro_torch.ServeEngine(model, params).generate(prompts, 32)
 
@@ -47,6 +47,7 @@ _EXPORTS = {
     "Mesh": "repro_torch.launch.mesh",
     "make_host_mesh": "repro_torch.launch.mesh",
     "ServeEngine": "repro_torch.serve.engine",
+    "make_frontend_stub": "repro_torch.models.frontend",
     "build_model": "repro_torch.models.transformer",
     "get_config": "repro_torch.configs",
     "NotPortedError": "repro_torch.errors",

@@ -1,11 +1,9 @@
 """Architecture configs of the port. ``get_config(name)`` resolves every
-arch the JAX package names; the dense transformers are ported, the other
-families raise :class:`~repro_torch.errors.NotPortedError`."""
+arch the JAX package names, each family's included (dense, moe, audio,
+vlm, ssm, hybrid)."""
 from __future__ import annotations
 
 import importlib
-
-from ..errors import NotPortedError
 
 ARCHS = [
     "phi3_5_moe_42b",
@@ -34,24 +32,9 @@ ALIASES = {
     "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
-#: the archs whose family the port does not run yet -> that family
-NOT_PORTED = {
-    "phi3_5_moe_42b": "moe",
-    "qwen2_moe_a2_7b": "moe",
-    "musicgen_large": "audio",
-    "llava_next_34b": "vlm",
-    "xlstm_350m": "ssm",
-    "recurrentgemma_2b": "hybrid",
-}
-
 
 def get_config(name: str, smoke: bool = False):
     mod_name = ALIASES.get(name, name)
-    if mod_name in NOT_PORTED:
-        raise NotPortedError(
-            f"arch {name!r} is of the {NOT_PORTED[mod_name]!r} family, which "
-            "the port does not run yet (only the dense transformers: "
-            "qwen2-1.5b, starcoder2-3b, granite-3-8b, minitron-8b)")
     if mod_name not in ARCHS:
         raise ValueError(f"unknown arch {name!r}; known: {sorted(ALIASES)}")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")

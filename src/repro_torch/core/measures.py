@@ -52,6 +52,7 @@ __all__ = [
     "Measure",
     "MEASURES",
     "get_measure",
+    "measure_names",
     "threshold_fraction",
     "device_qualify",
     "numpy_qualify",
@@ -284,6 +285,10 @@ class Overlap(Measure):
 MEASURES: dict[str, Measure] = {
     m.name: m for m in (Jaccard(), Cosine(), Dice(), Overlap())
 }
+
+
+def measure_names() -> tuple[str, ...]:
+    return tuple(MEASURES)
 
 
 def get_measure(measure: str | Measure) -> Measure:

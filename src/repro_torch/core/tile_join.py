@@ -49,6 +49,7 @@ __all__ = [
     "cf_rs_join_device",
     "cf_rs_join_device_ids",
     "round_capacity",
+    "PAIR_CAP_GRAIN",
 ]
 
 #: byte budget of a plain version's staged intermediate (the popcount's
@@ -176,6 +177,11 @@ def window_bounds(r_sizes: np.ndarray, s_sizes_desc: np.ndarray, t: float,
     # one past last index with size >= lo_size:
     hi = n - np.searchsorted(asc, lo_size, side="left")
     return lo.astype(np.int64), hi.astype(np.int64)
+
+
+#: the capacity grain at import (``global_config.pair_cap_grain`` is the
+#: live value ``round_capacity`` reads); the kernels layer re-exports it
+PAIR_CAP_GRAIN = global_config.pair_cap_grain
 
 
 def round_capacity(n: int) -> int:

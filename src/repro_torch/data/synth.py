@@ -4,8 +4,10 @@ A copy of the JAX package's generators, so the same ``seed`` yields the
 same collections in both packages. Table-1 statistics drive them:
 per-dataset (collection size, mean/max set length, universe size, Zipf
 exponent). ``scale`` multiplies the collection size only; universe,
-length distribution and skew stay as specified. ``docs_to_sets`` turns
-token documents into element sets for the dedup pipeline.
+length distribution and skew stay as specified. ``make_skew_dataset``
+draws Zipf-sized sets (the shard-skew stressor of the benches), and
+``docs_to_sets`` turns token documents into element sets for the dedup
+pipeline.
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ import numpy as np
 
 from ..core.sets import SetCollection
 
-__all__ = ["DATASETS", "make_join_dataset", "docs_to_sets"]
+__all__ = ["DATASETS", "make_join_dataset", "make_skew_dataset",
+           "docs_to_sets"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,6 +117,38 @@ def make_join_dataset(name: str, scale: float = 1.0, seed: int = 0):
     R = SetCollection.from_ragged(r_sets, universe=spec.universe)
     S = SetCollection.from_ragged(s_sets, universe=spec.universe)
     return R, S
+
+
+def make_skew_dataset(n: int, universe: int, a: float = 1.4, seed: int = 0,
+                      max_len: int | None = None,
+                      element_a: float | None = None):
+    """(R, S) with Zipf(``a``)-distributed *set sizes* — the shard-skew
+    stressor: a handful of huge sets next to a long tail of tiny ones,
+    which is exactly the load pathology Eq. 2-3 partitioning targets.
+
+    ``max_len`` caps the Zipf tail (default ``universe // 4``).
+    ``element_a`` optionally Zipf-skews element *popularity* as well
+    (ids drawn as clipped ``zipf(element_a)`` samples instead of
+    uniformly), so that sets share the head elements and the LFVT grows
+    deep sequences even at ``universe >> n``. The draws are the
+    reference's, call for call, so a seed gives the same collections."""
+    rng = np.random.default_rng(seed)
+    max_len = max_len if max_len is not None else max(universe // 4, 2)
+
+    def side():
+        sizes = np.clip(rng.zipf(a, n), 1, max_len)
+        if element_a is None:
+            return SetCollection.from_ragged(
+                [rng.choice(universe, size=int(s), replace=False)
+                 for s in sizes],
+                universe=universe)
+        return SetCollection.from_ragged(
+            [np.unique(np.minimum(rng.zipf(element_a, size=int(s)) - 1,
+                                  universe - 1))
+             for s in sizes],
+            universe=universe)
+
+    return side(), side()
 
 
 def docs_to_sets(token_batches: np.ndarray, shingle: int = 1,

@@ -14,7 +14,7 @@
 // in float32, p rounded to v's dtype before P.V, and the output divided
 // by max(l, 1e-30).
 //
-// bf16 design (D in {16, 32, 64, 128}). The TPU's sequential (B*H,
+// bf16 design (D in {16, 32, 64, 128}; D = 256 below). The TPU's sequential (B*H,
 // L/bq, L/bk) grid becomes one CTA per (b, h, 128-row q tile), looping
 // over only the 128-key blocks that the causal and window masks leave.
 // CTAs run in groups of 16 heads, each group's tiles heaviest first: the
@@ -43,16 +43,30 @@
 // rules out overlapping one block's softmax with the next block's
 // products inside a warpgroup at 128-key blocks: the attempts spilled.
 //
+// D = 256 (RecurrentGemma's local attention; Tile<256>). O is then 64
+// rows x 256 float32 columns, 128 registers a thread, before S and P: at
+// 288 threads and 168 registers it cannot fit. So a CTA is one consumer
+// warpgroup of 64 query rows and the producer warp (160 threads, up to
+// 255 registers each), over 64-key blocks: S is 32 registers, P 16, and
+// O is held in two parts of 128 columns, each its own m64n128k16 chain
+// against V's second pair of 64-column boxes. Q (64 x 256) and each K and
+// V block are 32 KB, so the ring holds 3 stages beside Q. With one
+// consumer warpgroup there is no turn to pass: a block's softmax leaves
+// the tensor cores idle, the price of a simple layout.
+//
 // float32 (the tests' and the smoke's small cases) keeps a simple
-// CUDA-core kernel: one CTA of 4 warps per (b, h, 64-row q tile), K and
-// V copied with cp.async, a row-at-a-time online softmax and FMA products
-// (no TF32: the reference's float32 tolerance is 2e-5).
+// CUDA-core kernel: one CTA of 4 warps per (b, h, 64-row q tile; 32 rows
+// at D = 256, to fit shared memory), K and V copied with cp.async, a
+// row-at-a-time online softmax and FMA products (no TF32: the reference's
+// float32 tolerance is 2e-5).
 //
 // Bound on this card. 4 * (valid (q, k) pairs) * D flops at the bf16
 // tensor-core rate (989 TFLOP/s dense), against Q, K, V and O each moved
 // once (K and V at KV heads): at the qwen2-1.5b prefill shape (B = 8,
 // H = 12, KV = 2, L = 2048, D = 128) the operations bound it, 0.104 ms
-// against 0.035 ms for the bytes (chip_smoke.py computes both each run).
+// against 0.035 ms for the bytes; at RecurrentGemma's (B = 4, H = 10,
+// KV = 1, L = 4096, D = 256, window 2048) about 0.26 ms against 0.055 ms
+// (chip_smoke.py computes both each run).
 #include <cuda.h>  // CUtensorMap and its enums only: no driver call is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,29 +85,42 @@ struct Strides {
 // ===================================================================== //
 // bf16: TMA ring + wgmma
 // ===================================================================== //
-constexpr int kBm = 128;       // query rows per CTA: two warpgroups of 64
-constexpr int kBk = 128;       // keys per block
 constexpr int kWgThreads = 128;
-// two consumer warpgroups (wgmma wants them warpgroup-aligned), then one
-// producer warp
-constexpr int kThreadsBf16 = 2 * kWgThreads + 32;
-constexpr int kConsumerWarps = 8;
 constexpr int kHeadGroup = 16;  // CTAs run in groups of this many heads
 
 constexpr int kSmemMax = 232448;  // bytes of shared memory a CTA may use
+
+// The bf16 kernel's tiling by head dim. D <= 128: two consumer
+// warpgroups (wgmma wants them warpgroup-aligned) of 64 query rows and
+// 128-key blocks. D = 256: one consumer warpgroup and 64-key blocks: its
+// O accumulator alone is 128 registers a thread, and a 128-key block's S
+// and P beside it would not fit in 255. Either way one producer warp
+// follows the consumers. O is held in parts of at most 128 columns, one
+// wgmma chain (m64n128k16 at most) each.
+template <int D>
+struct Tile {
+  static constexpr int kWgs = D <= 128 ? 2 : 1;  // consumer warpgroups
+  static constexpr int kBm = 64 * kWgs;          // query rows per CTA
+  static constexpr int kBk = D <= 128 ? 128 : 64;  // keys per block
+  static constexpr int kThreads = kWgs * kWgThreads + 32;
+  static constexpr int kConsumerWarps = 4 * kWgs;
+  static constexpr int kParts = D > 128 ? D / 128 : 1;  // O's column parts
+  static constexpr int kN = D / kParts;                 // columns a part
+};
 
 // Shared memory of one CTA (byte offsets from a 1024-byte aligned base;
 // every tile starts on a 1024-byte boundary, as the 128-byte swizzle
 // wants). A tile of R rows x D columns is D / kCols boxes of R rows x
 // kCols columns, one after the other; a box row is kSwizzle bytes. The
-// K/V ring has as many stages as fit, up to 4 (3 at D = 128).
+// K/V ring has as many stages as fit, up to 4 (3 at D = 128 and at
+// D = 256, whose Q tile and K, V blocks are 32 KB each).
 template <int D>
 struct Smem {
   static constexpr int kCols = D < 64 ? D : 64;
   static constexpr int kSwizzle = 2 * kCols;  // 32, 64 or 128 bytes
   static constexpr int kBoxes = D / kCols;
-  static constexpr int kQBytes = kBm * D * 2;
-  static constexpr int kKVBytes = kBk * D * 2;
+  static constexpr int kQBytes = Tile<D>::kBm * D * 2;
+  static constexpr int kKVBytes = Tile<D>::kBk * D * 2;
   static constexpr int kFit = (kSmemMax - 2048 - kQBytes) / (2 * kKVBytes);
   static constexpr int kStages = kFit < 4 ? kFit : 4;
   static constexpr int kQ = 0;
@@ -216,6 +243,21 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : F8(0), F8(8), F8(16), F8(24)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_rs(float (&d)[8],
                                          const uint32_t (&a)[4],
                                          uint64_t b) {
@@ -333,30 +375,39 @@ __device__ __forceinline__ void turn_pass(int wg) {
 // S = Q K^T of one warpgroup's 64 rows against a key block: D / 16
 // chained wgmmas, both operands K-major in shared memory
 template <int D>
-__device__ __forceinline__ void issue_qk(float (&s)[kBk / 2], uint32_t q_tile,
-                                         uint32_t k_tile) {
+__device__ __forceinline__ void issue_qk(float (&s)[Tile<D>::kBk / 2],
+                                         uint32_t q_tile, uint32_t k_tile) {
   using S = Smem<D>;
+  using T = Tile<D>;
   constexpr int kSw = S::kSwizzle;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int box = 16 * kk / S::kCols;
     const int col_bytes = 2 * (16 * kk % S::kCols);
-    wgmma_ss(s, desc(q_tile + box * kBm * kSw + col_bytes, 16, 8 * kSw, kSw),
-             desc(k_tile + box * kBk * kSw + col_bytes, 16, 8 * kSw, kSw),
+    wgmma_ss(s,
+             desc(q_tile + box * T::kBm * kSw + col_bytes, 16, 8 * kSw, kSw),
+             desc(k_tile + box * T::kBk * kSw + col_bytes, 16, 8 * kSw, kSw),
              kk > 0);
   }
 }
 
-// O += P V: kBk / 16 chained wgmmas, P from registers, V (key, D) read
-// as the MN-major B operand, its 64-column boxes kSwizzle * kBk apart
+// O += P V: per column part of O, kBk / 16 chained wgmmas, P from
+// registers, V (key, D) read as the MN-major B operand, its 64-column
+// boxes kSwizzle * kBk apart (a part of 128 columns starts 2 boxes on)
 template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
-                                         const uint32_t (&p)[kBk / 16][4],
-                                         uint32_t v_tile) {
+__device__ __forceinline__ void issue_pv(
+    float (&o)[Tile<D>::kParts][Tile<D>::kN / 2],
+    const uint32_t (&p)[Tile<D>::kBk / 16][4], uint32_t v_tile) {
+  using T = Tile<D>;
   constexpr int kSw = Smem<D>::kSwizzle;
+  constexpr int kPartBytes = T::kN / Smem<D>::kCols * T::kBk * kSw;
 #pragma unroll
-  for (int j = 0; j < kBk / 16; ++j)
-    wgmma_rs(o, p[j], desc(v_tile + j * 16 * kSw, kBk * kSw, 8 * kSw, kSw));
+  for (int part = 0; part < T::kParts; ++part)
+#pragma unroll
+    for (int j = 0; j < T::kBk / 16; ++j)
+      wgmma_rs(o[part], p[j],
+               desc(v_tile + part * kPartBytes + j * 16 * kSw, T::kBk * kSw,
+                    8 * kSw, kSw));
 }
 
 // The online softmax of one block on the accumulator registers: the
@@ -367,7 +418,7 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
 // accumulator shrinks. kMasked: the block holds a key some row must not
 // see, whose score becomes -1e30 (the reference's); else the max is
 // taken on the raw scores and the scale folded into one FFMA.
-template <bool kMasked>
+template <bool kMasked, int kBk>
 __device__ __forceinline__ void softmax_block(float (&s)[kBk / 2],
                                               uint32_t (&p)[kBk / 16][4],
                                               float (&m)[2], float (&l)[2],
@@ -429,12 +480,12 @@ __device__ __forceinline__ void softmax_block(float (&s)[kBk / 2],
 // (row r0) and 4 i + {2, 3} (row r0 + 8).
 //
 // The blocks this warpgroup skips (every key masked for its rows) are a
-// prefix (before the window) and a suffix (past the diagonal). The two
-// consumer warpgroups take turns to issue S = Q K^T (a named barrier
-// passes the turn once per block), so one's softmax runs while the
-// other's products hold the tensor cores. Each wgmma chain is issued,
-// committed and waited for inside one branch: ptxas serialises chains
-// whose issue and wait lie in different branches.
+// prefix (before the window) and a suffix (past the diagonal). With two
+// consumer warpgroups (D <= 128) they take turns to issue S = Q K^T (a
+// named barrier passes the turn once per block), so one's softmax runs
+// while the other's products hold the tensor cores. Each wgmma chain is
+// issued, committed and waited for inside one branch: ptxas serialises
+// chains whose issue and wait lie in different branches.
 template <int D>
 __device__ __forceinline__ void consume(uint32_t base, int wg, int q_lo,
                                         int kb0, int nblk, int l_real,
@@ -442,6 +493,9 @@ __device__ __forceinline__ void consume(uint32_t base, int wg, int q_lo,
                                         bf16* __restrict__ o_row0,
                                         long long sol) {
   using S = Smem<D>;
+  using T = Tile<D>;
+  constexpr int kBk = T::kBk;
+  constexpr bool kTurns = T::kWgs == 2;
   const Bars bars{base + S::kBar, S::kStages};
   const uint32_t q_tile = base + S::kQ + wg * 64 * S::kSwizzle;
   const int tid = threadIdx.x % kWgThreads, warp = tid / 32, lane = tid % 32;
@@ -459,13 +513,15 @@ __device__ __forceinline__ void consume(uint32_t base, int wg, int q_lo,
     while (last > first && (kb0 + last - 1) * kBk > q_hi) --last;
   }
 
-  float o[D / 2];
+  float o[T::kParts][T::kN / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  for (int part = 0; part < T::kParts; ++part)
+#pragma unroll
+    for (int i = 0; i < T::kN / 2; ++i) o[part][i] = 0.0f;
   // running max (log2 domain) and this thread's share of the running sum
   float m[2] = {kNeg, kNeg}, l[2] = {0.0f, 0.0f};
 
-  if (wg == 1) turn_pass(wg);  // warpgroup 0 issues first
+  if (kTurns && wg == 1) turn_pass(wg);  // warpgroup 0 issues first
   mbar_wait(bars.q, 0);
   for (int it = 0; it < nblk; ++it) {
     const int stage = it % S::kStages;
@@ -475,8 +531,8 @@ __device__ __forceinline__ void consume(uint32_t base, int wg, int q_lo,
     // so that its parities stay in step with the ring; the turn passes
     // once per block (warpgroup 1's last pass would have no taker)
     mbar_wait(bars.full_k(stage), parity);
-    const bool pass = wg == 0 || it + 1 < nblk;
-    turn_wait(wg);
+    const bool pass = kTurns && (wg == 0 || it + 1 < nblk);
+    if (kTurns) turn_wait(wg);
     if (it >= first && it < last) {
       // ---- S = Q K^T -------------------------------------------------
       float s[kBk / 2];
@@ -492,21 +548,25 @@ __device__ __forceinline__ void consume(uint32_t base, int wg, int q_lo,
       float alpha[2];
       uint32_t p[kBk / 16][4];
       if (masked)
-        softmax_block<true>(s, p, m, l, alpha, r0, c2, k0, l_real, window,
-                            scale_log2);
+        softmax_block<true, kBk>(s, p, m, l, alpha, r0, c2, k0, l_real,
+                                 window, scale_log2);
       else
-        softmax_block<false>(s, p, m, l, alpha, r0, c2, k0, l_real, window,
-                             scale_log2);
+        softmax_block<false, kBk>(s, p, m, l, alpha, r0, c2, k0, l_real,
+                                  window, scale_log2);
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i % 4) / 2];
+      for (int part = 0; part < T::kParts; ++part)
+#pragma unroll
+        for (int i = 0; i < T::kN / 2; ++i) o[part][i] *= alpha[(i % 4) / 2];
       // ---- O += P V --------------------------------------------------
       mbar_wait(bars.full_v(stage), parity);
-      fence_regs(o);
+#pragma unroll
+      for (int part = 0; part < T::kParts; ++part) fence_regs(o[part]);
       wgmma_fence();
       issue_pv<D>(o, p, base + S::kV + stage * S::kKVBytes);
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs(o);
+#pragma unroll
+      for (int part = 0; part < T::kParts; ++part) fence_regs(o[part]);
       fence_regs(p);
     } else {
       if (pass) turn_pass(wg);
@@ -524,15 +584,17 @@ __device__ __forceinline__ void consume(uint32_t base, int wg, int q_lo,
     if (row > q_hi) continue;
     bf16* dst = o_row0 + static_cast<long long>(row) * sol + c2;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * i) =
-          __floats2bfloat162_rn(o[4 * i + 2 * r] / den,
-                                o[4 * i + 2 * r + 1] / den);
+    for (int part = 0; part < T::kParts; ++part)
+#pragma unroll
+      for (int i = 0; i < T::kN / 8; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(dst + part * T::kN + 8 * i) =
+            __floats2bfloat162_rn(o[part][4 * i + 2 * r] / den,
+                                  o[part][4 * i + 2 * r + 1] / den);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreadsBf16, 1)
+__global__ void __launch_bounds__(Tile<D>::kThreads, 1)
 flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
@@ -540,6 +602,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
                       int group_size, int l_real, int window,
                       float scale_log2) {
   using S = Smem<D>;
+  using T = Tile<D>;
   constexpr int kSw = S::kSwizzle;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -548,54 +611,54 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
   // CTAs in groups of kHeadGroup (batch, head) pairs, each group's q
   // tiles heaviest first across its heads: the group's K and V stay in
   // L2 while it runs, and the lightest tiles come last
-  const int n_tiles = (l_real + kBm - 1) / kBm;
+  const int n_tiles = (l_real + T::kBm - 1) / T::kBm;
   const int n_bh = gridDim.x / n_tiles;
   const int group = blockIdx.x / (kHeadGroup * n_tiles);
   const int in_group = min(kHeadGroup, n_bh - group * kHeadGroup);
   const int rank = blockIdx.x - group * kHeadGroup * n_tiles;
   const int bh = group * kHeadGroup + rank % in_group;
   const int b = bh / n_heads, h = bh % n_heads;
-  const int q0 = (n_tiles - 1 - rank / in_group) * kBm;
-  const int q_last = min(q0 + kBm - 1, l_real - 1);
+  const int q0 = (n_tiles - 1 - rank / in_group) * T::kBm;
+  const int q_last = min(q0 + T::kBm - 1, l_real - 1);
   const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int kb0 = k_first / kBk, nblk = q_last / kBk - kb0 + 1;
+  const int kb0 = k_first / T::kBk, nblk = q_last / T::kBk - kb0 + 1;
 
   if (threadIdx.x == 0) {
     mbar_init(bars.q, 1);
     for (int s = 0; s < S::kStages; ++s) {
       mbar_init(bars.full_k(s), 1);
       mbar_init(bars.full_v(s), 1);
-      mbar_init(bars.empty(s), kConsumerWarps);
+      mbar_init(bars.empty(s), T::kConsumerWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   const int wg = threadIdx.x / kWgThreads;
-  if (wg < 2) {
+  if (wg < T::kWgs) {
     consume<D>(base, wg, q0 + 64 * wg, kb0, nblk, l_real, window,
-                   scale_log2, o + b * so.b + h * so.h, so.l);
-  } else if (threadIdx.x == 2 * kWgThreads) {
+               scale_log2, o + b * so.b + h * so.h, so.l);
+  } else if (threadIdx.x == T::kWgs * kWgThreads) {
     // ---- producer: one thread issues every copy ----------------------
     const int kvh = h / group_size;
     mbar_expect_tx(bars.q, S::kQBytes);
     for (int c = 0; c < S::kBoxes; ++c)
-      tma_load(base + S::kQ + c * kBm * kSw, &tq, bars.q, c * S::kCols, q0,
-               h, b);
+      tma_load(base + S::kQ + c * T::kBm * kSw, &tq, bars.q, c * S::kCols,
+               q0, h, b);
     for (int it = 0; it < nblk; ++it) {
       const int stage = it % S::kStages;
       if (it >= S::kStages)
         mbar_wait(bars.empty(stage), (it / S::kStages - 1) & 1);
-      const int k0 = (kb0 + it) * kBk;
+      const int k0 = (kb0 + it) * T::kBk;
       const uint32_t off = stage * S::kKVBytes;
       mbar_expect_tx(bars.full_k(stage), S::kKVBytes);
       for (int c = 0; c < S::kBoxes; ++c)
-        tma_load(base + S::kK + off + c * kBk * kSw, &tk, bars.full_k(stage),
-                 c * S::kCols, k0, kvh, b);
+        tma_load(base + S::kK + off + c * T::kBk * kSw, &tk,
+                 bars.full_k(stage), c * S::kCols, k0, kvh, b);
       mbar_expect_tx(bars.full_v(stage), S::kKVBytes);
       for (int c = 0; c < S::kBoxes; ++c)
-        tma_load(base + S::kV + off + c * kBk * kSw, &tv, bars.full_v(stage),
-                 c * S::kCols, k0, kvh, b);
+        tma_load(base + S::kV + off + c * T::kBk * kSw, &tv,
+                 bars.full_v(stage), c * S::kCols, k0, kvh, b);
     }
   }
 }
@@ -604,53 +667,58 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
 // float32: CUDA-core FMAs, cp.async
 // ===================================================================== //
 constexpr int kThreadsF32 = 128;  // 4 warps
-constexpr int kBqF32 = 64;        // query rows per CTA (16 per warp)
 constexpr int kBkF32 = 64;        // keys per block
+
+// query rows per CTA: 64 (16 a warp), 32 at D = 256, where 64 rows of Q
+// and O beside the K and V blocks would pass the shared memory
+__host__ __device__ constexpr int rows_f32(int d) { return d <= 128 ? 64 : 32; }
 
 __host__ __device__ constexpr size_t align128(size_t x) {
   return (x + 127) / 128 * 128;
 }
 
 // Shared memory of the float32 kernel: byte offsets (128-byte aligned)
-// and row strides in elements, each row padded by 16 bytes.
+// and row strides in elements, each row padded by 16 bytes; bq query rows.
 struct LayoutF32 {
-  int ldt, lds, ldo;
+  int bq, ldt, lds, ldo;
   size_t q, k, v, s, o, m, l, a, total;
 };
 
 __host__ __device__ LayoutF32 layout_f32(int d) {
   LayoutF32 L;
+  L.bq = rows_f32(d);
   L.ldt = d + 4;       // Q, K, V tiles
   L.lds = kBkF32 + 4;  // scores, then P
   L.ldo = d + 4;       // O
   size_t off = 0;
   L.q = off;
-  off = align128(off + 4 * kBqF32 * L.ldt);
+  off = align128(off + 4 * L.bq * L.ldt);
   L.k = off;
   off = align128(off + 4 * kBkF32 * L.ldt);
   L.v = off;
   off = align128(off + 4 * kBkF32 * L.ldt);
   L.s = off;
-  off = align128(off + 4 * kBqF32 * L.lds);
+  off = align128(off + 4 * L.bq * L.lds);
   L.o = off;
-  off = align128(off + 4 * kBqF32 * L.ldo);
+  off = align128(off + 4 * L.bq * L.ldo);
   L.m = off;
-  off = align128(off + 4 * kBqF32);
+  off = align128(off + 4 * L.bq);
   L.l = off;
-  off = align128(off + 4 * kBqF32);
+  off = align128(off + 4 * L.bq);
   L.a = off;
-  off = align128(off + 4 * kBqF32);
+  off = align128(off + 4 * L.bq);
   L.total = off;
   return L;
 }
 
-// rows [row0, row0 + 64) of a strided (rows, d) matrix into a shared
+// rows [row0, row0 + rows) of a strided (rows, d) matrix into a shared
 // tile of row stride ld with cp.async, 16 bytes a copy; rows >= lim are
 // zero-filled (source size 0). Commits one group.
 __device__ void load_tile_f32(float* dst, int ld, const float* __restrict__ src,
-                              long long row_stride, int row0, int lim, int d) {
+                              long long row_stride, int row0, int lim, int d,
+                              int rows) {
   const int chunks = d / 4;
-  for (int idx = threadIdx.x; idx < 64 * chunks; idx += kThreadsF32) {
+  for (int idx = threadIdx.x; idx < rows * chunks; idx += kThreadsF32) {
     const int r = idx / chunks, c = idx - r * chunks;
     const bool ok = row0 + r < lim;
     const float* g = ok ? src + (row0 + r) * row_stride + c * 4 : src;
@@ -689,39 +757,40 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
   k += b * sk.b + kvh * sk.h;
   v += b * sv.b + kvh * sv.h;
   o += b * so.b + h * so.h;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBqF32;  // heaviest first
+  const int bq = L.bq, rw = bq / 4;  // query rows: per CTA, per warp
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * bq;  // heaviest first
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  load_tile_f32(tq, L.ldt, q, sq.l, q0, l_real, d);
-  for (int i = threadIdx.x; i < kBqF32 * L.ldo; i += kThreadsF32) to[i] = 0.0f;
-  if (threadIdx.x < kBqF32) {
+  load_tile_f32(tq, L.ldt, q, sq.l, q0, l_real, d, bq);
+  for (int i = threadIdx.x; i < bq * L.ldo; i += kThreadsF32) to[i] = 0.0f;
+  if (threadIdx.x < bq) {
     tm[threadIdx.x] = kNeg;
     tl[threadIdx.x] = 0.0f;
   }
-  const int q_last = min(q0 + kBqF32 - 1, l_real - 1);
+  const int q_last = min(q0 + bq - 1, l_real - 1);
   const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
   for (int kb = k_first / kBkF32; kb <= q_last / kBkF32; ++kb) {
     const int k0 = kb * kBkF32;
     __syncthreads();  // the last block's K, V are read; the init is seen
-    load_tile_f32(tk, L.ldt, k, sk.l, k0, l_real, d);
-    load_tile_f32(tv, L.ldt, v, sv.l, k0, l_real, d);
+    load_tile_f32(tk, L.ldt, k, sk.l, k0, l_real, d, kBkF32);
+    load_tile_f32(tv, L.ldt, v, sv.l, k0, l_real, d, kBkF32);
     cp_async_wait<1>();  // Q and K have landed; V may still be in flight
     __syncthreads();
-    // scores of the warp's 16 rows, two keys a lane
-    for (int r = 0; r < 16; ++r) {
-      const float* qr = tq + (warp * 16 + r) * L.ldt;
+    // scores of the warp's rw rows, two keys a lane
+    for (int r = 0; r < rw; ++r) {
+      const float* qr = tq + (warp * rw + r) * L.ldt;
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const float* kr = tk + (lane + 32 * e) * L.ldt;
         float acc = 0.0f;
         for (int c = 0; c < d; ++c) acc = fmaf(qr[c], kr[c], acc);
-        ts[(warp * 16 + r) * L.lds + lane + 32 * e] = acc;
+        ts[(warp * rw + r) * L.lds + lane + 32 * e] = acc;
       }
     }
     __syncwarp();
     // the online softmax, a row at a time; P overwrites the scores
-    for (int r = 0; r < 16; ++r) {
-      const int row = warp * 16 + r, qpos = q0 + row;
+    for (int r = 0; r < rw; ++r) {
+      const int row = warp * rw + r, qpos = q0 + row;
       float x[2], mx = kNeg;
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
@@ -755,9 +824,9 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
     cp_async_wait<0>();
     __syncthreads();  // V has landed (and every warp's P, alpha are its own)
-    // O = O * alpha + P V on the warp's 16 rows
-    for (int idx = lane; idx < 16 * d; idx += 32) {
-      const int r = warp * 16 + idx / d, c = idx % d;
+    // O = O * alpha + P V on the warp's rw rows
+    for (int idx = lane; idx < rw * d; idx += 32) {
+      const int r = warp * rw + idx / d, c = idx % d;
       float acc = to[r * L.ldo + c] * ta[r];
       const float* pr = ts + r * L.lds;
       for (int j = 0; j < kBkF32; ++j)
@@ -766,7 +835,7 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < kBqF32 * d; idx += kThreadsF32) {
+  for (int idx = threadIdx.x; idx < bq * d; idx += kThreadsF32) {
     const int r = idx / d, c = idx - r * d;
     if (q0 + r < l_real)
       o[(q0 + r) * so.l + c] = to[r * L.ldo + c] / fmaxf(tl[r], 1e-30f);
@@ -835,19 +904,22 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 const Strides* st, int batch, int l_real, int n_heads,
                 int n_kv, int window, float scale, cudaStream_t stream) {
   using S = Smem<D>;
+  using T = Tile<D>;
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, st[0], D, l_real, n_heads, batch, S::kCols, kBm) ||
-      !make_map(&tk, k, st[1], D, l_real, n_kv, batch, S::kCols, kBk) ||
-      !make_map(&tv, v, st[2], D, l_real, n_kv, batch, S::kCols, kBk))
+  if (!make_map(&tq, q, st[0], D, l_real, n_heads, batch, S::kCols,
+                T::kBm) ||
+      !make_map(&tk, k, st[1], D, l_real, n_kv, batch, S::kCols, T::kBk) ||
+      !make_map(&tv, v, st[2], D, l_real, n_kv, batch, S::kCols, T::kBk))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       S::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long grid =
-      static_cast<long long>(batch) * n_heads * ((l_real + kBm - 1) / kBm);
+      static_cast<long long>(batch) * n_heads *
+      ((l_real + T::kBm - 1) / T::kBm);
   if (grid > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  flash_attention_wgmma<D><<<static_cast<unsigned>(grid), kThreadsBf16,
+  flash_attention_wgmma<D><<<static_cast<unsigned>(grid), T::kThreads,
                              S::kBytes, stream>>>(
       tq, tk, tv, static_cast<bf16*>(o), st[3], n_heads, n_heads / n_kv,
       l_real, window, scale * 1.4426950408889634f);
@@ -863,7 +935,9 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
       flash_attention_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(batch * n_heads, (l_real + kBqF32 - 1) / kBqF32);
+  const int tiles = (l_real + rows_f32(d) - 1) / rows_f32(d);
+  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(batch * n_heads, tiles);
   flash_attention_f32<<<grid, kThreadsF32, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), st[0], st[1],
@@ -888,7 +962,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int l_real, int n_heads, int n_kv,
                                       int d, int window, float scale,
                                       int is_bf16, void* stream) {
-  if ((d != 16 && d != 32 && d != 64 && d != 128) || n_kv <= 0 ||
+  if ((d != 16 && d != 32 && d != 64 && d != 128 && d != 256) || n_kv <= 0 ||
       n_heads % n_kv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch <= 0 || n_heads <= 0 || l_real <= 0) return 0;
@@ -910,8 +984,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 64:
       return launch_bf16<64>(q, k, v, o, st, batch, l_real, n_heads, n_kv,
                              window, scale, s);
-    default:
+    case 128:
       return launch_bf16<128>(q, k, v, o, st, batch, l_real, n_heads, n_kv,
+                              window, scale, s);
+    default:
+      return launch_bf16<256>(q, k, v, o, st, batch, l_real, n_heads, n_kv,
                               window, scale, s);
   }
 }

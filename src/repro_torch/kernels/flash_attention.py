@@ -6,7 +6,8 @@ the keys ``k <= q`` (and ``k > q - window`` with a window), times ``v``.
 The hand-written kernel (``csrc/flash_attention.cu``) keeps the scores,
 P and the accumulator on chip, so device-memory traffic is Q + K + V + O;
 the plain PyTorch versions take the full float32 softmax with the same
-masks.
+masks. D = 256 (RecurrentGemma's local attention) runs a tiling of its
+own inside the same kernel file: one consumer warpgroup, 64-key blocks.
 
 Two entry points run the same kernel:
 
@@ -36,11 +37,17 @@ __all__ = ["HEAD_DIMS", "NEG", "flash_attention_bhld",
            "flash_attention_bhld_ref", "flash_attention_blhd",
            "flash_attention_blhd_ref"]
 
-#: head dims the kernel takes (the smoke configs' 16, the full configs' 128)
-HEAD_DIMS = (16, 32, 64, 128)
+#: head dims the kernel takes (the smoke configs' 16, the full configs' 64
+#: and 128, RecurrentGemma's 256)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 #: masked score, the reference's: finite, so no row meets inf - inf
 NEG = -1e30
-_MAX_L = 64 * 65535           # the float32 kernel's grid y: 64-row q tiles
+
+
+def _max_l(d: int) -> int:
+    """The longest L the kernel takes: the float32 kernel's grid y of
+    65 535 q tiles of 64 rows (32 at D = 256)."""
+    return (64 if d <= 128 else 32) * 65535
 
 
 def _causal_softmax_v(s, v, window):
@@ -133,8 +140,8 @@ def flash_attention_bhld(q, k, v, *, scale: float, window=None,
     CPU tensors run the plain version. CUDA tensors launch K7 on the
     current stream without synchronising (each of the BH rows a batch of
     one head); it takes D in ``HEAD_DIMS``, contiguous 16-byte-aligned
-    operands and ``l_real`` up to 64 x 65 535, and raises ``ValueError``
-    on anything else."""
+    operands and ``l_real`` up to 64 x 65 535 (32 x 65 535 at D = 256),
+    and raises ``ValueError`` on anything else."""
     who = "flash_attention_bhld"
     if _check(who, q, window):
         return flash_attention_bhld_ref(q, k, v, scale=scale, window=window,
@@ -148,9 +155,9 @@ def flash_attention_bhld(q, k, v, *, scale: float, window=None,
         if x.data_ptr() % 16:
             raise ValueError(f"{who}: {name} is not 16-byte aligned")
     l_real = lpad if l_real is None else int(l_real)
-    if not 0 <= l_real <= min(lpad, _MAX_L):
+    if not 0 <= l_real <= min(lpad, _max_l(d)):
         raise ValueError(f"{who}: l_real={l_real} outside [0, "
-                         f"{min(lpad, _MAX_L)}]")
+                         f"{min(lpad, _max_l(d))}]")
     out = torch.empty_like(q)
     if bh == 0 or l_real == 0:
         return out
@@ -170,7 +177,8 @@ def flash_attention_blhd(q, k, v, *, scale: float,
     current stream without synchronising, reading each operand through
     its own strides (the last dimension contiguous, every other stride
     and the pointer 16-byte aligned); it takes D in ``HEAD_DIMS`` and L up
-    to 64 x 65 535, and raises ``ValueError`` on anything else."""
+    to 64 x 65 535 (32 x 65 535 at D = 256), and raises ``ValueError`` on
+    anything else."""
     who = "flash_attention_blhd"
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"{who}: q, k, v must be (B, L, heads, D), got "
@@ -201,8 +209,8 @@ def flash_attention_blhd(q, k, v, *, scale: float,
                              f"{x.stride()}")
         if x.data_ptr() % 16:
             raise ValueError(f"{who}: {name} is not 16-byte aligned")
-    if l > _MAX_L:
-        raise ValueError(f"{who}: L={l} above {_MAX_L}")
+    if l > _max_l(d):
+        raise ValueError(f"{who}: L={l} above {_max_l(d)}")
     out = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out

@@ -7,7 +7,10 @@ runs the kernel; nothing is synchronised) and later finalized
 and counters, then an on-device compaction of the qualifying pairs into a
 power-of-two capacity buffer whose rows past the true count are
 (-1, -1)). The ``PendingPairs`` handle between the two halves lets a
-driver launch block k+1 before it waits for block k.
+driver launch block k+1 before it waits for block k. The one-call
+wrappers (``join_pairs`` by family name, ``lfvt_join_pairs``,
+``lfvt_walk_join_pairs``, ``lfvt_walk_join_mask``) are the two halves
+back to back.
 
 ``bitmap_join`` / ``onehot_join`` take unpadded operands (the layout the
 driver stages), pad them to tile multiples, derive the tile-level skip
@@ -33,7 +36,7 @@ import torch
 from ..core.config import global_config
 from ..core.device import upload
 from ..core.resilience import fault_point
-from ..core.tile_join import round_capacity
+from ..core.tile_join import PAIR_CAP_GRAIN, round_capacity
 from . import bitmap_join as _bj
 from . import flash_attention as _fa
 from . import lfvt_walk as _lw
@@ -41,10 +44,13 @@ from . import onehot_join as _oj
 
 __all__ = ["PendingPairs", "pick_tiles", "pad_sheet", "bitmap_join",
            "onehot_join", "bitmap_join_pairs", "onehot_join_pairs",
+           "join_pairs", "round_capacity", "PAIR_CAP_GRAIN",
            "bitmap_join_pairs_dispatch", "onehot_join_pairs_dispatch",
-           "lfvt_join_pairs_dispatch", "lfvt_walk_join_pairs_dispatch",
-           "join_pairs_finalize", "join_mask_finalize", "walk_operands",
-           "flash_attention", "flash_attention_ref"]
+           "lfvt_join_pairs", "lfvt_join_pairs_dispatch",
+           "lfvt_walk_join_pairs", "lfvt_walk_join_pairs_dispatch",
+           "lfvt_walk_join_mask", "join_pairs_finalize",
+           "join_mask_finalize", "walk_operands", "flash_attention",
+           "flash_attention_ref"]
 
 
 def pick_tiles(m: int, n: int, w: int, defaults) -> tuple[int, int, int]:
@@ -415,6 +421,21 @@ def _join_pairs_dispatch(live_fn, defaults, r_bitmaps, r_sizes, s_bitmaps,
                         m_tiles * n_tiles, m * n)
 
 
+def lfvt_walk_join_mask(flat, r_padded: torch.Tensor, r_sizes, lo, hi,
+                        t: float, measure: str = "jaccard",
+                        row_tile: int | None = None,
+                        stats: dict | None = None,
+                        schedule: str = "host") -> np.ndarray:
+    """Dense-mask flat-LFVT join through the walk kernel (K1, or K6 with
+    ``schedule="device"``): the dispatch of ``lfvt_walk_join_pairs``
+    (walk counters included), resolved by ``join_mask_finalize``."""
+    pending = lfvt_walk_join_pairs_dispatch(
+        flat, r_padded, r_sizes, lo, hi, t, measure=measure,
+        row_tile=row_tile, schedule=schedule)
+    return join_mask_finalize(pending, int(r_padded.shape[0]), flat.n_sets,
+                              stats)
+
+
 def _join_pairs(live_fn, defaults, r_bitmaps, r_sizes, s_bitmaps, s_sizes,
                 lo, hi, t, tiles, capacity, stats, measure="jaccard"):
     pending = _join_pairs_dispatch(live_fn, defaults, r_bitmaps, r_sizes,
@@ -597,6 +618,44 @@ def lfvt_walk_join_pairs_dispatch(flat, r_padded: torch.Tensor, r_sizes,
         torch.zeros(L, dtype=torch.int32, device=r_padded.device),
         tm, ssz2d.shape[1], L, m_tiles, m * n, extras=extras,
         row_map=row_map)
+
+
+def lfvt_join_pairs(flat, r_padded: torch.Tensor, r_sizes, lo, hi,
+                    t: float, capacity: int | None = None,
+                    stats: dict | None = None, measure: str = "jaccard"):
+    """Sparse whole-block flat-LFVT join (``lfvt_ref``); the contract of
+    ``bitmap_join_pairs``."""
+    pending = lfvt_join_pairs_dispatch(flat, r_padded, r_sizes, lo, hi, t,
+                                       measure)
+    return join_pairs_finalize(pending, capacity, stats)
+
+
+def lfvt_walk_join_pairs(flat, r_padded: torch.Tensor, r_sizes, lo, hi,
+                         t: float, capacity: int | None = None,
+                         stats: dict | None = None,
+                         measure: str = "jaccard",
+                         row_tile: int | None = None,
+                         schedule: str = "host"):
+    """Sparse flat-LFVT join through the walk kernel (K1, or K6 with
+    ``schedule="device"``); the contract of ``bitmap_join_pairs``."""
+    pending = lfvt_walk_join_pairs_dispatch(
+        flat, r_padded, r_sizes, lo, hi, t, measure=measure,
+        row_tile=row_tile, schedule=schedule)
+    return join_pairs_finalize(pending, capacity, stats)
+
+
+def join_pairs(method: str, *args, **kw):
+    """Sparse emission by family: 'bitmap' (K2), 'onehot' (K4), 'lfvt'
+    (the walk kernel) or 'lfvt_ref' (the whole-block walk)."""
+    if method == "bitmap":
+        return bitmap_join_pairs(*args, **kw)
+    if method == "onehot":
+        return onehot_join_pairs(*args, **kw)
+    if method == "lfvt":
+        return lfvt_walk_join_pairs(*args, **kw)
+    if method == "lfvt_ref":
+        return lfvt_join_pairs(*args, **kw)
+    raise ValueError(f"unknown pair-emission method {method!r}")
 
 
 # ---------------------------------------------------------------------- #

@@ -1,0 +1,115 @@
+"""Mixture-of-Experts: top-k router + capacity dispatch/combine.
+
+The port of the JAX package's ``models/moe.py`` on one device. Dispatch
+avoids the (tokens, experts, capacity) one-hot blow-up: each (token,
+choice) gets its slot from a cumsum rank within its expert, tokens are
+scattered into a dense (experts, capacity, d) buffer, the experts' SwiGLU
+runs as one batched product over the expert axis (plain ``torch.matmul``,
+as the reference leaves it to XLA, outside any kernel), and the results
+are gathered back and weighted. Overflow choices are dropped (capacity-
+factor semantics, decode included: at T = B tokens the capacity is often
+1); a Switch-style aux loss keeps the router near-uniform.
+
+qwen2-moe's shared experts are one always-on dense SwiGLU of width
+``d_ff_shared`` (= n_shared x per-expert width), as in the reference.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .layers import swiglu
+from .params import Spec
+
+__all__ = ["moe_specs", "moe_block", "pad_experts", "route"]
+
+NEG = -1e30
+
+
+def pad_experts(n_experts: int, tp: int) -> int:
+    """Experts padded to a multiple of ``tp`` (identity at ``tp=1``, the
+    only degree the port runs)."""
+    return n_experts if n_experts % tp == 0 else -(-n_experts // tp) * tp
+
+
+def moe_specs(layers: int, d_model: int, moe, tp: int) -> dict:
+    e = pad_experts(moe.n_experts, tp)
+    ff = moe.d_ff_expert
+    sp = {
+        "router": Spec((layers, d_model, e), ("layers", "embed", "experts")),
+        "we_g": Spec((layers, e, d_model, ff),
+                     ("layers", "experts", "embed_fsdp", "expert_mlp")),
+        "we_u": Spec((layers, e, d_model, ff),
+                     ("layers", "experts", "embed_fsdp", "expert_mlp")),
+        "we_d": Spec((layers, e, ff, d_model),
+                     ("layers", "experts", "expert_mlp", "embed_fsdp")),
+    }
+    if moe.d_ff_shared:
+        sp["ws_g"] = Spec((layers, d_model, moe.d_ff_shared),
+                          ("layers", "embed_fsdp", "mlp"))
+        sp["ws_u"] = Spec((layers, d_model, moe.d_ff_shared),
+                          ("layers", "embed_fsdp", "mlp"))
+        sp["ws_d"] = Spec((layers, moe.d_ff_shared, d_model),
+                          ("layers", "mlp", "embed_fsdp"))
+    return sp
+
+
+def route(router: torch.Tensor, xt: torch.Tensor, moe, n_experts_padded: int):
+    """Router of ``xt`` (T, d) -> (probs (T, E), top_w (T, k) renormalised,
+    top_e (T, k)), all but ``top_e`` float32.
+
+    The logits are made in the weights' dtype and then cast to float32.
+    Top-k ties: ``jax.lax.top_k`` returns the lower expert first among
+    equal probabilities, which ``torch.topk`` does not promise; a stable
+    descending sort does (bf16 logits make exact ties plausible)."""
+    e = n_experts_padded
+    logits = (xt @ router).float()
+    if e != moe.n_experts:  # padded experts never route
+        logits = torch.where(torch.arange(e, device=xt.device)
+                             < moe.n_experts, logits, NEG)
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_e = vals[:, :moe.top_k], idx[:, :moe.top_k]
+    return probs, top_w / top_w.sum(dim=-1, keepdim=True), top_e
+
+
+def moe_block(p, x: torch.Tensor, moe, n_experts_padded: int):
+    """x (B, L, d) -> (out (B, L, d), aux_loss float32 scalar)."""
+    b, l, d = x.shape
+    tkns = b * l
+    e, k = n_experts_padded, moe.top_k
+    xt = x.reshape(tkns, d)
+    probs, top_w, top_e = route(p["router"], xt, moe, e)
+
+    # aux load-balance loss (Switch-style)
+    density = F.one_hot(top_e[:, 0], e).float().mean(dim=0)
+    aux = (density * probs.mean(dim=0)).sum() * e * moe.aux_loss_weight
+
+    capacity = max(int(moe.capacity_factor * tkns * k / e), 1)
+    # slot ranks: each (token, choice)'s place in its expert's queue, in
+    # token-major order
+    flat_e = top_e.reshape(-1)                               # (T*k,)
+    onehot = F.one_hot(flat_e, e)
+    rank = onehot.cumsum(dim=0).gather(1, flat_e[:, None])[:, 0] - 1
+    keep = rank < capacity
+
+    # scatter into the expert buffer (E, C, d). Kept choices own distinct
+    # slots; dropped ones all go to slot (0, 0) carrying zeros, so the
+    # accumulating scatter is exact in any order of its atomics
+    idx_e = torch.where(keep, flat_e, 0)
+    idx_c = torch.where(keep, rank, 0)
+    src = torch.where(keep[:, None], xt.repeat_interleave(k, dim=0), 0)
+    buf = torch.zeros((e, capacity, d), dtype=x.dtype, device=x.device)
+    buf.index_put_((idx_e, idx_c), src, accumulate=True)
+
+    # every expert's SwiGLU as one batched product over the expert axis
+    out_buf = swiglu(buf, p["we_g"], p["we_u"], p["we_d"])   # (E, C, d)
+
+    gathered = torch.where(keep[:, None], out_buf[idx_e, idx_c], 0)
+    weights = top_w.reshape(-1)[:, None].to(x.dtype)
+    out = (gathered * weights).reshape(tkns, k, d).sum(dim=1).reshape(
+        b, l, d)
+    if "ws_g" in p:  # shared experts (always on)
+        out = out + swiglu(xt, p["ws_g"], p["ws_u"], p["ws_d"]).reshape(
+            b, l, d)
+    return out, aux

@@ -1,0 +1,258 @@
+"""xLSTM blocks: chunkwise-parallel mLSTM + sequential sLSTM (arXiv:2405.04517).
+
+The port of the JAX package's ``models/ssm.py``. mLSTM (matrix memory,
+no hidden-state feedback into the gates) runs chunkwise: within a chunk
+every position is computed with dense products (the intra-chunk decay
+matrix), and a loop over the chunks carries the (C, n, m) state.
+Exponential gating is stabilised in log space; the running max ``m``
+starts at -1e30 (never -inf) and keeps everything finite.
+
+sLSTM has recurrent gate connections (the gates read h_{t-1}), so it
+runs token by token. The reference wraps its chunk and token scans in
+gradient checkpointing (``ckpt_group``, ``time_chunk``), which changes
+what a backward pass keeps and not the numbers; the port, inference
+only, loops over the same chunks and tokens without it.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..core.device import resolve_device
+from .layers import rms_norm
+from .params import Spec
+
+__all__ = ["mlstm_specs", "slstm_specs", "mlstm_block", "slstm_block",
+           "mlstm_cell", "mlstm_cell_ref", "mlstm_decode_step",
+           "slstm_decode_step", "init_mlstm_state", "init_slstm_state", "UP"]
+
+UP = 2  # mLSTM up-projection factor
+NEG = -1e30
+
+
+# ---------------------------------------------------------------------- #
+# parameter specs
+# ---------------------------------------------------------------------- #
+def mlstm_specs(layers: int, d: int, heads: int) -> dict:
+    du = UP * d
+    return {
+        "w_up": Spec((layers, d, du), ("layers", "embed", "state")),
+        "w_gate": Spec((layers, d, du), ("layers", "embed", "state")),
+        "wq": Spec((layers, du, du), ("layers", "state", "state")),
+        "wk": Spec((layers, du, du), ("layers", "state", "state")),
+        "wv": Spec((layers, du, du), ("layers", "state", "state")),
+        "w_if": Spec((layers, du, 2 * heads), ("layers", "state", None)),
+        "b_if": Spec((layers, 2 * heads), ("layers", None), init="zeros"),
+        "w_down": Spec((layers, du, d), ("layers", "state", "embed")),
+        "norm_in": Spec((layers, d), ("layers", "embed"), init="ones"),
+        "norm_h": Spec((layers, du), ("layers", "state"), init="ones"),
+    }
+
+
+def slstm_specs(layers: int, d: int, heads: int) -> dict:
+    hd = d // heads
+    return {
+        "w_gates": Spec((layers, d, 4 * d), ("layers", "embed", "state")),
+        "r_gates": Spec((layers, heads, hd, 4 * hd),
+                        ("layers", None, None, None)),
+        "b_gates": Spec((layers, 4 * d), ("layers", "state"), init="zeros"),
+        "w_out": Spec((layers, d, d), ("layers", "embed", "embed")),
+        "norm_in": Spec((layers, d), ("layers", "embed"), init="ones"),
+        "norm_h": Spec((layers, d), ("layers", "embed"), init="ones"),
+    }
+
+
+# ---------------------------------------------------------------------- #
+# mLSTM cell — chunkwise parallel
+# ---------------------------------------------------------------------- #
+def init_mlstm_state(batch: int, heads: int, dk: int, dv: int,
+                     device=None) -> dict:
+    """Fresh state, float32, on ``device`` (default: the first CUDA
+    device); the stabiliser ``m`` at -1e30."""
+    dev = resolve_device(device)
+    f32 = torch.float32
+    return {
+        "C": torch.zeros((batch, heads, dk, dv), dtype=f32, device=dev),
+        "n": torch.zeros((batch, heads, dk), dtype=f32, device=dev),
+        "m": torch.full((batch, heads), NEG, dtype=f32, device=dev),
+    }
+
+
+def _mlstm_chunk(state, q, k, v, it, ft):
+    """One chunk. q, k, v (B, K, H, d*); it, ft (B, K, H) raw gate
+    pre-activations -> (state, h (B, K, H, dv))."""
+    B, K, H, dk = q.shape
+    lf = F.logsigmoid(ft.float())                         # (B, K, H)
+    Fc = torch.cumsum(lf, dim=1)                          # inclusive
+    itf = it.float()
+    a = itf - Fc                                          # i_t - F_t
+    m_in, C_in, n_in = state["m"], state["C"], state["n"]
+    run_max = torch.cummax(a, dim=1).values
+    m = Fc + torch.maximum(m_in[:, None], run_max)        # stabiliser
+    # intra-chunk decay matrix W[j, tau] = exp(F_j - F_tau + i_tau - m_j)
+    expo = (Fc[:, :, None] - Fc[:, None, :] + itf[:, None, :]
+            - m[:, :, None])                              # (B, K, K, H)
+    causal = torch.ones((K, K), dtype=torch.bool, device=q.device).tril()
+    W = torch.where(causal[None, :, :, None], torch.exp(expo), 0.0)
+    qf = q.float() * (dk ** -0.5)
+    kf, vf = k.float(), v.float()
+    scores = torch.einsum("bjhd,bthd->bjth", qf, kf) * W  # (B, K, K, H)
+    num_intra = torch.einsum("bjth,bthv->bjhv", scores, vf)
+    # inter-chunk (state) contribution
+    inter_w = torch.exp(Fc + m_in[:, None] - m)           # (B, K, H)
+    num_inter = torch.einsum("bjhd,bhdv->bjhv", qf, C_in) * inter_w[..., None]
+    den_inter = torch.einsum("bjhd,bhd->bjh", qf, n_in) * inter_w
+    num = num_intra + num_inter                           # (B, K, H, dv)
+    den = torch.einsum("bjth,bthd->bjhd", W, kf)
+    den_dot = torch.einsum("bjhd,bjhd->bjh", qf, den) + den_inter
+    h = num / torch.maximum(den_dot.abs(), torch.exp(-m))[..., None]
+    # carry update (exponents relative to m_out = m at the last position)
+    F_tot = Fc[:, -1][:, None]                            # (B, 1, H)
+    m_out = m[:, -1]
+    w_state = torch.exp(F_tot - Fc + itf - m_out[:, None])
+    decay = torch.exp(F_tot[:, 0] + m_in - m_out)
+    C_out = decay[..., None, None] * C_in + torch.einsum(
+        "bth,bthd,bthv->bhdv", w_state, kf, vf)
+    n_out = decay[..., None] * n_in + torch.einsum("bth,bthd->bhd",
+                                                   w_state, kf)
+    return {"C": C_out, "n": n_out, "m": m_out}, h
+
+
+def mlstm_cell(q, k, v, it, ft, state, chunk: int):
+    """q, k, v (B, L, H, d*); it/ft (B, L, H) -> (h (B, L, H, dv), state).
+
+    Chunks of ``chunk`` tokens in turn; when ``chunk`` does not divide L
+    the whole length is one chunk (the reference's rule), whose decay
+    matrix is then (B, L, L, H)."""
+    L = q.shape[1]
+    chunk = min(chunk, L)
+    if L % chunk:
+        chunk = L
+    hs = []
+    for c in range(0, L, chunk):
+        sl = slice(c, c + chunk)
+        state, h = _mlstm_chunk(state, q[:, sl], k[:, sl], v[:, sl],
+                                it[:, sl], ft[:, sl])
+        hs.append(h)
+    return torch.cat(hs, dim=1), state
+
+
+def _mlstm_token(st, qt, kt, vt, i_t, f_t):
+    """One token: q, k, v (B, H, d*), gates (B, H) -> (state, h)."""
+    dk = qt.shape[-1]
+    lf = F.logsigmoid(f_t.float())
+    m_new = torch.maximum(lf + st["m"], i_t.float())
+    fh = torch.exp(lf + st["m"] - m_new)
+    ih = torch.exp(i_t.float() - m_new)
+    kf, vf = kt.float(), vt.float()
+    C = fh[..., None, None] * st["C"] + ih[..., None, None] * (
+        kf[..., :, None] * vf[..., None, :])
+    n = fh[..., None] * st["n"] + ih[..., None] * kf
+    qf = qt.float() * (dk ** -0.5)
+    num = torch.einsum("bhd,bhdv->bhv", qf, C)
+    den = torch.einsum("bhd,bhd->bh", qf, n).abs()
+    h = num / torch.maximum(den, torch.exp(-m_new))[..., None]
+    return {"C": C, "n": n, "m": m_new}, h
+
+
+def mlstm_cell_ref(q, k, v, it, ft, state):
+    """Per-token sequential oracle (float32) -> (h (B, L, H, dv), state)."""
+    hs = []
+    for t in range(q.shape[1]):
+        state, h = _mlstm_token(state, q[:, t], k[:, t], v[:, t], it[:, t],
+                                ft[:, t])
+        hs.append(h)
+    return torch.stack(hs, dim=1), state
+
+
+def mlstm_decode_step(q, k, v, it, ft, state):
+    """Single-token step: q, k, v (B, 1, H, d). Returns (state, h (B, 1, H,
+    dv)): the opposite order to the other cells, as in the reference."""
+    h, st = mlstm_cell_ref(q, k, v, it, ft, state)
+    return st, h
+
+
+# ---------------------------------------------------------------------- #
+# blocks
+# ---------------------------------------------------------------------- #
+def _mlstm_qkvif(p, xn, heads):
+    xu = xn @ p["w_up"]                                   # (B, L, du)
+    B, L, du = xu.shape
+    hd = du // heads
+
+    def split(w):
+        return (xu @ w).reshape(B, L, heads, hd)
+    q, k, v = split(p["wq"]), split(p["wk"]), split(p["wv"])
+    gif = (xu @ p["w_if"]) + p["b_if"]                    # (B, L, 2H)
+    return xu, q, k, v, gif[..., :heads], gif[..., heads:]
+
+
+def mlstm_block(p, x, heads: int, eps: float, chunk: int, state=None):
+    xn = rms_norm(x, p["norm_in"], eps)
+    xu, q, k, v, it, ft = _mlstm_qkvif(p, xn, heads)
+    B, L, du = xu.shape
+    if state is None:
+        state = init_mlstm_state(B, heads, du // heads, du // heads,
+                                 device=x.device)
+    if L == 1:
+        state, h = mlstm_decode_step(q, k, v, it, ft, state)
+    else:
+        h, state = mlstm_cell(q, k, v, it, ft, state, chunk)
+    h = h.reshape(B, L, du).to(x.dtype)
+    h = rms_norm(h, p["norm_h"], eps)
+    gated = h * F.silu(xn @ p["w_gate"])
+    return x + gated @ p["w_down"], state
+
+
+def init_slstm_state(batch: int, d: int, device=None) -> dict:
+    """Fresh state, float32, on ``device`` (default: the first CUDA
+    device); the stabiliser ``m`` at -1e30."""
+    dev = resolve_device(device)
+    zeros = [torch.zeros((batch, d), dtype=torch.float32, device=dev)
+             for _ in range(3)]
+    return {"c": zeros[0], "n": zeros[1], "h": zeros[2],
+            "m": torch.full((batch, d), NEG, dtype=torch.float32,
+                            device=dev)}
+
+
+def _slstm_step(p, heads, st, gx_t):
+    """gx_t (B, 4d) input gate pre-activations; the recurrent term (the
+    float32 h against the weights, promoted as jnp promotes) is added
+    here."""
+    B, d4 = gx_t.shape
+    d = d4 // 4
+    hd = d // heads
+    hprev = st["h"].reshape(B, heads, hd)
+    rec = torch.einsum("bhd,hdk->bhk", hprev,
+                       p["r_gates"].float()).reshape(B, 4 * d)
+    g = (gx_t + rec).float()
+    zt, it, ft, ot = g.chunk(4, dim=-1)
+    z = torch.tanh(zt)
+    lf = F.logsigmoid(ft)
+    m_new = torch.maximum(lf + st["m"], it)
+    fh = torch.exp(lf + st["m"] - m_new)
+    ih = torch.exp(it - m_new)
+    c = fh * st["c"] + ih * z
+    n = fh * st["n"] + ih
+    h = torch.sigmoid(ot) * c / torch.clamp(n, min=1.0)
+    return {"c": c, "n": n, "h": h, "m": m_new}
+
+
+def slstm_block(p, x, heads: int, eps: float, state=None):
+    """sLSTM layer: x (B, L, d) -> (x + out, state), token by token."""
+    B, L, d = x.shape
+    xn = rms_norm(x, p["norm_in"], eps)
+    gx = xn @ p["w_gates"] + p["b_gates"]                 # (B, L, 4d)
+    if state is None:
+        state = init_slstm_state(B, d, device=x.device)
+    hs = []
+    for t in range(L):
+        state = _slstm_step(p, heads, state, gx[:, t])
+        hs.append(state["h"])
+    h = torch.stack(hs, dim=1).to(x.dtype)                # (B, L, d)
+    h = rms_norm(h, p["norm_h"], eps)
+    return x + h @ p["w_out"], state
+
+
+def slstm_decode_step(p, x, heads: int, eps: float, state):
+    return slstm_block(p, x, heads, eps, state)

@@ -1,18 +1,24 @@
 """Model assembly: param specs, forward, prefill, decode step.
 
-The port of the JAX package's ``models/transformer.py`` for the dense
-transformers (every layer ``"attn"`` with a SwiGLU MLP) on one device.
-MoE, the recurrent layer kinds (``rec``, ``mlstm``, ``slstm``) and the
-vision and audio frontends raise :class:`NotPortedError` when the model
-is built.
+The port of the JAX package's ``models/transformer.py`` on one device,
+for every family: dense and MoE transformers (every layer ``"attn"``,
+with a SwiGLU MLP or a mixture of experts), the vision and audio
+backbones (their frontends are stubs, ``models/frontend.py``), and the
+pattern archs whose layers cycle through ``"rec"`` (RG-LRU, hybrid),
+``"mlstm"`` and ``"slstm"`` (xLSTM). Tensor parallelism (``tp > 1``)
+raises :class:`NotPortedError` when the model is built.
 
 Parameters are a plain nested dict of tensors, not parameters registered
 on the module, so that one set of weights serves several builds (the
 ``"flash"`` and ``"jnp"`` attention paths) and maps one to one onto the
-reference's tree: ``params["blocks"]["attn"]["attn"]["wq"]`` is the
-reference's ``blocks.attn.attn.wq``, with the layer axis kept in front
-as there. ``Model.layer`` is the one place that slices it; a Python loop
-over layers replaces the reference's ``lax.scan``.
+reference's tree: ``params["blocks"][kind]`` holds every layer of one
+kind, stacked on a leading layer axis (``blocks.attn.attn.wq`` is the
+reference's), and layer ``i`` of the stack is the ``i``-th layer of that
+kind in ``cfg.layer_kinds()`` (the reference's per-kind counters).
+``Model.layer`` is the one place that slices it; a Python loop over the
+layers replaces the reference's ``lax.scan``, and every decode state is
+written in place (the KV caches, and the recurrent states of the other
+kinds, float32 as in the reference).
 """
 from __future__ import annotations
 
@@ -20,8 +26,10 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.device import resolve_device
-from ..errors import NotPortedError
 from . import attention as attn
+from . import moe as moe_mod
+from . import rglru as rg
+from . import ssm
 from .layers import embed_tokens, mlp_specs, rms_norm, swiglu, unembed
 from .params import Spec, tree_map
 
@@ -29,56 +37,80 @@ __all__ = ["Model", "build"]
 
 
 class Model(torch.nn.Module):
-    """A dense transformer of ``cfg``; holds no weights (see the module
-    docstring). ``cfg.attn_impl`` picks the prefill attention:
-    ``"flash"`` (kernel K7) or ``"jnp"`` (row-chunked plain PyTorch)."""
+    """A model of ``cfg``; holds no weights (see the module docstring).
+    ``cfg.attn_impl`` picks the prefill attention: ``"flash"`` (kernel
+    K7) or ``"jnp"`` (row-chunked plain PyTorch)."""
 
     def __init__(self, cfg: ModelConfig, tp: int = 1):
         super().__init__()
-        if cfg.moe is not None:
-            raise NotPortedError(f"{cfg.name}: mixture-of-experts layers "
-                                 "(the moe family) are not ported")
-        kinds = set(cfg.layer_kinds())
-        if kinds != {"attn"}:
-            raise NotPortedError(f"{cfg.name}: layer kinds {sorted(kinds)}; "
-                                 "only 'attn' is ported (not rec, mlstm, "
-                                 "slstm: the ssm and hybrid families)")
-        if cfg.frontend is not None:
-            raise NotPortedError(f"{cfg.name}: the {cfg.frontend} frontend "
-                                 "(the audio and vlm families) is not ported")
         if cfg.attn_impl not in ("flash", "jnp"):
             raise ValueError(f"attn_impl must be 'flash' or 'jnp', got "
                              f"{cfg.attn_impl!r}")
         self.cfg = cfg
+        self.tp = tp
         self.dims = attn.make_dims(cfg, tp)     # raises unless tp == 1
         self.vocab_p = cfg.vocab_size      # tp=1: no vocab padding
+        self.n_experts_p = (moe_mod.pad_experts(cfg.moe.n_experts, tp)
+                            if cfg.moe else 0)
 
     # ---------------------------------------------------------------- #
     # parameter specs
     # ---------------------------------------------------------------- #
     def param_specs(self) -> dict:
-        cfg, d, n = self.cfg, self.cfg.d_model, self.cfg.n_layers
+        cfg, d = self.cfg, self.cfg.d_model
         specs: dict = {
             "embed": Spec((self.vocab_p, d), ("vocab", "embed")),
             "out_norm": Spec((d,), ("embed",), init="ones"),
         }
         if not cfg.tie_embeddings:
             specs["lm_head"] = Spec((d, self.vocab_p), ("embed_fsdp", "vocab"))
-        block = {
-            "ln1": Spec((n, d), ("layers", "embed"), init="ones"),
-            "attn": attn.attn_specs(n, d, self.dims, cfg.qkv_bias),
-            "ln2": Spec((n, d), ("layers", "embed"), init="ones"),
-        }
-        if cfg.d_ff:
-            block["mlp"] = mlp_specs(n, d, cfg.d_ff)
-        specs["blocks"] = {"attn": block}
+        kinds = cfg.layer_kinds()
+        specs["blocks"] = {kind: self._block_specs(kind, kinds.count(kind))
+                           for kind in dict.fromkeys(kinds)}
+        if cfg.frontend == "vision":
+            # anyres projector stub: projects the precomputed patch embeds
+            specs["mm_proj"] = Spec((d, d), ("embed", "embed_fsdp"))
         return specs
 
+    def _block_specs(self, kind: str, n: int) -> dict:
+        cfg, d = self.cfg, self.cfg.d_model
+        if kind == "attn":
+            sp = {
+                "ln1": Spec((n, d), ("layers", "embed"), init="ones"),
+                "attn": attn.attn_specs(n, d, self.dims, cfg.qkv_bias),
+                "ln2": Spec((n, d), ("layers", "embed"), init="ones"),
+            }
+            if cfg.moe is not None:
+                sp["moe"] = moe_mod.moe_specs(n, d, cfg.moe, self.tp)
+            elif cfg.d_ff:
+                sp["mlp"] = mlp_specs(n, d, cfg.d_ff)
+            return sp
+        if kind == "rec":  # RG-LRU temporal mix + MLP
+            return {
+                "rec": rg.rglru_specs(n, d, cfg.rg_lru_dim or d,
+                                      cfg.conv1d_width),
+                "ln2": Spec((n, d), ("layers", "embed"), init="ones"),
+                "mlp": mlp_specs(n, d, cfg.d_ff),
+            }
+        if kind == "mlstm":
+            return {"cell": ssm.mlstm_specs(n, d, cfg.n_heads)}
+        if kind == "slstm":
+            return {"cell": ssm.slstm_specs(n, d, cfg.n_heads)}
+        raise ValueError(kind)
+
     @staticmethod
-    def layer(params: dict, i: int) -> dict:
-        """Layer ``i``'s weights: every leaf of ``params["blocks"]["attn"]``
-        indexed on its leading (layer) axis, a view."""
-        return tree_map(lambda a: a[i], params["blocks"]["attn"])
+    def layer(params: dict, i: int, kind: str = "attn") -> dict:
+        """The ``i``-th layer of ``kind``'s weights: every leaf of
+        ``params["blocks"][kind]`` indexed on its leading (layer) axis, a
+        view."""
+        return tree_map(lambda a: a[i], params["blocks"][kind])
+
+    def _layers(self):
+        """(kind, index within the kind) for every layer, in order."""
+        seen: dict = {}
+        for kind in self.cfg.layer_kinds():
+            seen[kind] = seen.get(kind, 0) + 1
+            yield kind, seen[kind] - 1
 
     def _head(self, params):
         return params["lm_head"] if "lm_head" in params else params["embed"].T
@@ -94,11 +126,69 @@ class Model(torch.nn.Module):
         return attn.attention(p["attn"], hn, positions, self.dims,
                               cfg.rope_theta, chunk=cfg.attn_chunk)
 
-    def _mlp(self, p, h):
-        if not self.cfg.d_ff:
-            return h
-        hn = rms_norm(h, p["ln2"], self.cfg.norm_eps)
-        return h + swiglu(hn, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"])
+    def _ffn(self, p, h):
+        """The attention block's second half -> (h, aux loss or None): the
+        experts (and their aux loss), the MLP, or nothing."""
+        cfg = self.cfg
+        if cfg.moe is None and not cfg.d_ff:
+            return h, None
+        hn = rms_norm(h, p["ln2"], cfg.norm_eps)
+        if cfg.moe is not None:
+            out, aux = moe_mod.moe_block(p["moe"], hn, cfg.moe,
+                                         self.n_experts_p)
+            return h + out, aux
+        return h + swiglu(hn, p["mlp"]["wg"], p["mlp"]["wu"],
+                          p["mlp"]["wd"]), None
+
+    def _apply_block(self, kind, p, h, positions, state=None, cache=None,
+                     pos=None):
+        """One layer -> (h, aux or None, state or None).
+
+        ``"attn"``: ``cache`` (the layer's k, v) with ``pos`` is a decode
+        step against it; ``cache`` alone is a prefill that fills it; no
+        cache is the full-sequence forward. The other kinds run from
+        ``state`` (None: fresh zeros) and return their new state."""
+        cfg = self.cfg
+        if kind == "attn":
+            hn = rms_norm(h, p["ln1"], cfg.norm_eps)
+            if pos is not None:
+                out, _, _ = attn.decode_attention(
+                    p["attn"], hn, cache["k"], cache["v"], pos, self.dims,
+                    cfg.rope_theta)
+            else:
+                if cache is not None:
+                    attn.prefill_kv_into_cache(
+                        p["attn"], hn, positions, self.dims, cfg.rope_theta,
+                        cache["k"], cache["v"])
+                out = self._attend(p, hn, positions)
+            h, aux = self._ffn(p, h + out)
+            return h, aux, None
+        if kind == "rec":
+            h, state = rg.rglru_block(p["rec"], h, cfg.conv1d_width,
+                                      cfg.norm_eps, state)
+            hn = rms_norm(h, p["ln2"], cfg.norm_eps)
+            out = swiglu(hn, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"])
+            return h + out, None, state
+        if kind == "mlstm":
+            h, state = ssm.mlstm_block(p["cell"], h, cfg.n_heads,
+                                       cfg.norm_eps, cfg.mlstm_chunk, state)
+            return h, None, state
+        if kind == "slstm":
+            h, state = ssm.slstm_block(p["cell"], h, cfg.n_heads,
+                                       cfg.norm_eps, state)
+            return h, None, state
+        raise ValueError(kind)
+
+    def _embed(self, params, tokens, extra_embeds):
+        """Token embeddings, after the projected stub embeddings when
+        ``extra_embeds`` (B, P, d) is given."""
+        h = embed_tokens(tokens, params["embed"])
+        if extra_embeds is not None:
+            pe = extra_embeds.to(h.dtype)
+            if "mm_proj" in params:
+                pe = pe @ params["mm_proj"]
+            h = torch.cat([pe, h], dim=1)
+        return h
 
     def _logits(self, params, h):
         h = rms_norm(h, params["out_norm"], self.cfg.norm_eps)
@@ -107,67 +197,107 @@ class Model(torch.nn.Module):
     # ---------------------------------------------------------------- #
     # forward (logits over the full sequence)
     # ---------------------------------------------------------------- #
-    def forward(self, params, tokens):
-        """tokens (B, L) -> (logits (B, L, vocab_p), aux_loss = 0)."""
-        h = embed_tokens(tokens, params["embed"])
+    def forward(self, params, tokens, extra_embeds=None):
+        """tokens (B, L) -> (logits (B, L', vocab_p), aux_loss float32),
+        L' = L plus the stub tokens of ``extra_embeds``."""
+        h = self._embed(params, tokens, extra_embeds)
         positions = torch.arange(h.shape[1], dtype=torch.int32,
                                  device=h.device)
-        for i in range(self.cfg.n_layers):
-            p = self.layer(params, i)
-            hn = rms_norm(h, p["ln1"], self.cfg.norm_eps)
-            h = self._mlp(p, h + self._attend(p, hn, positions))
-        return (self._logits(params, h),
-                torch.zeros((), dtype=torch.float32, device=h.device))
+        aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for kind, i in self._layers():
+            h, aux, _ = self._apply_block(kind, self.layer(params, i, kind),
+                                          h, positions)
+            if aux is not None:
+                aux_total = aux_total + aux
+        return self._logits(params, h), aux_total
 
     # ---------------------------------------------------------------- #
-    # prefill: full-sequence forward that also fills the KV cache
+    # prefill: full-sequence forward that also fills the decode state
     # ---------------------------------------------------------------- #
-    def prefill(self, params, tokens, cache_len: int, dtype=torch.bfloat16):
-        """Returns (last-token logits (B, 1, V), decode state at pos=L).
+    def prefill(self, params, tokens, cache_len: int, extra_embeds=None,
+                dtype=torch.bfloat16):
+        """Returns (last-token logits (B, 1, V), decode state at pos=L').
 
-        The cache is made in ``dtype`` (bfloat16 by default, as in the
+        The KV cache is made in ``dtype`` (bfloat16 by default, as in the
         reference) and must match the weights' dtype: float32 weights
-        need ``dtype=torch.float32``, or the cache write raises."""
-        cfg = self.cfg
+        need ``dtype=torch.float32``, or the cache write raises. The other
+        kinds' states are float32 whatever ``dtype``."""
         state = self.init_decode_state(tokens.shape[0], cache_len, dtype,
                                        device=tokens.device)
-        cache = state["attn"]
-        h = embed_tokens(tokens, params["embed"])
+        h = self._embed(params, tokens, extra_embeds)
         positions = torch.arange(h.shape[1], dtype=torch.int32,
                                  device=h.device)
-        for i in range(cfg.n_layers):
-            p = self.layer(params, i)
-            hn = rms_norm(h, p["ln1"], cfg.norm_eps)
-            attn.prefill_kv_into_cache(p["attn"], hn, positions, self.dims,
-                                       cfg.rope_theta, cache["k"][i],
-                                       cache["v"][i])
-            h = self._mlp(p, h + self._attend(p, hn, positions))
+        for kind, i in self._layers():
+            p = self.layer(params, i, kind)
+            if kind == "attn":
+                cache = {"k": state["attn"]["k"][i],
+                         "v": state["attn"]["v"][i]}
+                h, _, _ = self._apply_block(kind, p, h, positions,
+                                            cache=cache)
+            else:
+                # from the fresh state, so the final state comes back
+                h, _, st = self._apply_block(
+                    kind, p, h, positions,
+                    state=tree_map(lambda a: a[i], state[kind]))
+                self._store(state[kind], i, st)
         return self._logits(params, h[:, -1:]), state
+
+    @staticmethod
+    def _store(stack: dict, i: int, st: dict) -> None:
+        """Write one layer's new state into slot ``i`` of its stack."""
+        for key, leaf in st.items():
+            stack[key][i].copy_(leaf)
 
     # ---------------------------------------------------------------- #
     # decode
     # ---------------------------------------------------------------- #
     def init_decode_state(self, batch: int, seq_len: int,
                           dtype=torch.bfloat16, device=None) -> dict:
-        """Stacked per-layer KV cache, zeros, on ``device`` (default: the
-        first CUDA device)."""
-        return {"attn": attn.init_cache(self.cfg.n_layers, batch, self.dims,
-                                        seq_len, dtype,
-                                        resolve_device(device))}
+        """Stacked per-layer decode state for every layer kind, on
+        ``device`` (default: the first CUDA device): the KV caches in
+        ``dtype``, zeros; the recurrent states float32, zeros with the
+        stabilisers at -1e30."""
+        cfg, dev = self.cfg, resolve_device(device)
+        kinds = cfg.layer_kinds()
+
+        def stacked(n, st):
+            return {k: v[None].repeat(n, *([1] * v.dim()))
+                    for k, v in st.items()}
+        state: dict = {}
+        if kinds.count("attn"):
+            state["attn"] = attn.init_cache(kinds.count("attn"), batch,
+                                            self.dims, seq_len, dtype, dev)
+        if kinds.count("rec"):
+            state["rec"] = stacked(kinds.count("rec"), rg.init_rglru_state(
+                batch, cfg.rg_lru_dim or cfg.d_model, cfg.conv1d_width, dev))
+        if kinds.count("mlstm"):
+            hd = ssm.UP * cfg.d_model // cfg.n_heads
+            state["mlstm"] = stacked(kinds.count("mlstm"),
+                                     ssm.init_mlstm_state(batch, cfg.n_heads,
+                                                          hd, hd, dev))
+        if kinds.count("slstm"):
+            state["slstm"] = stacked(kinds.count("slstm"),
+                                     ssm.init_slstm_state(batch, cfg.d_model,
+                                                          dev))
+        return state
 
     def decode_step(self, params, token, pos: int, state):
         """token (B, 1) int; pos int. Returns (logits (B, 1, V), state),
-        the state's cache updated in place."""
-        cfg = self.cfg
-        cache = state["attn"]
+        every layer's state updated in place."""
         h = embed_tokens(token, params["embed"])
-        for i in range(cfg.n_layers):
-            p = self.layer(params, i)
-            hn = rms_norm(h, p["ln1"], cfg.norm_eps)
-            out, _, _ = attn.decode_attention(p["attn"], hn, cache["k"][i],
-                                              cache["v"][i], pos, self.dims,
-                                              cfg.rope_theta)
-            h = self._mlp(p, h + out)
+        positions = torch.full((1,), pos, dtype=torch.int32, device=h.device)
+        for kind, i in self._layers():
+            p = self.layer(params, i, kind)
+            if kind == "attn":
+                cache = {"k": state["attn"]["k"][i],
+                         "v": state["attn"]["v"][i]}
+                h, _, _ = self._apply_block(kind, p, h, positions,
+                                            cache=cache, pos=pos)
+            else:
+                h, _, st = self._apply_block(
+                    kind, p, h, positions,
+                    state=tree_map(lambda a: a[i], state[kind]))
+                self._store(state[kind], i, st)
         return self._logits(params, h), state
 
 

@@ -1036,3 +1036,90 @@ def test_serve_engine_on_cuda_matches_cpu(cuda, name):
         np.testing.assert_array_equal(out["cuda"][i, :k], out["cpu"][i, :k])
         compared += k
     assert compared > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,l,h,kv,window", [
+    pytest.param(1, 2100, 4, 1, None, id="causal-ragged-mqa"),
+    pytest.param(2, 4100, 3, 1, 2048, id="window2048-ragged-mqa"),
+    pytest.param(1, 700, 4, 2, 5, id="window5-gqa"),
+    pytest.param(2, 64, 2, 2, None, id="one-block")])
+def test_flash_kernel_at_head_dim_256(cuda, dtype, b, l, h, kv, window):
+    """K7 at D = 256 (RecurrentGemma's local attention: MQA, window
+    2 048), causal and windowed, L not a multiple of the 64-row tiles or
+    64-key blocks: one launch, within the reference's tolerance of the
+    plain version; the merged layout too."""
+    rng = np.random.default_rng(l + h)
+
+    def draw(heads):
+        return torch.tensor(rng.normal(size=(b, l, heads, 256)).astype(
+            np.float32), device=cuda).to(dtype)
+    q, k, v = draw(h), draw(kv), draw(kv)
+    before = fa.flash_attention_bhld.launches
+    got = ops.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bhld.launches == before + 1
+    assert got.shape == (b, l, h, 256) and got.dtype == dtype
+    want = ops.flash_attention_ref(q, k, v, window=window)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    del want
+    qm = q[:1, :, :1].reshape(1, l, 256).contiguous()
+    km = k[:1, :, :1].reshape(1, l, 256).contiguous()
+    vm = v[:1, :, :1].reshape(1, l, 256).contiguous()
+    got = fa.flash_attention_bhld(qm, km, vm, scale=256 ** -0.5,
+                                  window=window, l_real=l - 3)
+    want = fa.flash_attention_bhld_ref(qm, km, vm, scale=256 ** -0.5,
+                                       window=window)
+    torch.testing.assert_close(got[:, :l - 3].float(),
+                               want[:, :l - 3].float(), atol=tol, rtol=tol)
+
+
+# the families on the card against the CPU, float32 (K7's float32 kernel,
+# cuBLAS in full float32): logits and decode states within this fraction
+# of their largest magnitude (summation order through 2-4 layers)
+FAMILY_TOL = 1e-4
+MODEL_FAMILIES = ("phi3.5-moe-42b-a6.6b", "qwen2-moe-a2.7b",
+                  "recurrentgemma-2b", "xlstm-350m", "llava-next-34b",
+                  "musicgen-large")
+
+
+@pytest.mark.parametrize("name", MODEL_FAMILIES)
+def test_family_step_on_cuda_matches_cpu(cuda, name):
+    """Prefill and one decode step of each family's smoke config on the
+    card against the CPU, same float32 weights; llava's smoke head dim
+    (8) is raised to 16, which K7 takes. K7 launches once per attention
+    layer in the card's prefill."""
+    import dataclasses
+    from repro_torch.models.frontend import make_frontend_stub
+    from repro_torch.models.params import init_params, tree_leaves
+    cfg = dataclasses.replace(repro_torch.get_config(name, smoke=True),
+                              attn_impl="flash")
+    if cfg.resolved_head_dim not in fa.HEAD_DIMS:
+        cfg = dataclasses.replace(cfg, head_dim=16)
+    model = repro_torch.build_model(cfg)
+    prompts = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (3, 20)).astype(np.int32))
+    extra = make_frontend_stub(cfg, 3, np.random.default_rng(3),
+                               device="cpu").get("extra_embeds")
+    n_attn = cfg.layer_kinds().count("attn")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = init_params(model.param_specs(),
+                        torch.Generator().manual_seed(1), torch.float32,
+                        device=dev)
+        before = fa.flash_attention_bhld.launches
+        logits, state = model.prefill(
+            p, prompts.to(dev), 64, dtype=torch.float32,
+            extra_embeds=None if extra is None else extra.to(dev))
+        assert fa.flash_attention_bhld.launches - before == (
+            n_attn if dev == "cuda" else 0)
+        pos = prompts.shape[1] + (0 if extra is None else extra.shape[1])
+        if dev == "cpu":   # both decode the CPU's greedy token
+            tok = logits[:, -1].argmax(dim=-1, keepdim=True).int()
+        step, state = model.decode_step(p, tok.to(dev), pos, state)
+        out[dev] = [logits, step] + tree_leaves(state)
+    for got, want in zip(out["cuda"], out["cpu"]):
+        scale = max(float(want.abs().max()), 1.0)
+        assert float((got.cpu().float() - want.float()).abs().max()) <= (
+            FAMILY_TOL * scale)

@@ -1,0 +1,436 @@
+"""PyTorch port vs JAX package: the moe, hybrid, ssm, vlm and audio
+families on the CPU.
+
+The same weights (the reference's ``init_params`` from a seed, with numpy
+noise on the zero/one-initialised leaves so that every weight is live,
+carried across by ``params_from_reference``) and the same numpy-made
+inputs go through ``repro.models`` and ``repro_torch.models`` at each
+family's ``smoke_config()``, in float32 (``dtype=float32`` passed to
+both prefills). Held: the spec trees of all 10 archs (full and smoke),
+``forward`` with its aux loss, ``prefill`` and 3 ``decode_step``s with
+the decode state compared leaf by leaf, ``ServeEngine`` tokens, and the
+building blocks: ``moe_block`` (tokens dropped at a capacity factor of
+0.5, decode's capacity of 1, a planted router tie), ``rglru_block``
+(carried state, one token), ``mlstm_cell`` (chunked and one-chunk),
+``slstm_block`` at L = 512 (the reference's ``time_chunk`` path) and the
+vision stub's embeddings.
+
+Tolerances, float32, relative to the largest magnitude compared: 1e-5
+for a single block (XLA's and torch's matmul summation orders, exp and
+log1p differ in the last bits; the port's RG-LRU doubling scan groups
+the products otherwise than ``jax.lax.associative_scan``: observed <=
+1e-6); 1e-4 for whole models and their states (the same rounding through
+the layers, the softmax and the decode steps, as in
+``test_torch_model.py``). Routing is discrete: top-k sets must be equal,
+and a planted tie must go to the lower expert, as ``jax.lax.top_k``
+takes it. The stub embeddings and the weights carried across are
+bit-exact.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro.configs import ARCHS as REF_ARCHS
+from repro.configs import get_config as ref_get_config
+from repro.configs.base import MoEConfig as RefMoE
+from repro.models import moe as ref_moe
+from repro.models import rglru as ref_rg
+from repro.models import ssm as ref_ssm
+from repro.models.frontend import make_frontend_stub as ref_stub
+from repro.models.params import init_params as ref_init_params
+from repro.models.transformer import build as ref_build
+from repro.serve.engine import ServeEngine as RefEngine
+from repro_torch.configs import ARCHS, get_config
+from repro_torch.configs.base import MoEConfig
+from repro_torch.errors import NotPortedError
+from repro_torch.models import moe as port_moe
+from repro_torch.models import rglru as port_rg
+from repro_torch.models import ssm as port_ssm
+from repro_torch.models.convert import params_from_reference
+from repro_torch.models.frontend import make_frontend_stub
+from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.models.transformer import build
+
+FAMILIES = ("phi3.5-moe-42b-a6.6b", "qwen2-moe-a2.7b", "recurrentgemma-2b",
+            "xlstm-350m", "llava-next-34b", "musicgen-large")
+BLOCK_TOL = 1e-5
+MODEL_TOL = 1e-4
+# prompt tokens: past recurrentgemma's window (8, so the ring cache
+# wraps) and two of xlstm's 8-token mLSTM chunks
+PROMPT = 16
+CACHE = 32
+
+
+def close(got, want, tol):
+    """max |got - want| <= tol x max(max |want|, 1)."""
+    want = np.asarray(want, np.float64)
+    got = np.asarray(got, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    err = np.abs(got - want).max() if want.size else 0.0
+    assert err <= tol * max(np.abs(want).max(initial=0.0), 1.0), (err, tol)
+
+
+def t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x))
+
+
+def live(tree, seed):
+    """Numpy noise on the leaves that are one constant (zeros, ones)."""
+    rng = np.random.default_rng(seed)
+
+    def liven(a):
+        arr = np.asarray(a, np.float32)
+        if arr.size and np.all(arr == arr.flat[0]):
+            arr = arr + rng.normal(size=arr.shape).astype(np.float32) * 0.1
+        return jnp.asarray(arr)
+    return jax.tree.map(liven, tree)
+
+
+def live_params(specs, seed):
+    return live(ref_init_params(specs, jax.random.key(seed), jnp.float32),
+                seed)
+
+
+def model_pair(name, impl="jnp", seed=0):
+    cfg = dataclasses.replace(ref_get_config(name, smoke=True),
+                              attn_impl=impl)
+    ref = ref_build(cfg)
+    rp = live_params(ref.param_specs(), seed)
+    port = build(dataclasses.replace(get_config(name, smoke=True),
+                                     attn_impl=impl))
+    return ref, rp, port, params_from_reference(
+        jax.tree.map(np.asarray, rp), device="cpu")
+
+
+def stub(name, batch, seed=0):
+    """The vision stub's embeddings (reference, port), or (None, None)."""
+    cfg = ref_get_config(name, smoke=True)
+    want = ref_stub(cfg, batch, np.random.default_rng(seed))
+    got = make_frontend_stub(cfg, batch, np.random.default_rng(seed),
+                             device="cpu")
+    return want.get("extra_embeds"), got.get("extra_embeds")
+
+
+def close_tree(got: dict, want, tol):
+    """The port's state dict against the reference's, leaf by leaf, the
+    keys equal."""
+    paths = [jax.tree_util.keystr(p) for p, _ in
+             jax.tree_util.tree_leaves_with_path(want)]
+    ported = []
+    tree_map(ported.append, got)
+    assert len(paths) == len(ported), paths
+    for path, a, b in zip(paths, jax.tree.leaves(want), ported):
+        assert b.dtype == torch.float32, path
+        close(b, a, tol)
+    assert sorted(got) == sorted(want)
+
+
+def spec_leaves(specs, is_ref):
+    if is_ref:
+        return [(jax.tree_util.keystr(p), s.shape, s.axes, s.init, s.scale)
+                for p, s in jax.tree_util.tree_leaves_with_path(
+                    specs, is_leaf=lambda x: hasattr(x, "axes"))]
+    out = []
+
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                walk(tree[k], f"{prefix}[{k!r}]")
+        else:
+            out.append((prefix, tree.shape, tree.axes, tree.init,
+                        tree.scale))
+    walk(specs, "")
+    return out
+
+
+# ---------------------------------------------------------------------- #
+# configs and specs: all 10 archs
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("name", REF_ARCHS)
+def test_param_specs_match_reference(name, smoke):
+    """Config, build and spec tree (keys, shapes, axes, init, scale) of
+    every arch; only the specs are built, no arrays."""
+    assert ARCHS == REF_ARCHS
+    cfg = get_config(name, smoke=smoke)
+    ref_cfg = ref_get_config(name, smoke=smoke)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_cfg)
+    ref, port = ref_build(ref_cfg), build(cfg)
+    assert port.n_experts_p == ref.n_experts_p
+    assert (spec_leaves(port.param_specs(), False)
+            == spec_leaves(ref.param_specs(), True))
+    with pytest.raises(NotPortedError, match="tp=2"):
+        build(cfg, tp=2)
+
+
+# ---------------------------------------------------------------------- #
+# whole models
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("name", FAMILIES)
+def test_forward_matches_reference(name):
+    """Logits and aux loss of the full forward pass (the attention archs
+    through K7's plain version)."""
+    ref, rp, port, pp = model_pair(name, "flash", seed=1)
+    toks = np.random.default_rng(6).integers(
+        0, ref.cfg.vocab_size, (2, PROMPT)).astype(np.int32)
+    ref_e, port_e = stub(name, 2)
+    want, want_aux = ref.forward(rp, jnp.asarray(toks), extra_embeds=ref_e)
+    got, aux = port.forward(pp, t(toks), extra_embeds=port_e)
+    close(got, want, MODEL_TOL)
+    assert aux.dtype == torch.float32
+    close(aux, want_aux, MODEL_TOL)
+    if ref.cfg.moe is not None:
+        assert float(aux) > 0
+    else:
+        assert float(aux) == float(want_aux) == 0.0
+
+
+@pytest.mark.parametrize("impl", ["jnp", "flash"])
+@pytest.mark.parametrize("name", FAMILIES)
+def test_prefill_and_decode_match_reference(name, impl):
+    """Prefill, then 3 decode steps along the reference's greedy tokens:
+    logits at each step and every leaf of the decode state."""
+    ref, rp, port, pp = model_pair(name, impl)
+    toks = np.random.default_rng(5).integers(
+        0, ref.cfg.vocab_size, (2, PROMPT)).astype(np.int32)
+    ref_e, port_e = stub(name, 2)
+    want, rstate = jax.jit(lambda p, x, e: ref.prefill(
+        p, x, CACHE, extra_embeds=e, dtype=jnp.float32))(
+            rp, jnp.asarray(toks), ref_e)
+    got, pstate = port.prefill(pp, t(toks), CACHE, extra_embeds=port_e,
+                               dtype=torch.float32)
+    close(got, want, MODEL_TOL)
+    close_tree(pstate, rstate, MODEL_TOL)
+    decode = jax.jit(ref.decode_step)
+    pos = PROMPT + (0 if ref_e is None else ref_e.shape[1])
+    tok = jnp.argmax(want[:, -1], axis=-1).astype(jnp.int32)[:, None]
+    for step in range(3):
+        want, rstate = decode(rp, tok, jnp.int32(pos + step), rstate)
+        got, pstate = port.decode_step(pp, t(tok), pos + step, pstate)
+        close(got, want, MODEL_TOL)
+        close_tree(pstate, rstate, MODEL_TOL)
+        tok = jnp.argmax(want[:, -1], axis=-1).astype(jnp.int32)[:, None]
+
+
+class Float32Cache:
+    """A model for either engine whose prefill keeps a float32 cache (the
+    engines call ``prefill`` without ``dtype=``, whose bfloat16 default
+    cannot take float32 weights)."""
+
+    def __init__(self, model, dtype):
+        self.model, self.dtype, self.cfg = model, dtype, model.cfg
+
+    def prefill(self, params, tokens, cache_len):
+        return self.model.prefill(params, tokens, cache_len,
+                                  dtype=self.dtype)
+
+    def decode_step(self, *args):
+        return self.model.decode_step(*args)
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_engine_tokens_match_reference(name):
+    """Greedy tokens of ``ServeEngine`` equal the reference engine's."""
+    ref, rp, port, pp = model_pair(name, "flash", seed=2)
+    prompts = np.random.default_rng(3).integers(
+        0, ref.cfg.vocab_size, (4, PROMPT)).astype(np.int32)
+    want = RefEngine(Float32Cache(ref, jnp.float32), rp,
+                     max_seq_len=CACHE).generate(prompts, 8)
+    got = repro_torch.ServeEngine(Float32Cache(port, torch.float32), pp,
+                                  max_seq_len=CACHE).generate(prompts, 8)
+    assert got.shape == want.shape == (4, 8)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_vision_stub_is_bit_exact_and_projected():
+    """The stub's numpy draws cast to bfloat16 equal the reference's bit
+    for bit; ``prefill`` puts them, projected by ``mm_proj``, before the
+    text tokens."""
+    want, got = stub("llava-next-34b", 3, seed=4)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(
+        got.view(torch.int16).numpy().view(np.uint16),
+        np.asarray(want).view(np.uint16))
+    for name in ("musicgen-large", "qwen2-moe-a2.7b"):
+        assert make_frontend_stub(get_config(name, smoke=True), 2,
+                                  np.random.default_rng(0),
+                                  device="cpu") == {}
+    _, _, port, pp = model_pair("llava-next-34b")
+    toks = torch.zeros((3, 5), dtype=torch.int32)
+    logits, state = port.prefill(pp, toks, CACHE, extra_embeds=got,
+                                 dtype=torch.float32)
+    assert tuple(logits.shape) == (3, 1, port.vocab_p)
+    n = port.cfg.n_frontend_tokens
+    # the cache holds the stub tokens first, then the 5 text tokens
+    assert state["attn"]["k"][:, :, :n + 5].abs().amax(dim=(0, 1, 3, 4)
+                                                      ).gt(0).all()
+    assert not state["attn"]["k"][:, :, n + 5:].any()
+
+
+# ---------------------------------------------------------------------- #
+# mixture of experts
+# ---------------------------------------------------------------------- #
+def moe_case(moe_cfg, b, l, d=32, seed=0, tie=False):
+    specs = ref_moe.moe_specs(1, d, moe_cfg, 1)
+    p = jax.tree.map(lambda a: a[0], live_params(specs, seed))
+    if tie:
+        # experts 1, 2, 3 share one router column, expert 0 never wins:
+        # every token's top-2 is a three-way tie, which the reference
+        # breaks towards the lower experts (1, 2)
+        r = np.asarray(p["router"]).copy()
+        r[:, 2] = r[:, 3] = r[:, 1]
+        r[:, 0] = -np.abs(r[:, 1]) * 4 - 1
+        p = dict(p, router=jnp.asarray(r))
+    x = np.random.default_rng(seed + 1).normal(size=(b, l, d)).astype(
+        np.float32)
+    if tie:
+        x = np.abs(x)   # the shared column's logits beat expert 0's
+    want, want_aux = ref_moe.moe_block(p, jnp.asarray(x), moe_cfg,
+                                       moe_cfg.n_experts)
+    port_cfg = MoEConfig(**dataclasses.asdict(moe_cfg))
+    pp = params_from_reference(jax.tree.map(np.asarray, p), device="cpu")
+    got, aux = port_moe.moe_block(pp, t(x), port_cfg, moe_cfg.n_experts)
+    return want, want_aux, got, aux, pp, x, port_cfg
+
+
+@pytest.mark.parametrize("case", ["dropping", "decode", "tie", "shared"])
+def test_moe_block_matches_reference(case):
+    """``capacity_factor=0.5`` drops most choices; at decode (T = B = 2,
+    k = 2, E = 4) the capacity is max(int(1.25 * 2 * 2 / 4), 1) = 1; the
+    planted tie must route to experts (1, 2), never 3; ``shared`` has
+    qwen2-moe's always-on SwiGLU."""
+    cfg = {"dropping": RefMoE(4, 2, 48, capacity_factor=0.5),
+           "decode": RefMoE(4, 2, 48),
+           "tie": RefMoE(4, 2, 48),
+           "shared": RefMoE(6, 2, 48, n_shared=2, d_ff_shared=96)}[case]
+    b, l = (2, 1) if case == "decode" else (2, 12)
+    want, want_aux, got, aux, pp, x, pcfg = moe_case(cfg, b, l,
+                                                     tie=case == "tie")
+    capacity = max(int(cfg.capacity_factor * b * l * cfg.top_k
+                       / cfg.n_experts), 1)
+    if case == "decode":
+        assert capacity == 1
+    close(got, want, BLOCK_TOL)
+    close(aux, want_aux, BLOCK_TOL)
+    _, _, top_e = port_moe.route(pp["router"], t(x).reshape(b * l, -1),
+                                 pcfg, cfg.n_experts)
+    if case == "tie":
+        assert (top_e == torch.tensor([1, 2])).all()
+    counts = np.bincount(top_e.reshape(-1).numpy(), minlength=cfg.n_experts)
+    dropped = np.maximum(counts - capacity, 0).sum()
+    if case in ("dropping", "tie"):
+        assert dropped > 0, counts   # the capacity path is exercised
+
+
+# ---------------------------------------------------------------------- #
+# RG-LRU
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("l,carried", [(24, False), (24, True), (1, True)])
+def test_rglru_block_matches_reference(l, carried):
+    """A fresh prefill, one from a carried state (h0 folded in through
+    the running products), and the one-token direct step."""
+    d, dr, w = 32, 48, 4
+    p = jax.tree.map(lambda a: a[0], live_params(
+        ref_rg.rglru_specs(1, d, dr, w), 3))
+    pp = params_from_reference(jax.tree.map(np.asarray, p), device="cpu")
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(2, l, d)).astype(np.float32)
+    state = None
+    if carried:
+        state = {"h": rng.normal(size=(2, dr)).astype(np.float32),
+                 "conv": rng.normal(size=(2, w - 1, dr)).astype(np.float32)}
+    want, wst = ref_rg.rglru_block(
+        p, jnp.asarray(x), w, 1e-5,
+        None if state is None else jax.tree.map(jnp.asarray, state))
+    got, gst = port_rg.rglru_block(
+        pp, t(x), w, 1e-5,
+        None if state is None else {k: t(v) for k, v in state.items()})
+    close(got, want, BLOCK_TOL)
+    close_tree(gst, wst, BLOCK_TOL)
+
+
+def test_rglru_scan_matches_associative_scan():
+    """The doubling scan against ``jax.lax.associative_scan`` at a length
+    that is not a power of two."""
+    rng = np.random.default_rng(0)
+    xc = rng.normal(size=(2, 37, 8)).astype(np.float32)
+    a_log = -np.abs(rng.normal(size=(2, 37, 8))).astype(np.float32)
+    want_h, want_a = ref_rg._rglru_scan(jnp.asarray(xc), jnp.asarray(a_log))
+    got_h, got_a = port_rg._rglru_scan(t(xc), t(a_log))
+    close(got_h, want_h, BLOCK_TOL)
+    close(got_a, want_a, BLOCK_TOL)
+
+
+# ---------------------------------------------------------------------- #
+# xLSTM
+# ---------------------------------------------------------------------- #
+def mlstm_inputs(l, seed=0, b=2, h=2, d=8):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=(b, l, h, d)).astype(np.float32)
+               for _ in range(3))
+    it, ft = (rng.normal(size=(b, l, h)).astype(np.float32) * 2
+              for _ in range(2))
+    return q, k, v, it, ft
+
+
+@pytest.mark.parametrize("l", [16, 12])
+def test_mlstm_cell_matches_reference_and_per_token_oracle(l):
+    """L = 16 in two chunks of 8, and L = 12, which 8 does not divide:
+    one chunk of the whole length. Both against the reference's
+    ``mlstm_cell``, the port's ``mlstm_cell_ref``, and the decode step's
+    (state, h) order."""
+    arrs = mlstm_inputs(l)
+    b, _, h, d = arrs[0].shape
+    want, wst = ref_ssm.mlstm_cell(*map(jnp.asarray, arrs),
+                                   ref_ssm.init_mlstm_state(b, h, d, d), 8)
+    st0 = port_ssm.init_mlstm_state(b, h, d, d, device="cpu")
+    assert (st0["m"] == np.float32(-1e30)).all()   # never -inf
+    got, gst = port_ssm.mlstm_cell(*map(t, arrs), st0, 8)
+    close(got, want, BLOCK_TOL)
+    close_tree(gst, wst, BLOCK_TOL)
+    oracle, ost = port_ssm.mlstm_cell_ref(
+        *map(t, arrs), port_ssm.init_mlstm_state(b, h, d, d, device="cpu"))
+    close(got, oracle, BLOCK_TOL)
+    close_tree(gst, jax.tree.map(np.asarray, dict(ost)), BLOCK_TOL)
+    step = [x[:, :1] for x in arrs]
+    st, hh = port_ssm.mlstm_decode_step(
+        *map(t, step), port_ssm.init_mlstm_state(b, h, d, d, device="cpu"))
+    rst, rh = ref_ssm.mlstm_decode_step(*map(jnp.asarray, step),
+                                        ref_ssm.init_mlstm_state(b, h, d, d))
+    close(hh, rh, BLOCK_TOL)
+    close_tree(st, rst, BLOCK_TOL)
+
+
+def test_slstm_block_matches_reference_at_512_tokens():
+    """L = 512: the reference's time-chunked (256) checkpointed scan."""
+    d, heads = 32, 4
+    p = jax.tree.map(lambda a: a[0], live_params(
+        ref_ssm.slstm_specs(1, d, heads), 5))
+    pp = params_from_reference(jax.tree.map(np.asarray, p), device="cpu")
+    x = np.random.default_rng(6).normal(size=(2, 512, d)).astype(np.float32)
+    want, wst = ref_ssm.slstm_block(p, jnp.asarray(x), heads, 1e-5)
+    got, gst = port_ssm.slstm_block(pp, t(x), heads, 1e-5)
+    close(got, want, MODEL_TOL)
+    close_tree(gst, wst, MODEL_TOL)
+
+
+def test_decode_state_layout_matches_reference():
+    """``init_decode_state`` of the pattern archs: the reference's keys,
+    shapes and values (float32 states, stabilisers at -1e30), whatever
+    the cache dtype."""
+    for name in ("recurrentgemma-2b", "xlstm-350m"):
+        cfg = ref_get_config(name, smoke=True)
+        want = ref_build(cfg).init_decode_state(3, 20)
+        got = build(get_config(name, smoke=True)).init_decode_state(
+            3, 20, device="cpu")
+        assert sorted(got) == sorted(want)
+        for a, b in zip(jax.tree.leaves(want), tree_leaves(got)):
+            assert tuple(b.shape) == a.shape
+            assert str(b.dtype).removeprefix("torch.") == str(a.dtype)
+            np.testing.assert_array_equal(b.float().numpy(),
+                                          np.asarray(a, np.float32))

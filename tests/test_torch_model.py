@@ -88,11 +88,16 @@ def test_dense_configs_match_reference(name, smoke):
 
 @pytest.mark.parametrize("name,family", sorted(OTHERS.items()))
 def test_other_families_raise_not_ported(name, family):
-    with pytest.raises(NotPortedError, match=family):
-        get_config(name)
-    ref = ref_get_config(name, smoke=True)  # and a build of one: the same
-    with pytest.raises(NotPortedError):
-        build(ref)
+    """The other families raised ``NotPortedError`` until they were
+    ported: their configs now equal the reference's and build at
+    ``tp=1``; only tensor parallelism still raises."""
+    cfg = get_config(name)
+    assert cfg.family == family
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+        ref_get_config(name))
+    assert build(ref_get_config(name, smoke=True)).cfg.family == family
+    with pytest.raises(NotPortedError, match="tp=2"):
+        build(cfg, tp=2)
 
 
 def test_build_rejects_tensor_parallelism_and_unknown_archs():
