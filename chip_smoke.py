@@ -13,7 +13,8 @@ through these phases, in order; any failure raises and exits non-zero:
      memory of K7's, K4/K5's, K1/K6's and K2/K3's kernels as ``nvcc
      -Xptxas -v`` reports them and the dynamic shared memory a K4/K5 or
      K2/K3 CTA asks for and a K1/K6 CTA may ask for;
-  2. measures phase: at |R| = |S| = 4 000, all 4 measures x
+  2. measures phase: at |R| = |S| = 4 000 (``dblp``) and 3 000
+     (``kosarak``; ``MEASURES_SCALE``), all 4 measures x
      t in {0.5, 0.7, 0.9, 2/3} x both emit modes, for ``lfvt``
      (``dblp``-shaped) and for ``popcount``, ``onehot``,
      ``kernel_bitmap`` and ``kernel_onehot`` (``kosarak``-shaped; the
@@ -48,7 +49,9 @@ through these phases, in order; any failure raises and exits non-zero:
      ``join_pairs`` for ``bitmap`` (K2), ``onehot`` (K4), ``lfvt`` (K1)
      and ``lfvt_ref``, and ``lfvt_walk_join_mask`` (K1)) run once each
      on the card and in a worker at Jaccard t = 0.5: equal pairs and
-     stats. The pool is done before any timed phase starts;
+     stats. While the workers finish, the card runs the training
+     phase's untimed half (see 6b). The pool is done before any timed
+     phase starts;
   3. join phase: ``repro_torch.join(R, S, 0.8, method="lfvt")`` on the
      card with the ``livej``-shaped dataset (|R| = |S| = 100 000), the K1
      launch count read around it, and its pairs for 64 sampled R rows
@@ -121,8 +124,29 @@ through these phases, in order; any failure raises and exits non-zero:
      top-2 gap exceeds it (the steps compared are printed; the weights as
      drawn, before the rescaling, are compared too and only logged); then
      the prefill and 3 decode steps under ``torch.profiler`` (device-busy
-     time, K7's share, the idle share, device events per step); then the
-     other families (``FAMILY_RUNS``), each at full width from seeded
+     time, K7's share, the idle share, device events per step); then
+     training (phase 6b): qwen2-1.5b at full width and depth, bf16 params
+     with float32 master weights and moments (attention conditioned),
+     ``attn_impl="jnp"``, ``remat="dots"``, through ``repro_torch.
+     Trainer`` and ``make_train_step`` with ``AdamWConfig(lr=3e-4,
+     warmup_steps=1)``: 6 steps of 8 x 4 096 tokens as 4 microbatches on
+     one repeated ``TokenStream`` batch (each step's loss and grad norm;
+     the warm step's wall, tokens/s, the model-FLOPs rate and peak
+     memory; the first loss within 2 of ln V, the last below it, K7 never
+     launched), one step under ``torch.profiler``. Its untimed half runs
+     in phase 2, during the CPU workers' tail: at 4 layers, full width,
+     remat ``"dots"`` against ``"none"`` (equal loss, gradients within
+     ``REMAT_GRAD_TOL``) and 4 microbatches against 1 (loss and grad
+     norm within ``MICRO_LOSS_TOL``, ``MICRO_NORM_TOL``); one layer at
+     full width in float32, the card's loss and every gradient leaf
+     against the CPU's within ``F32_GRAD_TOL``; a flash build refusing
+     autograd on the card; and, meanwhile, ``python3 chip_smoke.py
+     --train-child kill|full|resume DIR`` (``repro_torch.launch.train``
+     at qwen2's smoke config, deterministic algorithms, 12 steps,
+     checkpoints every 4): the killed child dies once its step-8
+     checkpoint is out, the resumed one must print ``resumed from
+     checkpoint at step 8`` and end on the uninterrupted child's final
+     checkpoint bit for bit; then the other families (``FAMILY_RUNS``), each at full width from seeded
      bf16 weights made on the card (attention conditioned), freed before
      the next: qwen2-moe-a2.7b (24 layers, 8 x 2 048 tokens),
      recurrentgemma-2b (26 layers, 4 x 4 096 tokens: K7 at D = 256 with
@@ -171,8 +195,9 @@ through these phases, in order; any failure raises and exits non-zero:
   8. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Exits 2 without a result when torch sees no CUDA device. ``python3
-chip_smoke.py --mr-child kill|resume DIR`` is the kill-and-resume
-check's child, not a smoke run.
+chip_smoke.py --mr-child kill|resume DIR`` and ``--train-child
+kill|full|resume DIR`` are the kill-and-resume checks' children, not
+smoke runs.
 """
 from __future__ import annotations
 
@@ -184,6 +209,7 @@ import json
 import multiprocessing
 import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -214,8 +240,12 @@ INT8_OPS_PER_S = 1979e12   # dense int8 tensor-core rate (data sheet)
 COUNTERS = ("pair_count", "live_tiles", "total_tiles", "walk_steps",
             "early_stops", "regrows", "r_blocks", "output_bytes")
 BITMAP_METHODS = ("popcount", "onehot", "kernel_bitmap", "kernel_onehot")
-# the measures phase: (dataset, methods), |R| = |S| = 4 000 each
+# the measures phase: (dataset, methods)
 MEASURE_SETS = (("dblp", ("lfvt",)), ("kosarak", BITMAP_METHODS))
+# |R| = |S| = 5 000 x scale: dblp 4 000; kosarak 3 000 (it was 4 000): the
+# CPU workers' bitmap joins grow with |R| |S| and were the measures
+# phase's long pole (984 of 1 204 worker-seconds at 4 000)
+MEASURES_SCALE = {"dblp": 0.8, "kosarak": 0.6}
 # the CPU workers take the slowest joins first (the plain popcount is
 # ~4x the one-hot product on the CPU), so that none is left to run alone
 CPU_ORDER = ("popcount", "kernel_bitmap", "lfvt", "kernel_onehot", "onehot")
@@ -318,7 +348,7 @@ MAIN_RUN = {"K1": "lfvt", "K2": "kernel_bitmap", "K3": "auto",
 #: TPU kernels without a counterpart on the card: none since K7
 NOT_PORTED: list = []
 # item 13's one-call wrappers of kernels/ops.py at the measures size
-# (|R| = |S| = 4 000), Jaccard t = OPS_T, on the card and in a CPU
+# (MEASURES_SCALE), Jaccard t = OPS_T, on the card and in a CPU
 # worker: (label, dataset); "walk_mask" is lfvt_walk_join_mask, the
 # others join_pairs(label, ...)
 OPS_CALLS = (("bitmap", "kosarak"), ("onehot", "kosarak"),
@@ -392,6 +422,40 @@ K7_KERNEL_NAMES = ("flash_attention_wgmma", "flash_attention_f32")
 # bf16 rounds p to bf16 before P.V, the plain version keeps float32;
 # float32 differs from the full softmax in summation order and exp only
 K7_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+# the training phase: qwen2-1.5b at full width and depth, bf16, remat
+# "dots", attn_impl "jnp"; each step 8 sequences of train_4k's 4 096
+# tokens (its global batch of 256 cut to 8) as 4 microbatches of 2
+TRAIN_ARCH = "qwen2-1.5b"
+TRAIN_SEQS = 8
+TRAIN_LEN = 4096
+TRAIN_MICRO = 4
+TRAIN_STEPS = 6
+TRAIN_LR = 3e-4
+TRAIN_FIRST_LOSS_SLACK = 2.0   # the first loss within this of ln V
+# the checks at a depth that fits both sides: remat "dots" against
+# "none" and 4 microbatches against 1, CHECK_LAYERS at full width on
+# CHECK_SEQS x CHECK_LEN tokens; then one layer at full width in float32,
+# B = 1, L = F32_LEN, the card against the CPU
+CHECK_LAYERS = 4
+CHECK_SEQS = 4
+CHECK_LEN = 1024
+F32_LEN = 256
+# tolerances, each a fraction: remat recomputes the same products, but
+# the embedding's backward accumulates bf16 rows with atomics in any
+# order (leaf max); the microbatched loss runs its GEMMs at another M and
+# rounds each microbatch's bf16 gradients before the float32 sum (loss,
+# relative; grad norm, relative); the float32 card-CPU gradients differ
+# in summation order only (leaf max)
+REMAT_GRAD_TOL = 1e-2
+MICRO_LOSS_TOL = 5e-3
+MICRO_NORM_TOL = 2e-2
+F32_GRAD_TOL = 1e-4
+# the kill-and-resume children: qwen2's smoke config through
+# repro_torch.launch.train, checkpoints every TRAIN_CHILD_EVERY steps;
+# the killed child dies once its step-TRAIN_KILL_AT checkpoint is out
+TRAIN_CHILD_STEPS = 12
+TRAIN_CHILD_EVERY = 4
+TRAIN_KILL_AT = 8
 
 
 T_START = time.perf_counter()
@@ -407,10 +471,10 @@ _WORKER_DATA: dict = {}
 
 @functools.lru_cache(maxsize=None)
 def measures_data(name: str):
-    """The measures phase's |R| = |S| = 4 000 dataset ``name`` (made once
-    a process)."""
+    """The measures phase's dataset ``name`` at ``MEASURES_SCALE`` (made
+    once a process)."""
     from repro_torch.data.synth import make_join_dataset
-    return make_join_dataset(name, scale=0.8, seed=0)
+    return make_join_dataset(name, scale=MEASURES_SCALE[name], seed=0)
 
 
 def init_worker() -> None:
@@ -734,7 +798,10 @@ def device_profile(fn, keys):
     kernels with the most device time, the number of device events).
     Only device-side events (kernels, copies, memsets) count, never the
     CPU ops that launch them; device-busy time is the union of their
-    intervals. 0.0 when the profiler saw no device events."""
+    intervals. 0.0 when the profiler saw no device events. The events are
+    read from the profiler's raw results (nanoseconds), not through its
+    per-op event tree, whose building takes minutes for a training
+    step's ~70 000 device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -744,20 +811,20 @@ def device_profile(fn, keys):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans, per = [], {}
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
             continue
-        start, end = ev.time_range.start, ev.time_range.end
+        start, end = ev.start_ns(), ev.end_ns()
         spans.append((start, end))
-        per[ev.name] = per.get(ev.name, 0.0) + (end - start) / 1e6
-    busy, reach = 0.0, float("-inf")
+        per[ev.name()] = per.get(ev.name(), 0.0) + (end - start) / 1e9
+    busy, reach = 0, float("-inf")
     for start, end in sorted(spans):
         if end > reach:
             busy += end - max(start, reach)
             reach = end
     mine = sum(v for k, v in per.items() if any(key in k for key in keys))
     top = sorted(per.items(), key=lambda kv: -kv[1])[:5]
-    return wall, busy / 1e6, mine, top, len(spans)
+    return wall, busy / 1e9, mine, top, len(spans)
 
 
 def log_profile(label, prof, kernel_id):
@@ -1090,7 +1157,7 @@ def pad_sheet_check(R, Ss, rows, s_bm, sp, dev) -> None:
 
 def dense_case(dev):
     """K2/K3 on dense words: the measures phase's kosarak data (universe
-    3 600, W = 113, sets up to 2 497 elements), its first 1024 R rows
+    3 600, W = 113), its first 1024 R rows
     against the size-sorted S at t = 0.5, bit-equal to the plain
     versions and timed beside the bounds -> {kid: (ms, queued ms, plain
     ms, bound, dense bound, pairs)}, the work counts."""
@@ -1693,6 +1760,326 @@ def llm_phase(runs, dev):
         f"{prof[1] / DECODE_PROFILED * 1e3:.2f}")
     del eng, params, rec, state
     torch.cuda.empty_cache()
+
+
+def train_child(mode: str, ckpt: str) -> int:
+    """The kill-and-resume check's child process, on the card: qwen2's
+    smoke config through ``repro_torch.launch.train.main`` with
+    deterministic algorithms on (the parent sets CUBLAS_WORKSPACE_CONFIG
+    before this interpreter imports torch). ``mode`` 'kill' dies by
+    SIGKILL as soon as its step-TRAIN_KILL_AT checkpoint is published;
+    'full' and 'resume' run to TRAIN_CHILD_STEPS."""
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") != ":4096:8":
+        raise RuntimeError("the train child needs CUBLAS_WORKSPACE_CONFIG="
+                           ":4096:8 set before torch is imported")
+    torch.use_deterministic_algorithms(True)
+    from repro_torch.launch import train
+    from repro_torch.train import checkpoint
+    if mode == "kill":
+        write = checkpoint.CheckpointManager._write
+
+        def write_then_die(self, step, arrays):
+            write(self, step, arrays)
+            if step == TRAIN_KILL_AT:
+                os.kill(os.getpid(), signal.SIGKILL)
+        checkpoint.CheckpointManager._write = write_then_die
+    return train.main(["--arch", TRAIN_ARCH, "--smoke", "--steps",
+                       str(TRAIN_CHILD_STEPS), "--ckpt-every",
+                       str(TRAIN_CHILD_EVERY), "--ckpt-dir", ckpt])
+
+
+def train_children() -> dict:
+    """Start the kill-and-resume check: an uninterrupted child and one
+    killed after its step-TRAIN_KILL_AT checkpoint, at once, in the
+    background -> what ``train_resume`` needs."""
+    import shutil
+    base = ROOT / "build" / "train_kill"
+    shutil.rmtree(base, ignore_errors=True)
+    dirs = {m: base / m for m in ("full", "kill")}
+    return dict(base=base, dirs=dirs, t0=time.perf_counter(),
+                procs={m: train_child_proc(m, d) for m, d in dirs.items()})
+
+
+def train_child_proc(mode, ckpt):
+    return subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--train-child", mode,
+         str(ckpt)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+
+
+def child_output(proc) -> tuple:
+    try:
+        return proc.communicate(timeout=300)
+    finally:
+        proc.kill()
+
+
+def train_resume(started: dict) -> str:
+    """Finish the kill-and-resume check: a third child resumes the killed
+    one, and the resumed run's final checkpoint must equal the
+    uninterrupted one's bit for bit -> the log's summary."""
+    import shutil
+    procs, dirs = started["procs"], started["dirs"]
+    outs = {m: child_output(p) for m, p in procs.items()}
+    if procs["full"].returncode != 0:
+        raise AssertionError(f"the uninterrupted train child failed: "
+                             f"{outs['full'][1][-2000:]}")
+    if procs["kill"].returncode != -signal.SIGKILL:
+        raise AssertionError(f"the killed train child exited "
+                             f"{procs['kill'].returncode}: "
+                             f"{outs['kill'][1][-2000:]}")
+    left = sorted(p.name for p in dirs["kill"].glob("step_*"))
+    if f"step_{TRAIN_KILL_AT:08d}" not in left or (
+            f"step_{TRAIN_CHILD_STEPS:08d}" in left):
+        raise AssertionError(f"the killed child left {left}")
+    resumed = train_child_proc("resume", dirs["kill"])
+    out, err = child_output(resumed)
+    if resumed.returncode != 0:
+        raise AssertionError(f"the resumed train child failed: {err[-2000:]}")
+    want = f"resumed from checkpoint at step {TRAIN_KILL_AT}"
+    if want not in out.splitlines():
+        raise AssertionError(f"the resumed child printed {out!r}")
+    final = f"step_{TRAIN_CHILD_STEPS:08d}/arrays.npz"
+    with np.load(dirs["full"] / final) as a, np.load(dirs["kill"] / final) \
+            as b:
+        if sorted(a.files) != sorted(b.files):
+            raise AssertionError("the final checkpoints hold other keys")
+        unequal = [k for k in a.files if a[k].dtype != b[k].dtype
+                   or not np.array_equal(a[k], b[k])]
+        n_keys = len(a.files)
+    if unequal:
+        raise AssertionError(f"resumed and uninterrupted checkpoints differ "
+                             f"in {unequal}")
+    shutil.rmtree(started["base"], ignore_errors=True)
+    return (f"killed after step {TRAIN_KILL_AT} (left {left}), resumed to "
+            f"{TRAIN_CHILD_STEPS}: final checkpoint == uninterrupted, "
+            f"{n_keys} arrays bit for bit; uninterrupted child printed "
+            f"{outs['full'][0].splitlines()[-1]!r}, resumed "
+            f"{out.splitlines()[-1]!r} "
+            f"s={time.perf_counter() - started['t0']:.3f}")
+
+
+def leaf_err(got, want) -> float:
+    """max |got - want| over max |want| of one gradient leaf."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-30))
+
+
+def train_checks(cfg, dev) -> None:
+    """Checks at depths that fit both sides: remat "dots" against "none"
+    and 4 microbatches against 1 (CHECK_LAYERS at full width, bf16), one
+    layer at full width in float32 on the card against the CPU, and the
+    flash build's refusal of autograd on the card."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.errors import NoBackwardError
+    from repro_torch.models.params import init_params, tree_leaves, tree_map
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.trainer import make_grad_fn
+    cfg4 = dataclasses.replace(cfg, n_layers=CHECK_LAYERS)
+    dots = repro_torch.build_model(cfg4)
+    none = repro_torch.build_model(dataclasses.replace(cfg4, remat="none"))
+    params = init_params(dots.param_specs(),
+                         torch.Generator(device=dev).manual_seed(1),
+                         device=dev)
+    condition_attention(params, dots.dims, cfg.d_model)
+    batch = repro_torch.TokenStream(cfg.vocab_size, CHECK_SEQS, CHECK_LEN,
+                                    seed=1, device=dev).batch_at(0)
+    peaks = {}
+    res = {}
+    for label, model, mb in (("dots", dots, 1), ("none", none, 1),
+                             ("dots mb4", dots, 4)):
+        torch.cuda.reset_peak_memory_stats()
+        res[label] = make_grad_fn(model, mb)(params, batch)
+        torch.cuda.synchronize()
+        peaks[label] = torch.cuda.max_memory_allocated()
+    (ld, _, gd), (ln, _, gn), (lm, _, gm) = (res[k] for k in
+                                              ("dots", "none", "dots mb4"))
+    remat_err = max(leaf_err(a, b) for a, b in zip(gd, gn))
+    if float(ld) != float(ln) or remat_err > REMAT_GRAD_TOL:
+        raise AssertionError(f"remat dots vs none: loss {float(ld)} vs "
+                             f"{float(ln)}, grads {remat_err}")
+    n1, n4 = (float(global_norm(dict(enumerate(g)))) for g in (gd, gm))
+    loss_rel = abs(float(lm) - float(ld)) / abs(float(ld))
+    norm_rel = abs(n4 - n1) / n1
+    if loss_rel > MICRO_LOSS_TOL or norm_rel > MICRO_NORM_TOL:
+        raise AssertionError(f"microbatches 4 vs 1: loss {float(lm)} vs "
+                             f"{float(ld)}, grad norm {n4} vs {n1}")
+    log(f"[train check] {CHECK_LAYERS} layers at full width, "
+        f"{CHECK_SEQS}x{CHECK_LEN} tokens, bf16: remat dots vs none loss "
+        f"{float(ld):.6f} == {float(ln):.6f}, grads max_err_over_leaf_max="
+        f"{remat_err:.3e} (tolerance {REMAT_GRAD_TOL}); peak bytes "
+        + json.dumps(peaks) + f"; microbatches 4 vs 1: loss {float(lm):.6f} "
+        f"vs {float(ld):.6f} (rel {loss_rel:.2e}, tolerance "
+        f"{MICRO_LOSS_TOL}), grad norm {n4:.6f} vs {n1:.6f} (rel "
+        f"{norm_rel:.2e}, tolerance {MICRO_NORM_TOL})")
+    del params, res, gd, gn, gm
+    torch.cuda.empty_cache()
+
+    # one layer at full width, float32: the card against the CPU
+    cfg1 = dataclasses.replace(cfg, n_layers=1)
+    model = repro_torch.build_model(cfg1)
+    params = init_params(model.param_specs(),
+                         torch.Generator(device=dev).manual_seed(2),
+                         torch.float32, device=dev)
+    condition_attention(params, model.dims, cfg.d_model)
+    host = tree_map(lambda t: t.cpu(), params)
+    stream = repro_torch.TokenStream(cfg.vocab_size, 1, F32_LEN, seed=2)
+    t0 = time.perf_counter()
+    lc, _, gc = make_grad_fn(model)(params, stream.batch_at(0))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lh, _, gh = make_grad_fn(model)(host, dataclasses.replace(
+        stream, device="cpu").batch_at(0))
+    cpu_s = time.perf_counter() - t0
+    errs = [leaf_err(a, b) for a, b in zip(gc, gh)]
+    loss_err = abs(float(lc) - float(lh)) / abs(float(lh))
+    if max(errs) > F32_GRAD_TOL or loss_err > F32_GRAD_TOL:
+        raise AssertionError(f"float32 card vs CPU: loss {float(lc)} vs "
+                             f"{float(lh)}, grads {errs}")
+    log(f"[train check] 1 layer at full width, float32, 1x{F32_LEN} "
+        f"tokens: card vs CPU loss {float(lc):.6f} vs {float(lh):.6f} (rel "
+        f"{loss_err:.2e}), {len(errs)} gradient leaves, max_err_over_leaf_"
+        f"max={max(errs):.3e} (tolerance {F32_GRAD_TOL}); card_s="
+        f"{card_s:.3f} cpu_s={cpu_s:.3f}")
+    del params, host, gc, gh
+    torch.cuda.empty_cache()
+
+    # the flash build refuses autograd on the card, and serves under
+    # no_grad
+    small = dataclasses.replace(repro_torch.get_config(TRAIN_ARCH,
+                                                       smoke=True),
+                                attn_impl="flash")
+    model = repro_torch.build_model(small)
+    params = init_params(model.param_specs(),
+                         torch.Generator(device=dev).manual_seed(3),
+                         device=dev)
+    batch = repro_torch.TokenStream(small.vocab_size, 2, 64, seed=3,
+                                    device=dev).batch_at(0)
+    try:
+        make_grad_fn(model)(params, batch)
+    except NoBackwardError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("the flash build trained without a backward")
+    with torch.no_grad():
+        _, k7 = counted(lambda: model.forward(params, batch["tokens"]))
+    if k7["K7"] != small.n_layers:
+        raise AssertionError(f"the flash forward launched K7 {k7['K7']} "
+                             "times")
+    log(f"[train check] flash build under autograd on the card raised "
+        f"NoBackwardError ({refused[:90]}...); under no_grad its forward "
+        f"launched K7 {k7['K7']} times (once per layer)")
+
+
+def train_phase(runs, dev) -> None:
+    """Training on the card: qwen2-1.5b at full width and depth through
+    ``repro_torch.Trainer`` and ``make_train_step`` (bf16 params, float32
+    master weights and moments, remat "dots", TRAIN_MICRO microbatches),
+    TRAIN_STEPS steps on one repeated TokenStream batch, one of them
+    profiled; its launch counts go to ``runs["train"]`` (K7 must stay at
+    0). The checks run earlier (``train_side_checks``)."""
+    import math
+
+    import repro_torch
+    from repro_torch.models.params import init_params, tree_leaves
+    from repro_torch.train.optimizer import adamw_init
+    cfg = train_config()
+    model = repro_torch.build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(model.param_specs(),
+                         torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    condition_attention(params, model.dims, cfg.d_model)
+    state = {"params": params, "opt": adamw_init(params)}
+    del params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree_leaves(state["params"]))
+    state_bytes = sum(x.numel() * x.element_size()
+                      for x in tree_leaves(state))
+    batch = repro_torch.TokenStream(cfg.vocab_size, TRAIN_SEQS, TRAIN_LEN,
+                                    seed=0, device=dev).batch_at(0)
+    step = repro_torch.make_train_step(
+        model, repro_torch.AdamWConfig(lr=TRAIN_LR, warmup_steps=1),
+        microbatches=TRAIN_MICRO)
+    steps = []
+
+    def timed_step(st, b):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        st, met = step(st, b)
+        torch.cuda.synchronize()
+        steps.append(dict(s=time.perf_counter() - t, **{
+            k: float(met[k]) for k in ("loss", "grad_norm", "lr", "ce")}))
+        return st, met
+
+    trainer = repro_torch.Trainer(timed_step, lambda s: batch)
+    (state, _, done), runs["train"] = counted(
+        lambda: trainer.run(state, 0, TRAIN_STEPS))
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_SEQS * TRAIN_LEN
+    warm = min(r["s"] for r in steps[1:])
+    tok_s = tokens / warm
+    mfu = 6 * n_params * tok_s / BF16_OPS_PER_S
+    for i, r in enumerate(steps):
+        log(f"[train] step {i + 1}: loss={r['loss']:.5f} ce={r['ce']:.5f} "
+            f"grad_norm={r['grad_norm']:.4f} lr={r['lr']:.3e} "
+            f"s={r['s']:.3f}")
+    losses = [r["loss"] for r in steps]
+    ln_v = math.log(cfg.vocab_size)
+    if (done != TRAIN_STEPS or not all(map(math.isfinite, losses))
+            or abs(losses[0] - ln_v) > TRAIN_FIRST_LOSS_SLACK
+            or not losses[-1] < losses[0] or runs["train"]["K7"] != 0):
+        raise AssertionError(f"training: losses {losses} (ln V = {ln_v:.3f})"
+                             f", K7 launches {runs['train']['K7']}")
+    log(f"[train] {cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
+        f"params={n_params} state_bytes={state_bytes} init_s={init_s:.3f} "
+        f"remat={cfg.remat} attn_impl={cfg.attn_impl} batch={TRAIN_SEQS}x"
+        f"{TRAIN_LEN} microbatches={TRAIN_MICRO} tokens_per_step={tokens} "
+        f"first_step_s={steps[0]['s']:.3f} warm_step_s={warm:.3f} "
+        f"tokens_per_s={tok_s:.0f} model_flops_per_s={6 * n_params * tok_s:.4e}"
+        f" (6 N tokens/s) mfu_of_989_tflops={mfu:.4f} max_memory_allocated="
+        f"{peak} first_loss={losses[0]:.4f} (ln V = {ln_v:.4f}) last_loss="
+        f"{losses[-1]:.4f} launches={runs['train']}")
+    prof = device_profile(lambda: timed_step(state, batch),
+                          ("gemm", "nvjet", "cutlass"))
+    log_profile(f"train step ({TRAIN_MICRO} microbatches)", prof, "gemm")
+    log(f"[train] device_busy_s={prof[1]:.3f} of the unprofiled warm step's "
+        f"{warm:.3f} s: busy_share={prof[1] / warm:.4f} (the profiler's own "
+        f"host work stretches its wall to {prof[0]:.3f} s)")
+    del state, batch, trainer, step
+    torch.cuda.empty_cache()
+
+
+def train_config():
+    """qwen2-1.5b at full width and depth for training: plain attention
+    (K7 has no backward), remat "dots"."""
+    import dataclasses
+
+    import repro_torch
+    return dataclasses.replace(repro_torch.get_config(TRAIN_ARCH),
+                               attn_impl="jnp", remat="dots")
+
+
+def train_side_checks(dev) -> None:
+    """The training phase's untimed half: the kill-and-resume children
+    start, ``train_checks`` runs meanwhile, then the resumed child."""
+    t0 = time.perf_counter()
+    started = train_children()
+    try:
+        train_checks(train_config(), dev)
+    except BaseException:
+        for proc in started["procs"].values():
+            proc.kill()
+        raise
+    log(f"[train kill] {train_resume(started)}")
+    log(f"[train check] s={time.perf_counter() - t0:.3f}")
 
 
 def last_logits_rel_l2(model, plain, params, toks) -> float:
@@ -2578,6 +2965,8 @@ def mesh_phase(R, Ss, want, runs, loop, dev) -> str:
 def main() -> int:
     if sys.argv[1:2] == ["--mr-child"]:
         return mr_child(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--train-child"]:
+        return train_child(*sys.argv[2:4])
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script needs "
               "one GPU", file=sys.stderr)
@@ -2648,6 +3037,9 @@ def main() -> int:
         mr_out = mr_measures_cuda(mr_cfgs)
         mesh_measures(mr_cfgs, mr_out)
         kill_and_resume(mr_out[0][0])
+        # phase 6b's untimed half runs on the card while the CPU workers
+        # finish: the training checks and the kill-and-resume children
+        train_side_checks(dev)
         measures_compare(configs, cuda_out, fronts, sizes, cpu_async)
         mr_measures_compare(mr_cfgs, mr_out, mr_async)
         baselines_compare(base_async)
@@ -2791,7 +3183,12 @@ def main() -> int:
     llm_phase(runs, dev)
     log(f"[llm] phase_s={time.perf_counter() - t0:.3f}")
 
-    # ---- phase 6b: the other model families (K7 at D = 64, 128, 256) -- #
+    # ---- phase 6b: training (qwen2-1.5b, full width) ------------------ #
+    t0 = time.perf_counter()
+    train_phase(runs, dev)
+    log(f"[train] phase_s={time.perf_counter() - t0:.3f}")
+
+    # ---- phase 6c: the other model families (K7 at D = 64, 128, 256) -- #
     families_phase(runs, dev)
     for kid, label in MAIN_RUN.items():
         if runs[label][kid] <= 0:

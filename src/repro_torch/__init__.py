@@ -18,6 +18,13 @@ The public surface mirrors the JAX package's front door::
     params = init_params(model.param_specs(), torch.Generator(device="cuda"))
     tokens = repro_torch.ServeEngine(model, params).generate(prompts, 32)
 
+    # training (attn_impl="jnp": the flash kernel K7 has no backward)
+    state = repro_torch.init_train_state(model, torch.Generator("cuda"))
+    step = repro_torch.make_train_step(model, repro_torch.AdamWConfig())
+    stream = repro_torch.TokenStream(cfg.vocab_size, batch=8, seq_len=512)
+    state, metrics, _ = repro_torch.Trainer(step, stream.batch_at).run(
+        state, 0, 10)
+
 The port imports torch and numpy, never jax, and nothing of ``repro``.
 Everything re-exported here resolves lazily (PEP 562), so ``import
 repro_torch`` stays cheap until a symbol is touched.
@@ -53,6 +60,13 @@ _EXPORTS = {
     "NotPortedError": "repro_torch.errors",
     "DeviceUnavailableError": "repro_torch.errors",
     "MeshTypeError": "repro_torch.errors",
+    "NoBackwardError": "repro_torch.errors",
+    "TokenStream": "repro_torch.data.synth",
+    "Trainer": "repro_torch.train.trainer",
+    "make_train_step": "repro_torch.train.trainer",
+    "init_train_state": "repro_torch.train.trainer",
+    "CheckpointManager": "repro_torch.train.checkpoint",
+    "AdamWConfig": "repro_torch.train.optimizer",
 }
 
 __all__ = sorted(_EXPORTS)

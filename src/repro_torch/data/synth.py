@@ -7,18 +7,21 @@ exponent). ``scale`` multiplies the collection size only; universe,
 length distribution and skew stay as specified. ``make_skew_dataset``
 draws Zipf-sized sets (the shard-skew stressor of the benches), and
 ``docs_to_sets`` turns token documents into element sets for the dedup
-pipeline.
+pipeline. ``TokenStream`` is the language-model trainer's
+deterministic-seek token source.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
+from ..core.device import resolve_device
 from ..core.sets import SetCollection
 
 __all__ = ["DATASETS", "make_join_dataset", "make_skew_dataset",
-           "docs_to_sets"]
+           "docs_to_sets", "TokenStream"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,3 +172,25 @@ def docs_to_sets(token_batches: np.ndarray, shingle: int = 1,
             sets.append(np.unique(acc % (base * 8)))
         uni = base * 8
     return SetCollection.from_ragged(sets, universe=uni)
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenStream:
+    """Deterministic-seek synthetic LM data: ``batch_at(step)`` is pure in
+    (seed, step), the property the fault-tolerant loop relies on. The
+    reference's numpy draw, so both packages give the same tokens; the
+    int32 tensors land on ``device`` (default: the first CUDA device)."""
+
+    vocab_size: int
+    batch: int
+    seq_len: int
+    seed: int = 0
+    device: object = None
+
+    def batch_at(self, step: int) -> dict:
+        dev = resolve_device(self.device)
+        rng = np.random.default_rng((self.seed << 20) ^ step)
+        toks = rng.integers(0, self.vocab_size,
+                            (self.batch, self.seq_len + 1))
+        toks = torch.from_numpy(toks.astype(np.int32)).to(dev)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

@@ -1,7 +1,8 @@
 """Named errors of the PyTorch port that have no counterpart in ``repro``."""
 from __future__ import annotations
 
-__all__ = ["NotPortedError", "DeviceUnavailableError", "MeshTypeError"]
+__all__ = ["NotPortedError", "DeviceUnavailableError", "MeshTypeError",
+           "NoBackwardError"]
 
 
 class NotPortedError(ValueError):
@@ -20,3 +21,11 @@ class MeshTypeError(TypeError):
     """``mesh=`` got an object that is not the port's
     ``repro_torch.launch.mesh.Mesh`` (a ``jax.sharding.Mesh``, say). The
     port never imports jax to look at it."""
+
+
+class NoBackwardError(RuntimeError):
+    """A kernel that has no backward was called where autograd would need
+    one: grad mode on and an operand that requires grad. The flash
+    attention kernel (K7) is inference only, as the reference's Pallas
+    kernel is (``jax.grad`` through it raises); models train with
+    ``attn_impl="jnp"``."""

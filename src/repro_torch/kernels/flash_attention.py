@@ -22,7 +22,9 @@ Both run the plain version on CPU tensors only and launch the kernel on
 CUDA tensors; there is no fallback: a failed build, a refused tensor map
 or a refused launch raises. Every launch of K7, through either entry
 point, adds one to ``flash_attention_bhld.launches``. Inference only, as
-in the reference (no backward).
+in the reference (no backward): with grad mode on and an operand that
+requires grad, both entry points raise :class:`NoBackwardError` on every
+device, the CPU's plain version included, before anything runs.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import functools
 
 import torch
 
+from ..errors import NoBackwardError
 from . import _build
 
 __all__ = ["HEAD_DIMS", "NEG", "flash_attention_bhld",
@@ -100,6 +103,19 @@ def _launcher():
     return fn
 
 
+def _refuse_grad(who, q, k, v) -> None:
+    """Raise :class:`NoBackwardError` when autograd would record the call:
+    the kernel writes a fresh tensor that carries no ``grad_fn``, so
+    training through it would silently get no gradient for q, k or v."""
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (q, k, v)):
+        raise NoBackwardError(
+            f"{who}: the flash attention kernel (K7) has no backward, as "
+            "the reference's Pallas kernel has none; it serves inference "
+            "only (run it under torch.no_grad() or torch.inference_mode())"
+            ". Train with attn_impl=\"jnp\"")
+
+
 def _check(who, q, window):
     """The checks both entry points share -> True for a CPU tensor (run
     the plain version)."""
@@ -143,6 +159,7 @@ def flash_attention_bhld(q, k, v, *, scale: float, window=None,
     operands and ``l_real`` up to 64 x 65 535 (32 x 65 535 at D = 256),
     and raises ``ValueError`` on anything else."""
     who = "flash_attention_bhld"
+    _refuse_grad(who, q, k, v)
     if _check(who, q, window):
         return flash_attention_bhld_ref(q, k, v, scale=scale, window=window,
                                         l_real=l_real)
@@ -180,6 +197,7 @@ def flash_attention_blhd(q, k, v, *, scale: float,
     to 64 x 65 535 (32 x 65 535 at D = 256), and raises ``ValueError`` on
     anything else."""
     who = "flash_attention_blhd"
+    _refuse_grad(who, q, k, v)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"{who}: q, k, v must be (B, L, heads, D), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "

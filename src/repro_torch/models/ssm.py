@@ -8,15 +8,17 @@ Exponential gating is stabilised in log space; the running max ``m``
 starts at -1e30 (never -inf) and keeps everything finite.
 
 sLSTM has recurrent gate connections (the gates read h_{t-1}), so it
-runs token by token. The reference wraps its chunk and token scans in
-gradient checkpointing (``ckpt_group``, ``time_chunk``), which changes
-what a backward pass keeps and not the numbers; the port, inference
-only, loops over the same chunks and tokens without it.
+runs token by token. Under grad mode both loops keep the reference's
+training checkpoints, which change what the backward pass keeps and not
+the numbers: ``mlstm_cell`` checkpoints groups of ``ckpt_group`` chunks
+(only the group boundaries' matrix states are kept), ``slstm_block``
+chunks of ``time_chunk`` tokens.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
 from .layers import rms_norm
@@ -118,21 +120,41 @@ def _mlstm_chunk(state, q, k, v, it, ft):
     return {"C": C_out, "n": n_out, "m": m_out}, h
 
 
-def mlstm_cell(q, k, v, it, ft, state, chunk: int):
+def _mlstm_chunks(state, q, k, v, it, ft, chunk: int):
+    """Consecutive chunks of ``chunk`` tokens -> (state, h)."""
+    hs = []
+    for c in range(0, q.shape[1], chunk):
+        sl = slice(c, c + chunk)
+        state, h = _mlstm_chunk(state, q[:, sl], k[:, sl], v[:, sl],
+                                it[:, sl], ft[:, sl])
+        hs.append(h)
+    return state, torch.cat(hs, dim=1)
+
+
+def mlstm_cell(q, k, v, it, ft, state, chunk: int, ckpt_group: int = 4):
     """q, k, v (B, L, H, d*); it/ft (B, L, H) -> (h (B, L, H, dv), state).
 
     Chunks of ``chunk`` tokens in turn; when ``chunk`` does not divide L
     the whole length is one chunk (the reference's rule), whose decay
-    matrix is then (B, L, L, H)."""
+    matrix is then (B, L, L, H). Under grad mode, when ``ckpt_group``
+    divides the chunk count and is below it, each group of ``ckpt_group``
+    chunks runs under a checkpoint, as in the reference."""
     L = q.shape[1]
     chunk = min(chunk, L)
     if L % chunk:
         chunk = L
+    n_chunks = L // chunk
+    if not (torch.is_grad_enabled() and n_chunks % ckpt_group == 0
+            and n_chunks > ckpt_group):
+        state, h = _mlstm_chunks(state, q, k, v, it, ft, chunk)
+        return h, state
+    span = chunk * ckpt_group
     hs = []
-    for c in range(0, L, chunk):
-        sl = slice(c, c + chunk)
-        state, h = _mlstm_chunk(state, q[:, sl], k[:, sl], v[:, sl],
-                                it[:, sl], ft[:, sl])
+    for g in range(0, L, span):
+        sl = slice(g, g + span)
+        state, h = checkpoint(_mlstm_chunks, state, q[:, sl], k[:, sl],
+                              v[:, sl], it[:, sl], ft[:, sl], chunk,
+                              use_reentrant=False)
         hs.append(h)
     return torch.cat(hs, dim=1), state
 
@@ -238,18 +260,37 @@ def _slstm_step(p, heads, st, gx_t):
     return {"c": c, "n": n, "h": h, "m": m_new}
 
 
-def slstm_block(p, x, heads: int, eps: float, state=None):
-    """sLSTM layer: x (B, L, d) -> (x + out, state), token by token."""
+def _slstm_steps(p, heads, state, gx):
+    """The tokens of ``gx`` (B, T, 4d) in turn -> (state, h (B, T, d))."""
+    hs = []
+    for t in range(gx.shape[1]):
+        state = _slstm_step(p, heads, state, gx[:, t])
+        hs.append(state["h"])
+    return state, torch.stack(hs, dim=1)
+
+
+def slstm_block(p, x, heads: int, eps: float, state=None,
+                time_chunk: int = 256):
+    """sLSTM layer: x (B, L, d) -> (x + out, state), token by token. Under
+    grad mode, when ``time_chunk`` divides L and is below it, each chunk
+    of ``time_chunk`` tokens runs under a checkpoint (only the chunk
+    boundaries' states are kept), as in the reference."""
     B, L, d = x.shape
     xn = rms_norm(x, p["norm_in"], eps)
     gx = xn @ p["w_gates"] + p["b_gates"]                 # (B, L, 4d)
     if state is None:
         state = init_slstm_state(B, d, device=x.device)
-    hs = []
-    for t in range(L):
-        state = _slstm_step(p, heads, state, gx[:, t])
-        hs.append(state["h"])
-    h = torch.stack(hs, dim=1).to(x.dtype)                # (B, L, d)
+    if torch.is_grad_enabled() and L % time_chunk == 0 and L > time_chunk:
+        hs = []
+        for c in range(0, L, time_chunk):
+            state, h = checkpoint(_slstm_steps, p, heads, state,
+                                  gx[:, c:c + time_chunk],
+                                  use_reentrant=False)
+            hs.append(h)
+        h = torch.cat(hs, dim=1)
+    else:
+        state, h = _slstm_steps(p, heads, state, gx)
+    h = h.to(x.dtype)                                     # (B, L, d)
     h = rms_norm(h, p["norm_h"], eps)
     return x + h @ p["w_out"], state
 

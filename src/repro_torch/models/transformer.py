@@ -15,14 +15,29 @@ reference's tree: ``params["blocks"][kind]`` holds every layer of one
 kind, stacked on a leading layer axis (``blocks.attn.attn.wq`` is the
 reference's), and layer ``i`` of the stack is the ``i``-th layer of that
 kind in ``cfg.layer_kinds()`` (the reference's per-kind counters).
-``Model.layer`` is the one place that slices it; a Python loop over the
-layers replaces the reference's ``lax.scan``, and every decode state is
-written in place (the KV caches, and the recurrent states of the other
-kinds, float32 as in the reference).
+``Model.layers`` is the one place that slices it, once per call (under
+autograd one backward then stacks the layers' gradients, where a slice
+per layer would each write a zero tensor the size of the whole stack); a
+Python loop over the layers replaces the reference's ``lax.scan``, and
+every decode state is written in place (the KV caches, and the recurrent
+states of the other kinds, float32 as in the reference).
+
+``forward`` (the training path) rematerialises each layer as the
+reference's ``_maybe_remat`` does, by ``cfg.remat``: ``"none"``;
+``"full"`` keeps only each layer's inputs; ``"dots"`` also keeps the
+layer's unbatched matrix products (the weight products) and recomputes
+the rest in the backward pass, the batched attention products included
+(``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``). Remat
+changes what the backward keeps, not the numbers, and acts only while
+grad mode is on.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
 from ..core.device import resolve_device
@@ -31,9 +46,28 @@ from . import moe as moe_mod
 from . import rglru as rg
 from . import ssm
 from .layers import embed_tokens, mlp_specs, rms_norm, swiglu, unembed
-from .params import Spec, tree_map
+from .params import Spec, tree_leaves, tree_map
 
-__all__ = ["Model", "build"]
+__all__ = ["Model", "build", "REMAT_MODES"]
+
+REMAT_MODES = ("none", "dots", "full")
+_aten = torch.ops.aten
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``"dots"``: save the matrix products
+    with no batch dimension, recompute everything else. ``x @ w`` runs as
+    ``mm``/``addmm``; an einsum against a weight (``bld,dhk->blhk``) as a
+    ``bmm`` over a batch of one; attention's scores and the experts'
+    products are ``bmm``s over real batches."""
+    if op in (_aten.mm.default, _aten.addmm.default) or (
+            op is _aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_dots_policy)
 
 
 class Model(torch.nn.Module):
@@ -46,6 +80,9 @@ class Model(torch.nn.Module):
         if cfg.attn_impl not in ("flash", "jnp"):
             raise ValueError(f"attn_impl must be 'flash' or 'jnp', got "
                              f"{cfg.attn_impl!r}")
+        if cfg.remat not in REMAT_MODES:
+            raise ValueError(f"remat must be one of {REMAT_MODES}, got "
+                             f"{cfg.remat!r}")
         self.cfg = cfg
         self.tp = tp
         self.dims = attn.make_dims(cfg, tp)     # raises unless tp == 1
@@ -99,11 +136,28 @@ class Model(torch.nn.Module):
         raise ValueError(kind)
 
     @staticmethod
-    def layer(params: dict, i: int, kind: str = "attn") -> dict:
-        """The ``i``-th layer of ``kind``'s weights: every leaf of
-        ``params["blocks"][kind]`` indexed on its leading (layer) axis, a
-        view."""
-        return tree_map(lambda a: a[i], params["blocks"][kind])
+    def layers(params: dict, kind: str = "attn") -> list:
+        """Every layer of ``kind``'s weights, in order: each leaf of
+        ``params["blocks"][kind]`` unbound once on its leading (layer)
+        axis, so every layer's leaves are views."""
+        stack = params["blocks"][kind]
+        views = tree_map(lambda a: a.unbind(0), stack)
+        n = len(tree_leaves(views)[0])
+        return [tree_map(lambda v, i=i: v[i], views) for i in range(n)]
+
+    @classmethod
+    def layer(cls, params: dict, i: int, kind: str = "attn") -> dict:
+        """The ``i``-th layer of ``kind``'s weights (``layers``' entry i;
+        a loop over the layers takes ``layers`` once instead)."""
+        return cls.layers(params, kind)[i]
+
+    def _all_layers(self, params: dict):
+        """(kind, index within the kind, weights) for every layer, in
+        order, each kind's stack sliced once."""
+        stacks = {kind: self.layers(params, kind)
+                  for kind in dict.fromkeys(self.cfg.layer_kinds())}
+        for kind, i in self._layers():
+            yield kind, i, stacks[kind][i]
 
     def _layers(self):
         """(kind, index within the kind) for every layer, in order."""
@@ -204,12 +258,21 @@ class Model(torch.nn.Module):
         positions = torch.arange(h.shape[1], dtype=torch.int32,
                                  device=h.device)
         aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
-        for kind, i in self._layers():
-            h, aux, _ = self._apply_block(kind, self.layer(params, i, kind),
-                                          h, positions)
+        for kind, _, p in self._all_layers(params):
+            h, aux, _ = self._remat(functools.partial(self._apply_block,
+                                                      kind))(p, h, positions)
             if aux is not None:
                 aux_total = aux_total + aux
         return self._logits(params, h), aux_total
+
+    def _remat(self, fn):
+        """``fn`` under ``cfg.remat``'s checkpoint (see the module
+        docstring); ``fn`` itself without grad mode or with ``"none"``."""
+        mode = self.cfg.remat
+        if mode == "none" or not torch.is_grad_enabled():
+            return fn
+        kw = {"context_fn": _dots_contexts} if mode == "dots" else {}
+        return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
 
     # ---------------------------------------------------------------- #
     # prefill: full-sequence forward that also fills the decode state
@@ -227,8 +290,7 @@ class Model(torch.nn.Module):
         h = self._embed(params, tokens, extra_embeds)
         positions = torch.arange(h.shape[1], dtype=torch.int32,
                                  device=h.device)
-        for kind, i in self._layers():
-            p = self.layer(params, i, kind)
+        for kind, i, p in self._all_layers(params):
             if kind == "attn":
                 cache = {"k": state["attn"]["k"][i],
                          "v": state["attn"]["v"][i]}
@@ -286,8 +348,7 @@ class Model(torch.nn.Module):
         every layer's state updated in place."""
         h = embed_tokens(token, params["embed"])
         positions = torch.full((1,), pos, dtype=torch.int32, device=h.device)
-        for kind, i in self._layers():
-            p = self.layer(params, i, kind)
+        for kind, i, p in self._all_layers(params):
             if kind == "attn":
                 cache = {"k": state["attn"]["k"][i],
                          "v": state["attn"]["v"][i]}

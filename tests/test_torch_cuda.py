@@ -1123,3 +1123,113 @@ def test_family_step_on_cuda_matches_cpu(cuda, name):
         scale = max(float(want.abs().max()), 1.0)
         assert float((got.cpu().float() - want.float()).abs().max()) <= (
             FAMILY_TOL * scale)
+
+
+# ---------------------------------------------------------------------- #
+# training (the train step, checkpoints and the entry point on the card)
+TRAIN_GRAD_TOL = 1e-4   # float32 card vs CPU, of each leaf's largest |g|
+
+
+def test_k7_refuses_autograd_on_the_card(cuda):
+    """Both K7 entry points raise NoBackwardError on CUDA tensors that
+    require grad under grad mode, before any launch; under no_grad the
+    kernel runs and matches its plain version as before."""
+    from repro_torch.errors import NoBackwardError
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn((2, 96, n, 64), generator=g, device=cuda)
+               .bfloat16() for n in (4, 2, 2))
+    merged = [torch.randn((8, 96, 64), generator=g, device=cuda).bfloat16()
+              for _ in range(3)]
+    before = fa.flash_attention_bhld.launches
+    for x in (q, merged[0]):
+        x.requires_grad_()
+    with pytest.raises(NoBackwardError, match="no backward"):
+        fa.flash_attention_blhd(q, k, v, scale=0.125)
+    with pytest.raises(NoBackwardError):
+        fa.flash_attention_bhld(*merged, scale=0.125)
+    assert fa.flash_attention_bhld.launches == before
+    with torch.no_grad():
+        got = fa.flash_attention_blhd(q, k, v, scale=0.125)
+    assert fa.flash_attention_bhld.launches == before + 1
+    assert got.grad_fn is None
+    want = fa.flash_attention_blhd_ref(q.detach(), k, v, scale=0.125)
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2 * (
+        1 + float(want.float().abs().max()))
+
+
+def _smoke_train_setup(dev, remat="none"):
+    import dataclasses
+    from repro_torch.models.params import init_params
+    cfg = dataclasses.replace(repro_torch.get_config("qwen2-1.5b",
+                                                     smoke=True), remat=remat)
+    model = repro_torch.build_model(cfg)
+    params = init_params(model.param_specs(),
+                         torch.Generator().manual_seed(5), torch.float32,
+                         device=dev)
+    batch = repro_torch.TokenStream(cfg.vocab_size, 4, 32, seed=5,
+                                    device=dev).batch_at(0)
+    return model, params, batch
+
+
+@pytest.mark.parametrize("remat", ["none", "dots", "full"])
+def test_grads_on_cuda_match_cpu(cuda, remat):
+    """The smoke model's loss and every gradient leaf, float32, on the card
+    against the CPU, under each remat mode."""
+    from repro_torch.train.trainer import make_grad_fn
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model, params, batch = _smoke_train_setup(dev, remat)
+        out[dev] = make_grad_fn(model, microbatches=2)(params, batch)
+    assert abs(float(out["cuda"][0]) - float(out["cpu"][0])) <= 1e-5 * abs(
+        float(out["cpu"][0]))
+    for got, want in zip(out["cuda"][2], out["cpu"][2]):
+        assert got.device.type == "cuda" and got.dtype == torch.float32
+        assert float((got.cpu() - want).abs().max()) <= TRAIN_GRAD_TOL * max(
+            float(want.abs().max()), 1e-30)
+
+
+def test_train_step_on_cuda_matches_cpu(cuda):
+    """One AdamW step from one float32 state on the card and on the CPU:
+    lr bit-equal; Adam's first step moves each weight by ~lr g / (|g| +
+    eps), so a gradient near 0 (against eps = 1e-8) can move its weight by
+    up to 2 x lr the other way: the master weights within 2 x lr, and
+    99.9 % of them within 0.01 x lr; the params bf16 after it on both."""
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.optimizer import adamw_init
+    cfg = repro_torch.AdamWConfig(lr=1e-3, warmup_steps=1)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model, params, batch = _smoke_train_setup(dev)
+        state = {"params": params, "opt": adamw_init(params)}
+        out[dev] = repro_torch.make_train_step(model, cfg)(state, batch)
+    assert float(out["cuda"][1]["lr"]) == float(out["cpu"][1]["lr"])
+    assert out["cuda"][0]["opt"]["step"].dtype == torch.int32
+    d = torch.cat([(got.cpu() - want).abs().flatten() for got, want in zip(
+        tree_leaves(out["cuda"][0]["opt"]["master"]),
+        tree_leaves(out["cpu"][0]["opt"]["master"]))])
+    assert float(d.max()) <= 2 * 1e-3
+    assert float((d > 0.01 * 1e-3).double().mean()) <= 1e-3
+    assert all(p.dtype == torch.bfloat16 and p.device.type == "cuda"
+               for p in tree_leaves(out["cuda"][0]["params"]))
+
+
+def test_launch_train_runs_on_the_card_and_resumes(cuda, tmp_path, capsys):
+    """The entry point with no --device trains on the card, checkpoints,
+    and a second run resumes; the checkpoint restores onto the card from
+    meta targets, and TokenStream's default device is the card."""
+    from repro_torch.launch.train import main
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.trainer import abstract_train_state
+    args = ["--arch", "qwen2-1.5b", "--smoke", "--batch", "2", "--seq", "32",
+            "--ckpt-dir", str(tmp_path), "--ckpt-every", "2"]
+    assert main(args + ["--steps", "4"]) == 0
+    assert main(args + ["--steps", "6"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert "resumed from checkpoint at step 4" in lines
+    assert lines[-1].startswith("step=6 loss=")
+    mgr = repro_torch.CheckpointManager(str(tmp_path))
+    model = repro_torch.build_model(repro_torch.get_config("qwen2-1.5b",
+                                                           smoke=True))
+    state = mgr.restore(6, abstract_train_state(model))
+    assert all(t.device.type == "cuda" for t in tree_leaves(state))
+    assert repro_torch.TokenStream(10, 1, 4).batch_at(0)["tokens"].is_cuda
