@@ -159,7 +159,28 @@ through these phases, in order; any failure raises and exits non-zero:
      agree with an ``attn_impl="jnp"`` build's within ``LLM_LOGIT_TOL``
      (the MoE builds under the flash build's routing, ``RouteLog``,
      with the share of (token, layer) top-k sets they route alike on
-     their own logged);
+     their own logged); then sharded execution over the port's mesh
+     (phase 6d, ``parallel_phase``, every slot on the one card):
+     qwen2-1.5b at full width and depth served at tp = 2 on (data,
+     model) = (1, 2) slots behind ``ServeEngine`` (8 x 2 048 tokens, 16
+     greedy tokens; K7 once per slot per layer, 56 a prefill, each slot
+     6 query heads on 1 KV head), its last-token logits against the
+     same weights unsharded at tp = 2 on one slot within
+     ``LLM_LOGIT_TOL`` and its greedy tokens equal while the unsharded
+     run's top-2 gap exceeds it, with the collectives' bytes and calls
+     per kind a prefill and a decode step; the same model built at
+     tp = 16 on one slot (16 padded heads on 2 KV heads: K7 at group 8),
+     its flash prefill against its plain prefill; qwen2-moe-a2.7b at
+     full width cut to 4 of 24 layers, its 60 experts over (1, 4) slots,
+     the prefill against the unsharded build under one routing; and
+     qwen2-1.5b trained 3 steps on (2, 2) slots with ZeRO-1 (remat
+     "dots", plain attention, one batch of 8 x 4 096 tokens, each data
+     slot 4 rows as 2 microbatches) against the single-slot step at 4
+     microbatches on the same batch and weights: each step's loss and
+     grad norm within ``PAR_LOSS_TOL`` and ``PAR_GNORM_TOL``, the master
+     weights' median difference within ``PAR_MEDIAN_TOL`` x lr and their
+     largest within ``PAR_FLIPS`` x the steps' lrs; step time, tokens/s,
+     peak memory, collective bytes a step;
   7. kernel phase: the 1024-row R block, as ``cf_rs_join_device`` cuts
      it, that holds the most paired rows of the join, against the full S, at
      t = 0.8 and t = 0.5: K1 (size-sorted and tile-padded as its dispatch
@@ -372,6 +393,50 @@ FAMILY_RUNS = (
     ("llava-next-34b", 16, 4, 64, 9),
     ("phi3.5-moe-42b-a6.6b", 8, 8, 256, 9),
 )
+# phase 6d, sharded execution over the port's mesh (its slots on the one
+# card): qwen2-1.5b served on (data, model) = (1, 2) slots and built at
+# tp = 16 on one slot (16 padded heads on 2 KV heads: K7 at group 8);
+# qwen2-moe-a2.7b's experts over (1, 4) slots, cut to PAR_MOE_LAYERS of
+# 24 layers; qwen2-1.5b trained on (2, 2) slots with ZeRO-1, each data
+# slot's 4 rows as PAR_TRAIN_MICRO microbatches, against the single-slot
+# step at 2 x PAR_TRAIN_MICRO microbatches on the same batch and weights
+PAR_SERVE_NEW = 16
+PAR_PADDED_TP = 16
+PAR_MOE_ARCH = "qwen2-moe-a2.7b"
+PAR_MOE_LAYERS = 4
+PAR_MOE_BATCH = 4
+PAR_TRAIN_STEPS = 3
+PAR_TRAIN_MICRO = 2
+# the sharded train step against the single-slot one (each reading is
+# printed beside its tolerance; tools/sharded_train_faults.py prints them
+# for two faults planted in the step, which they must fail):
+#  * each step's loss within PAR_LOSS_TOL and grad norm within
+#    PAR_GNORM_TOL, relative (the slots' bf16 partial sums round before
+#    their all_reduce);
+#  * the master weights' median difference within PAR_MEDIAN_TOL x the
+#    last step's lr (test_torch_train_loop.py's median bound), checked
+#    as the share of differences within it; the median and 99.9th
+#    percentile of every PAR_SAMPLE_STRIDE-th difference are printed;
+#  * the largest difference within PAR_FLIPS x the steps' lrs: the
+#    weights are bf16 from the start, so an element whose gradient is
+#    near 0 may take the other sign, and Adam then moves it the other way
+#    by lr x |m^/(sqrt(v^) + eps)|, which b1 = 0.9 and b2 = 0.95 keep
+#    within 1.0003 (Cauchy-Schwarz over the moments' weights), plus the
+#    decay's 0.1 x |w| x lr. Whatever the gradient, Adam moves no element
+#    further, so this bound alone cannot tell a wrong gradient: the
+#    median and the grad norm do.
+# Readings on an NVIDIA H100 80GB HBM3 at 700 W (the tool's run): the
+# sound step, losses <= 7.6e-5, grad norms <= 2.0e-3, median 0.022 x lr
+# (share within 0.05 x lr 0.71), largest 1.727e-3 of 1.845e-3; one data
+# group's gradients dropped, grad norms 0.20-0.34 and losses to 3.0e-2
+# off, median 0.65 x lr; no reduction over data, grad norms 0.43-6.5
+# and losses to 9.9e-3 off, median 0.78 x lr; their largest differences,
+# 1.800e-3 and 1.799e-3, pass the PAR_FLIPS bound.
+PAR_LOSS_TOL = 1e-3
+PAR_GNORM_TOL = 2e-2
+PAR_MEDIAN_TOL = 0.05
+PAR_SAMPLE_STRIDE = 211
+PAR_FLIPS = 2.05
 # the LLM serve phase: qwen2-1.5b at full width and depth, bf16
 LLM_ARCH = "qwen2-1.5b"
 LLM_BATCH = 8              # prompts served together
@@ -2168,8 +2233,8 @@ class RouteLog:
     def __init__(self, route, replay=None):
         self.route, self.replay, self.calls = route, replay, []
 
-    def __call__(self, router, xt, moe_cfg, n_experts):
-        probs, top_w, top_e = self.route(router, xt, moe_cfg, n_experts)
+    def __call__(self, router, xt, moe_cfg, n_experts, **kw):
+        probs, top_w, top_e = self.route(router, xt, moe_cfg, n_experts, **kw)
         self.calls.append(top_e)
         if self.replay is not None:
             top_e = self.replay[len(self.calls) - 1]
@@ -2326,6 +2391,438 @@ def families_phase(runs, dev) -> None:
                                  dev)
     log(f"[families] phase_s={time.perf_counter() - t0:.3f} (wall_s, "
         f"peak bytes) per arch: {json.dumps(walls)}")
+
+
+def coll_line(snap, per: int = 1) -> str:
+    """A collective counter snapshot as bytes and calls per kind, each
+    divided by ``per``."""
+    return " ".join(f"{k}={snap['bytes'][k] // per}B/{snap['calls'][k] // per}"
+                    for k in snap["bytes"])
+
+
+def logits_agree(label, lf, lo):
+    """``lf`` within ``LLM_LOGIT_TOL`` of ``lo``'s largest |logit| in each
+    row (last-token logits, float32) -> the largest error over it."""
+    if not (torch.isfinite(lf).all() and torch.isfinite(lo).all()):
+        raise AssertionError(f"{label}: the logits are not finite")
+    err = (lf - lo).abs().amax(dim=-1)
+    scale = lo.abs().amax(dim=-1)
+    if (err > LLM_LOGIT_TOL * scale).any():
+        raise AssertionError(f"{label}: logits differ by {err.tolist()} "
+                             f"(tolerance {LLM_LOGIT_TOL} x {scale.tolist()})")
+    return float((err / scale).max())
+
+
+def par_serve(runs, dev) -> None:
+    """qwen2-1.5b at full width and depth, the flash build at tp = 2, on
+    two model slots of the card behind ``ServeEngine``; K7 once per slot
+    per layer; against the same weights unsharded (one slot, tp = 2)."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.models.params import init_params
+    from repro_torch.sharding import counter, unshard
+    cfg = dataclasses.replace(repro_torch.get_config(LLM_ARCH),
+                              attn_impl="flash")
+    mesh = repro_torch.make_host_mesh(1, model=2)
+    par = repro_torch.build_model(cfg, 2, mesh=mesh)
+    one = repro_torch.build_model(cfg, 2)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(one.param_specs(),
+                         torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    condition_attention(params, one.dims, cfg.d_model)
+    placed = par.place(params)
+    slot_heads = [(sd.n_heads_p, sd.n_kv) for sd, _ in par.layout.attn]
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LLM_BATCH, LLM_PROMPT)).astype(np.int32)
+    toks = torch.from_numpy(prompts).to(dev)
+    eng = repro_torch.ServeEngine(par, placed, max_seq_len=LLM_CACHE)
+    t0 = time.perf_counter()
+    eng.generate(prompts, 1)
+    cold_s = time.perf_counter() - t0
+    counter.reset()
+    t0 = time.perf_counter()
+    first, runs["tp2 prefill"] = counted(lambda: eng.generate(prompts, 1))
+    prefill_s = time.perf_counter() - t0
+    c_pre = counter.snapshot()
+    if runs["tp2 prefill"]["K7"] != 2 * cfg.n_layers:
+        raise AssertionError(f"the tp=2 prefill launched K7 "
+                             f"{runs['tp2 prefill']['K7']} times, not once "
+                             f"per slot per layer ({2 * cfg.n_layers})")
+    counter.reset()
+    t0 = time.perf_counter()
+    out, gen_runs = counted(lambda: eng.generate(prompts, PAR_SERVE_NEW))
+    gen_s = time.perf_counter() - t0
+    c_gen = counter.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    if (out.shape != (LLM_BATCH, PAR_SERVE_NEW) or out.min() < 0
+            or out.max() >= cfg.vocab_size
+            or not np.array_equal(out[:, :1], first)):
+        raise AssertionError(f"tp=2 generate gave {out.shape} tokens in "
+                             f"[{out.min()}, {out.max()}]")
+    steps = PAR_SERVE_NEW - 1
+    c_dec = {k: {kind: c_gen[k][kind] - c_pre[k][kind]
+                 for kind in c_gen[k]} for k in ("bytes", "calls")}
+    decode_s = gen_s - prefill_s
+    with torch.inference_mode():
+        lf = unshard(par.prefill(placed, toks, LLM_CACHE)[0])[:, -1].float()
+        lo = one.prefill(params, toks, LLM_CACHE)[0][:, -1].float()
+    worst = logits_agree("tp=2 sharded vs one slot", lf, lo)
+    rec = GapRecorder(one)
+    want = repro_torch.ServeEngine(rec, params, max_seq_len=LLM_CACHE
+                                   ).generate(prompts, PAR_SERVE_NEW)
+    gaps = np.stack(rec.gaps, axis=1)
+    margin = LLM_LOGIT_TOL * np.stack(rec.scale, axis=1)
+    compared = []
+    for i in range(LLM_BATCH):
+        k = 0
+        while k < PAR_SERVE_NEW and gaps[i, k] > margin[i, k]:
+            k += 1
+        if not np.array_equal(out[i, :k], want[i, :k]):
+            raise AssertionError(f"tp=2 stream {i}: greedy tokens differ "
+                                 f"from one slot's within {k} steps")
+        compared.append(k)
+    log(f"[parallel serve] {cfg.name} tp=2 on mesh {mesh.shape} (slots on "
+        f"{sorted({str(d) for d in mesh.devices})}), flash, slot (query, "
+        f"KV) heads={slot_heads}; prompts={LLM_BATCH}x{LLM_PROMPT} "
+        f"new_tokens={PAR_SERVE_NEW} cold_prefill_s={cold_s:.3f} "
+        f"prefill_s={prefill_s:.4f} generate_s={gen_s:.3f} "
+        f"decode_ms_per_step={decode_s / steps * 1e3:.2f} "
+        f"max_memory_allocated={peak} launches={runs['tp2 prefill']}; "
+        f"collectives a prefill: {coll_line(c_pre)}; a decode step: "
+        f"{coll_line(dict(c_dec, total=0), steps)}; last-token logits vs "
+        f"one slot max_err_over_max_logit={worst:.4f} (tolerance "
+        f"{LLM_LOGIT_TOL}); greedy tokens equal for compared_steps="
+        f"{compared} of {PAR_SERVE_NEW}; streams_equal_in_full="
+        f"{int((out == want).all(axis=1).sum())}/{LLM_BATCH}")
+    with torch.inference_mode():
+        state = par.prefill(placed, toks, LLM_CACHE)[1]
+        tok = torch.from_numpy(out[:, :1]).to(dev)
+
+        def decode_steps():
+            for step in range(DECODE_PROFILED):
+                par.decode_step(placed, tok, LLM_PROMPT + step, state)
+        prof = device_profile(decode_steps, K7_KERNEL_NAMES)
+    log_profile(f"tp=2 decode ({DECODE_PROFILED} decode_steps)", prof, "K7")
+    del eng, params, placed, rec, lf, lo, state
+    torch.cuda.empty_cache()
+
+
+def par_padded(runs, dev) -> None:
+    """qwen2-1.5b built at tp = 16 on one slot: 12 query heads padded to
+    16 on the 2 KV heads (group 8), the cache repeated to 16 heads; the
+    flash prefill (K7 at group 8) against the plain prefill of the same
+    padded build."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.models.params import init_params
+    tp = PAR_PADDED_TP
+    cfg = dataclasses.replace(repro_torch.get_config(LLM_ARCH),
+                              attn_impl="flash")
+    model = repro_torch.build_model(cfg, tp)
+    plain = repro_torch.build_model(dataclasses.replace(cfg,
+                                                        attn_impl="jnp"), tp)
+    d = model.dims
+    if (d.n_heads_p, d.n_kv_cache) != (16, 16):
+        raise AssertionError(f"tp={tp} dims {d}")
+    torch.cuda.empty_cache()
+    params = init_params(model.param_specs(),
+                         torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    condition_attention(params, d, cfg.d_model)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LLM_BATCH, LLM_PROMPT)).astype(np.int32)).to(dev)
+    with torch.inference_mode():
+        model.prefill(params, toks, LLM_PROMPT)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, runs[f"tp{tp} prefill"] = counted(
+            lambda: model.prefill(params, toks, LLM_PROMPT)[0])
+        prefill_s = time.perf_counter() - t0
+        lf = lg[:, -1].float()
+        lp = plain.prefill(params, toks, LLM_PROMPT)[0][:, -1].float()
+    if runs[f"tp{tp} prefill"]["K7"] != cfg.n_layers:
+        raise AssertionError(f"the tp={tp} prefill launched K7 "
+                             f"{runs[f'tp{tp} prefill']['K7']} times")
+    worst = logits_agree(f"tp={tp} flash vs plain", lf, lp)
+    log(f"[parallel padded] {cfg.name} built at tp={tp} on one slot: "
+        f"heads {d.n_heads} padded to {d.n_heads_p} on {d.n_kv} KV heads "
+        f"(K7 group {d.n_heads_p // d.n_kv}), cache heads {d.n_kv_cache}; "
+        f"prompts={LLM_BATCH}x{LLM_PROMPT} prefill_s={prefill_s:.4f} "
+        f"launches={runs[f'tp{tp} prefill']}; flash vs plain last-token "
+        f"logits max_err_over_max_logit={worst:.4f} (tolerance "
+        f"{LLM_LOGIT_TOL})")
+    del params, lg, lf, lp
+    torch.cuda.empty_cache()
+
+
+def par_experts(runs, dev) -> None:
+    """qwen2-moe-a2.7b at full width, PAR_MOE_LAYERS of 24 layers, its 60
+    experts split over four model slots (15 each), the flash build: the
+    sharded prefill against the unsharded (one slot, tp = 4) under one
+    routing (``RouteLog`` replays the unsharded run's top-k), the routing
+    of its own logged."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_params
+    from repro_torch.sharding import counter, unshard
+    cfg = dataclasses.replace(repro_torch.get_config(PAR_MOE_ARCH),
+                              attn_impl="flash", n_layers=PAR_MOE_LAYERS)
+    mesh = repro_torch.make_host_mesh(1, model=4)
+    par = repro_torch.build_model(cfg, 4, mesh=mesh)
+    one = repro_torch.build_model(cfg, 4)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(one.param_specs(),
+                         torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    condition_attention(params, one.dims, cfg.d_model)
+    placed = par.place(params)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (PAR_MOE_BATCH, LLM_PROMPT)).astype(np.int32)
+    ).to(dev)
+
+    def prefill(m, p):
+        with torch.inference_mode():
+            lg = m.prefill(p, toks, LLM_PROMPT)[0]
+        return (unshard(lg) if m is par else lg)[:, -1].float()
+    prefill(par, placed)
+    counter.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, runs["ep prefill"] = counted(lambda: prefill(par, placed))
+    prefill_s = time.perf_counter() - t0
+    c_pre = counter.snapshot()
+    if runs["ep prefill"]["K7"] != 4 * cfg.n_layers:
+        raise AssertionError(f"the expert-parallel prefill launched K7 "
+                             f"{runs['ep prefill']['K7']} times")
+    peak = torch.cuda.max_memory_allocated()
+    route = moe.route
+    try:
+        moe.route = one_log = RouteLog(route)
+        lo = prefill(one, params)
+        moe.route = own_log = RouteLog(route)
+        free = prefill(par, placed)
+        moe.route = RouteLog(route, replay=one_log.calls)
+        lf = prefill(par, placed)
+    finally:
+        moe.route = route
+    worst = logits_agree("expert-parallel vs one slot", lf, lo)
+    log(f"[parallel experts] {cfg.name} layers={cfg.n_layers} of 24 "
+        f"experts={cfg.moe.n_experts} (padded {par.n_experts_p}) over "
+        f"mesh {mesh.shape}: {list(par.layout.experts)} (first, count) "
+        f"a slot; prompts={PAR_MOE_BATCH}x{LLM_PROMPT} prefill_s="
+        f"{prefill_s:.4f} max_memory_allocated={peak} launches="
+        f"{runs['ep prefill']}; collectives a prefill: {coll_line(c_pre)}; "
+        f"vs one slot under one routing max_err_over_max_logit="
+        f"{worst:.4f} (tolerance {LLM_LOGIT_TOL}); own routing "
+        f"routed_alike={routed_alike(one_log.calls, own_log.calls):.5f} "
+        f"max_err_over_max_logit="
+        f"{float(((free - lo).abs().amax(-1) / lo.abs().amax(-1)).max()):.4f}")
+    del params, placed, lo, lf, free
+    torch.cuda.empty_cache()
+
+
+def par_train_run(step, state, batch):
+    """PAR_TRAIN_STEPS steps -> (state, per step: s, collectives, loss,
+    lr, grad_norm)."""
+    from repro_torch.sharding import counter
+    out = []
+    for _ in range(PAR_TRAIN_STEPS):
+        counter.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        out.append(dict(s=time.perf_counter() - t, coll=counter.snapshot(),
+                        **{k: float(met[k]) for k in ("loss", "lr",
+                                                      "grad_norm")}))
+    return state, out
+
+
+def par_train_weights(model, cfg, dev):
+    from repro_torch.models.params import init_params
+    p = init_params(model.param_specs(),
+                    torch.Generator(device=dev).manual_seed(0), device=dev)
+    condition_attention(p, model.dims, cfg.d_model)
+    return p
+
+
+def par_train_reference(dev):
+    """The single-slot step at 2 x PAR_TRAIN_MICRO microbatches on the
+    phase's batch and weights -> (cfg, opt, batch, per-step readings,
+    the master weights on the host, peak bytes)."""
+    import repro_torch
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.optimizer import adamw_init
+    cfg = train_config()
+    opt = repro_torch.AdamWConfig(lr=TRAIN_LR, warmup_steps=1)
+    batch = repro_torch.TokenStream(cfg.vocab_size, TRAIN_SEQS, TRAIN_LEN,
+                                    seed=0, device=dev).batch_at(0)
+    one = repro_torch.build_model(cfg, 2)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    p = par_train_weights(one, cfg, dev)
+    state = {"params": p, "opt": adamw_init(p)}
+    del p
+    (state, ref), _ = counted(lambda: par_train_run(
+        repro_torch.make_train_step(one, opt,
+                                    microbatches=2 * PAR_TRAIN_MICRO),
+        state, batch))
+    peak = torch.cuda.max_memory_allocated()
+    master = [x.cpu() for x in tree_leaves(state["opt"]["master"])]
+    del state
+    torch.cuda.empty_cache()
+    return cfg, opt, batch, ref, master, peak
+
+
+def par_train_sharded(runs, dev, cfg, opt, batch):
+    """The (data, model) = (2, 2) ZeRO-1 run on the same batch and
+    weights -> (mesh, state, per-step readings, peak bytes, allocator
+    retries, the step); its launches go to ``runs``."""
+    import repro_torch
+    from repro_torch.train.parallel import place_train_state
+    mesh = repro_torch.make_host_mesh(2, model=2)
+    par = repro_torch.build_model(cfg, 2, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    state = place_train_state(par, params=par.place(par_train_weights(
+        par, cfg, dev)))
+    torch.cuda.synchronize()
+    step = repro_torch.make_train_step(par, opt,
+                                       microbatches=PAR_TRAIN_MICRO)
+    (state, got), runs["tp2 dp2 train"] = counted(
+        lambda: par_train_run(step, state, batch))
+    peak = torch.cuda.max_memory_allocated()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries",
+                                            0) - retries0
+    return mesh, state, got, peak, retries, step
+
+
+def par_train_readings(state, got, ref, master) -> dict:
+    """The sharded run against the single slot's: per step the loss's
+    and the grad norm's relative differences; over the master weights
+    the largest difference and the mean, the share within
+    PAR_MEDIAN_TOL x the last step's lr (the median is within it iff
+    the share is at least one half), and the median and 99.9th
+    percentile of every PAR_SAMPLE_STRIDE-th difference, over that lr."""
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.sharding import unshard
+    lr = ref[-1]["lr"]
+    tol = PAR_MEDIAN_TOL * lr
+    worst, total, within, n, sample = 0.0, 0.0, 0, 0, []
+    for x, w in zip(tree_leaves(state["opt"]["master"]), master):
+        d = (unshard(x).cpu() - w).abs().ravel()
+        worst = max(worst, float(d.max()))
+        total += float(d.sum(dtype=torch.float64))
+        within += int((d <= tol).sum())
+        n += d.numel()
+        sample.append(d[::PAR_SAMPLE_STRIDE])
+    q50, q999 = np.quantile(torch.cat(sample).double().numpy(), [0.5, 0.999])
+    return {"loss": [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                     for a, b in zip(got, ref)],
+            "grad_norm": [abs(a["grad_norm"] - b["grad_norm"])
+                          / b["grad_norm"] for a, b in zip(got, ref)],
+            "finite": all(np.isfinite([a["loss"], a["grad_norm"]]).all()
+                          for a in got),
+            "max_abs": worst, "mean_abs": total / n,
+            "flip_bound": PAR_FLIPS * sum(r["lr"] for r in ref),
+            "within_median_tol": within / n,
+            "median_over_lr": float(q50) / lr,
+            "p999_over_lr": float(q999) / lr}
+
+
+def par_train_faults(r) -> list:
+    """What the readings of ``par_train_readings`` fail, as messages."""
+    bad = []
+    if not r["finite"]:
+        bad.append("a loss or grad norm is not finite")
+    for i, (el, eg) in enumerate(zip(r["loss"], r["grad_norm"])):
+        if el > PAR_LOSS_TOL:
+            bad.append(f"step {i + 1}: loss {el:.3e} relative from one "
+                       f"slot's (tolerance {PAR_LOSS_TOL})")
+        if eg > PAR_GNORM_TOL:
+            bad.append(f"step {i + 1}: grad norm {eg:.3e} relative from "
+                       f"one slot's (tolerance {PAR_GNORM_TOL})")
+    if r["max_abs"] > r["flip_bound"]:
+        bad.append(f"master weights {r['max_abs']:.3e} from one slot's "
+                   f"(bound {r['flip_bound']:.3e})")
+    if r["within_median_tol"] < 0.5:
+        bad.append(f"the median master difference is above "
+                   f"{PAR_MEDIAN_TOL} x lr (share within "
+                   f"{r['within_median_tol']:.4f})")
+    return bad
+
+
+def par_train_line(r) -> str:
+    return (f"master weights vs one slot max_abs_err={r['max_abs']:.3e} "
+            f"(bound {r['flip_bound']:.3e} = {PAR_FLIPS} x the steps' lrs) "
+            f"mean_abs_err={r['mean_abs']:.3e} median/lr="
+            f"{r['median_over_lr']:.4f} p99.9/lr={r['p999_over_lr']:.4f} "
+            f"share_within_{PAR_MEDIAN_TOL}xlr={r['within_median_tol']:.4f} "
+            f"(at least 0.5); relative loss differences "
+            f"{[f'{x:.2e}' for x in r['loss']]} (tolerance {PAR_LOSS_TOL}), "
+            f"grad norm {[f'{x:.2e}' for x in r['grad_norm']]} (tolerance "
+            f"{PAR_GNORM_TOL})")
+
+
+def par_train(runs, dev) -> None:
+    """qwen2-1.5b at full width and depth trained on (data, model) =
+    (2, 2) slots of the card: ZeRO-1, remat "dots", plain attention,
+    PAR_TRAIN_STEPS steps on one batch of TRAIN_SEQS x TRAIN_LEN tokens
+    (each data slot TRAIN_SEQS / 2 rows as PAR_TRAIN_MICRO
+    microbatches), against the single-slot step at 2 x PAR_TRAIN_MICRO
+    microbatches on the same batch and weights."""
+    cfg, opt, batch, ref, master, ref_peak = par_train_reference(dev)
+    mesh, state, got, peak, retries, step = par_train_sharded(
+        runs, dev, cfg, opt, batch)
+    r = par_train_readings(state, got, ref, master)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        log(f"[parallel train] step {i + 1}: loss={a['loss']:.5f} (one slot "
+            f"{b['loss']:.5f}) grad_norm={a['grad_norm']:.4f} (one slot "
+            f"{b['grad_norm']:.4f}) s={a['s']:.3f} (one slot {b['s']:.3f}) "
+            f"collectives: {coll_line(a['coll'])}")
+    bad = par_train_faults(r)
+    if bad:
+        raise AssertionError("sharded training vs one slot: "
+                             + "; ".join(bad))
+    warm = min(x["s"] for x in got[1:])
+    tokens = TRAIN_SEQS * TRAIN_LEN
+    if runs["tp2 dp2 train"]["K7"] != 0:
+        raise AssertionError("training launched K7")
+    log(f"[parallel train] {cfg.name} layers={cfg.n_layers} on mesh "
+        f"{mesh.shape}: ZeRO-1, remat={cfg.remat}, attn_impl="
+        f"{cfg.attn_impl}, batch={TRAIN_SEQS}x{TRAIN_LEN}, "
+        f"{PAR_TRAIN_MICRO} microbatches a data slot; warm_step_s="
+        f"{warm:.3f} tokens_per_s={tokens / warm:.0f} max_memory_allocated="
+        f"{peak} num_alloc_retries={retries} (one slot at "
+        f"{2 * PAR_TRAIN_MICRO} microbatches: warm_step_s="
+        f"{min(x['s'] for x in ref[1:]):.3f} max_memory_allocated="
+        f"{ref_peak}); {par_train_line(r)}")
+    # one more step profiled: the device's work against the one slot's
+    # (the training phase's profiled step, same batch and microbatches)
+    log_profile("sharded train step (2 x 2 slots)", device_profile(
+        lambda: step(state, batch), ("gemm", "nvjet", "cutlass")), "gemm")
+    del state, master, batch, step
+    torch.cuda.empty_cache()
+
+
+def parallel_phase(runs, dev) -> None:
+    """Phase 6d: tensor, expert and data parallelism over the port's
+    mesh, every slot on the one card."""
+    t0 = time.perf_counter()
+    parts = {}
+    for fn in (par_serve, par_padded, par_experts, par_train):
+        t = time.perf_counter()
+        fn(runs, dev)
+        parts[fn.__name__] = round(time.perf_counter() - t, 3)
+    log(f"[parallel] phase_s={time.perf_counter() - t0:.3f} parts_s="
+        f"{json.dumps(parts)}")
 
 
 def k7_pairs(l, window):
@@ -3190,6 +3687,9 @@ def main() -> int:
 
     # ---- phase 6c: the other model families (K7 at D = 64, 128, 256) -- #
     families_phase(runs, dev)
+
+    # ---- phase 6d: tensor, expert and data parallelism over the mesh -- #
+    parallel_phase(runs, dev)
     for kid, label in MAIN_RUN.items():
         if runs[label][kid] <= 0:
             raise AssertionError(f"the {label} run never launched {kid}")

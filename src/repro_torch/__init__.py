@@ -25,6 +25,12 @@ The public surface mirrors the JAX package's front door::
     state, metrics, _ = repro_torch.Trainer(step, stream.batch_at).run(
         state, 0, 10)
 
+    # sharded: tensor parallelism over 2 model slots (here on one card)
+    mesh = repro_torch.make_host_mesh(1, model=2)
+    par = repro_torch.build_model(cfg, tp=2, mesh=mesh)
+    tokens = repro_torch.ServeEngine(par, par.place(params)).generate(
+        prompts, 32)
+
 The port imports torch and numpy, never jax, and nothing of ``repro``.
 Everything re-exported here resolves lazily (PEP 562), so ``import
 repro_torch`` stays cheap until a symbol is touched.
@@ -53,6 +59,9 @@ _EXPORTS = {
     "DedupPipeline": "repro_torch.data.pipeline",
     "Mesh": "repro_torch.launch.mesh",
     "make_host_mesh": "repro_torch.launch.mesh",
+    "make_production_mesh": "repro_torch.launch.mesh",
+    "Rules": "repro_torch.sharding.rules",
+    "Sharded": "repro_torch.sharding.placed",
     "ServeEngine": "repro_torch.serve.engine",
     "make_frontend_stub": "repro_torch.models.frontend",
     "build_model": "repro_torch.models.transformer",

@@ -31,7 +31,7 @@ from .core.distributed import mr_cf_rs_join
 from .core.planner import JoinPlan, JoinStats, PlannerError, build_plan
 from .core.sets import SetCollection
 from .core.tile_join import cf_rs_join_device
-from .launch.mesh import check_mesh
+from .launch.mesh import check_mesh, join_axis
 
 __all__ = ["join", "JoinResult", "as_collection"]
 
@@ -139,7 +139,7 @@ def join(R, S, threshold: float, *, measure: str = "jaccard",
     S = as_collection(S)
     mr = n_shards is not None or mesh is not None
     if mr and n_shards is None:
-        n_shards = len(mesh.devices)
+        n_shards = mesh.shape.get(join_axis(mesh, axis))
     if not mr:
         for name, val in (("strategy", strategy != "load_aware"),
                           ("pad", pad is not None),

@@ -41,7 +41,7 @@ import functools
 import numpy as np
 import torch
 
-from ..launch.mesh import check_mesh
+from ..launch.mesh import Mesh, check_mesh, join_axis
 from .config import global_config
 from .device import resolve_device, upload
 from .measures import get_measure
@@ -1183,7 +1183,7 @@ def mr_cf_rs_join(R: SetCollection, S: SetCollection, t: float,
             device = mesh.devices[0]
     device = resolve_device(device)
     if mesh is not None:
-        axis = axis or mesh.axis_names[0]
+        axis = join_axis(mesh, axis)
     pad_explicit = pad is not None
     pad = pad or global_config.pad_mode
     validate_join_args(driver="mr", method=method, emit=emit, pad=pad,
@@ -1259,6 +1259,9 @@ def mr_cf_rs_join(R: SetCollection, S: SetCollection, t: float,
             f"the mesh's {axis!r} axis has "
             f"{mesh.shape.get(axis)} slots (shape {mesh.shape}); it must "
             f"equal n_shards={part.n_shards}")
+    if mesh is not None and len(mesh.axis_names) > 1:
+        # shard k on the k-th slot along the axis (the other axes' first)
+        mesh = Mesh(mesh.axis_devices(axis), (axis,))
     if method in ("lfvt", "lfvt_ref"):
         if mesh is not None:
             # lfvt_ref + mesh already rejected by validate_join_args

@@ -176,19 +176,27 @@ def _qualify(counts, r_sz, s_sz, lo, hi, t, measure):
 # ---------------------------------------------------------------------- #
 # plain PyTorch version — the CPU path and the kernel's oracle
 # ---------------------------------------------------------------------- #
+#: steps between the plain walk's compactions to its live lanes
+COMPACT_EVERY = 32
+
+
 def lfvt_walk_live_tiled_ref(ti, lane_pos, lane_rem, nxt2d, seq2d, ssz2d,
                              rsz, lo, hi, *, t: float, measure: str,
                              max_steps: int, tm: int):
     """Plain PyTorch version of ``lfvt_walk_live_tiled``.
 
     The lockstep walk of the reference's live-lane staircase, narrowed
-    to the live lanes at every step instead of at pow2 lane boundaries:
-    the live tiles' lanes are flattened into one list, each step gathers
-    their rows and hops, scatter-adds 1 into the (L·tm, NP) count block,
-    and drops the lanes that died. A tile's step counter advances in the
-    steps where it still has a live lane, so masks, counts and counters
-    equal running each tile's walk on its own — and equal the
-    reference's, which the tests pin.
+    to the live lanes every ``COMPACT_EVERY`` steps instead of at pow2
+    lane boundaries: the live tiles' lanes are flattened into one list,
+    each step gathers their rows and hops and scatter-adds 1 into the
+    (L·tm, NP) count block for the lanes still live (a dead lane rides
+    along, masked, until the next compaction drops it). A tile's step
+    counter advances in the steps where it still has a live lane, so
+    masks, counts and counters equal running each tile's walk on its own
+    — and equal the reference's, which the tests pin. A compaction is the
+    loop's only host sync: the walk takes up to ``max_steps`` (~10^5 on
+    livej) steps of a few small kernels each, and syncing every step
+    made it ~3x slower on the card.
 
     Returns (masks (L, tm, NP) bool, counts/steps/stops (L, 1) int32).
     """
@@ -212,22 +220,25 @@ def lfvt_walk_live_tiled_ref(ti, lane_pos, lane_rem, nxt2d, seq2d, ssz2d,
     counts = torch.zeros(M * NP, dtype=torch.int32, device=device)
     stops = torch.zeros(L, dtype=torch.int64, device=device)
     steps_t = torch.zeros(L, dtype=torch.int64, device=device)
-    step = 0
-    while step < max_steps and rem.numel():
+    step, n = 0, rem.numel()
+    while step < max_steps and n:
+        live = rem > 0
         tile = lane_row // tm
-        steps_t += torch.bincount(tile, minlength=L) > 0
+        steps_t += torch.zeros(L, dtype=torch.int64, device=device
+                               ).index_add_(0, tile, live.long()) > 0
         row = seq[pos]
-        counts.index_add_(0, lane_row * NP + row,
-                          torch.ones_like(row, dtype=torch.int32))
+        counts.index_add_(0, lane_row * NP + row, live.to(torch.int32))
         # window early stop (Theorem 3.3): walk rows strictly decrease,
         # so row < lo means every later step is out of the window too
         stop = row < lo_l[lane_row]
-        stops += torch.bincount(tile[stop & (rem > 1)], minlength=L)
-        rem = torch.where(stop, 0, rem - 1)
+        stops.index_add_(0, tile, (live & stop & (rem > 1)).long())
+        rem = torch.where(stop, 0, rem - 1)     # a dead lane stays <= 0
         pos = torch.clamp(nxt[pos], min=0)
-        live = rem > 0
-        rem, pos, lane_row = rem[live], pos[live], lane_row[live]
         step += 1
+        if step % COMPACT_EVERY == 0:
+            keep = (rem > 0).nonzero()[:, 0]
+            rem, pos, lane_row = rem[keep], pos[keep], lane_row[keep]
+            n = rem.numel()
     q = _qualify(counts.reshape(M, NP), r_sz, ssz2d, lo_c, hi_c, t, measure)
     masks = q.reshape(L, tm, NP)
     cnts = masks.sum(dim=(1, 2), dtype=torch.int32)

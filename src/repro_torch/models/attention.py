@@ -1,12 +1,28 @@
 """GQA attention: chunked-causal and flash prefill, KV-cache decode, windows.
 
-The port of the JAX package's ``models/attention.py`` on one device
-(``tp=1``: no query-head padding, the decode cache holds the model's own
-KV heads). Prefill attention runs either row-chunked in plain PyTorch
-(``attention``: query chunks bound the live scores to (B, H, chunk, Lkv),
-and a windowed arch only slices the (window + chunk) KV band) or through
-the flash kernel K7 (``flash_attention_block``). Decode is plain PyTorch:
-one query against the (possibly ring) cache.
+The port of the JAX package's ``models/attention.py``. Prefill attention
+runs either row-chunked in plain PyTorch (``attention``: query chunks
+bound the live scores to (B, H, chunk, Lkv), and a windowed arch only
+slices the (window + chunk) KV band) or through the flash kernel K7
+(``flash_attention_block``). Decode is plain PyTorch: one query against
+the (possibly ring) cache.
+
+TP-awareness, as in the reference (``make_dims``):
+  * query heads are zero-masked-padded to a multiple of ``tp``
+    (``AttnDims.n_heads_p``); padded heads are exact no-ops (their
+    attention output is masked before the out-projection);
+  * KV heads with ``kv % tp != 0`` are replicated (the rules' fallback);
+    the decode cache stores KV repeated to ``n_kv_cache`` heads
+    (repeat-interleave) so decode attention needs no collective. Query
+    head ``j`` reads KV head ``j // (n_heads_p / n_kv)``: the grouping is
+    defined on the padded head count, so a build at one ``tp`` is held
+    against the reference's at the same ``tp``, never at another.
+
+On a mesh (``models/transformer``) each ``model`` slot runs these
+functions on its own heads: its slices of the weights, dims from
+``slot_dims``, and ``kv_select``, the KV heads of the slot's weights
+that its query heads read (a slice, or an index where the heads do not
+fall in equal groups).
 
 Unlike the reference, which returns new caches, the cache writers
 (``prefill_kv_into_cache``, ``decode_attention``) write into the cache
@@ -20,14 +36,14 @@ import dataclasses
 
 import torch
 
-from ..errors import NotPortedError
 from ..kernels import ops
+from ..sharding.rules import pad_to_multiple
 from .layers import rope
 from .params import Spec
 
 __all__ = ["AttnDims", "attn_specs", "attention", "decode_attention",
            "flash_attention_block", "init_cache", "make_dims",
-           "prefill_kv_into_cache"]
+           "prefill_kv_into_cache", "slot_dims", "check_grouping"]
 
 NEG = -1e30
 
@@ -43,13 +59,62 @@ class AttnDims:
 
 
 def make_dims(cfg, tp: int = 1) -> AttnDims:
-    """The reference's dims at ``tp=1``, where no padding or cache
-    repetition occurs; tensor parallelism is not ported."""
-    if tp != 1:
-        raise NotPortedError(f"tensor parallelism (tp={tp}) is not ported; "
-                             "the port runs one device (tp=1)")
+    """The reference's dims at ``tp``: heads padded to a multiple of
+    ``tp``; the cache holds the KV heads when ``tp`` divides them, else
+    repeats them to ``tp`` heads when they divide ``tp``, else keeps them
+    (replicated)."""
     h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    return AttnDims(h, h, kv, kv, d, cfg.window)
+    hp = h if h % tp == 0 else pad_to_multiple(h, tp)
+    if kv % tp == 0:
+        kvc = kv
+    elif tp % kv == 0:
+        kvc = tp              # repeat-interleave to the TP width
+    else:
+        kvc = kv              # replicated fallback
+    return AttnDims(h, hp, kv, kvc, d, cfg.window)
+
+
+def check_grouping(dims: AttnDims, tp: int) -> None:
+    """Raise where the reference's ``_expand_kv`` asserts: the padded
+    query heads must fall in equal groups on the KV heads, and the cache
+    heads on them (llava-next's smoke config at ``tp=2`` has 8 padded
+    heads on 7 KV heads). The reference fails when it first runs an
+    attention layer; the port, when the model is built."""
+    for n_out in (dims.n_heads_p, dims.n_kv_cache):
+        if n_out % dims.n_kv:
+            raise ValueError(
+                f"tp={tp}: {dims.n_heads} query heads padded to "
+                f"{dims.n_heads_p} (cache {dims.n_kv_cache}) do not group "
+                f"on {dims.n_kv} KV heads; the reference's _expand_kv "
+                "asserts here too")
+
+
+def slot_dims(dims: AttnDims, first: int, count: int, kv_first: int,
+              kv_count: int):
+    """The dims of a slot holding query heads ``first .. first+count-1``
+    and the KV weights of heads ``kv_first .. kv_first+kv_count-1`` ->
+    (its ``AttnDims``, ``kv_select``). Its real heads are those below
+    ``n_heads`` (padding is trailing); it reads KV head ``j // g`` for its
+    query head ``j`` (``g = n_heads_p / n_kv``) and caches exactly the KV
+    heads it reads: a slice when they give its heads equal groups, else
+    one per query head."""
+    g = dims.n_heads_p // dims.n_kv
+    need = [(first + j) // g - kv_first for j in range(count)]
+    if min(need) < 0 or max(need) >= kv_count:
+        raise ValueError(f"query heads {first}..{first + count - 1} read KV "
+                         f"heads outside the slot's {kv_first}.."
+                         f"{kv_first + kv_count - 1}")
+    n_sel = need[-1] - need[0] + 1
+    if count % n_sel == 0 and need == [need[0] + j // (count // n_sel)
+                                       for j in range(count)]:
+        sel = slice(need[0], need[-1] + 1)
+        if n_sel == kv_count:
+            sel = None
+    else:
+        sel, n_sel = torch.tensor(need, dtype=torch.long), count
+    real = min(max(dims.n_heads - first, 0), count)
+    return AttnDims(real, count, n_sel, n_sel, dims.head_dim,
+                    dims.window), sel
 
 
 # ---------------------------------------------------------------------- #
@@ -92,13 +157,20 @@ def _expand_kv(x: torch.Tensor, n_out: int) -> torch.Tensor:
         b, l, n_out, d)
 
 
-def _qkv(p, x, dims: AttnDims, positions, theta):
-    # p holds one layer's weights: wq (d, hp, hd) etc.
+def _qkv(p, x, dims: AttnDims, positions, theta, kv_select=None):
+    # p holds one layer's weights: wq (d, hp, hd) etc.; kv_select picks
+    # the KV heads this slot reads before they are projected
+    wk, wv = p["wk"], p["wv"]
+    if kv_select is not None:
+        wk, wv = wk[:, kv_select], wv[:, kv_select]
     q = torch.einsum("bld,dhk->blhk", x, p["wq"])
-    k = torch.einsum("bld,dhk->blhk", x, p["wk"])
-    v = torch.einsum("bld,dhk->blhk", x, p["wv"])
+    k = torch.einsum("bld,dhk->blhk", x, wk)
+    v = torch.einsum("bld,dhk->blhk", x, wv)
     if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        bk, bv = p["bk"], p["bv"]
+        if kv_select is not None:
+            bk, bv = bk[kv_select], bv[kv_select]
+        q, k, v = q + p["bq"], k + bk, v + bv
     q = rope(q, positions, theta)
     k = rope(k, positions, theta)
     return q, k, v
@@ -125,21 +197,29 @@ def _chunk_attend(q_chunk, k, v, pos_q, pos_kv, window, scale):
 
 
 def flash_attention_block(p, x, positions, dims: AttnDims,
-                          theta: float) -> torch.Tensor:
+                          theta: float, kv_select=None) -> torch.Tensor:
     """Full-sequence attention through the flash kernel K7 (its plain
     version on the CPU); the contract of ``attention``. K7 reads each
-    query head's KV head in place: K and V are never expanded."""
-    q, k, v = _qkv(p, x, dims, positions, theta)
+    query head's KV head in place: K and V are never expanded (the
+    group is ``n_heads_p / KV``, padded heads included)."""
+    q, k, v = _qkv(p, x, dims, positions, theta, kv_select)
     out = ops.flash_attention(q, k, v, window=dims.window)
     return _out_proj(out, p, dims)
 
 
 def attention(p, x, positions, dims: AttnDims, theta: float,
-              chunk: int = 512) -> torch.Tensor:
+              chunk: int = 512, unroll: bool = False,
+              kv_select=None) -> torch.Tensor:
     """Causal self-attention over a full sequence, in query chunks of
-    ``chunk`` rows (one chunk when ``chunk`` does not divide L)."""
+    ``chunk`` rows (one chunk when ``chunk`` does not divide L).
+
+    ``unroll`` is the reference's switch from a ``lax.map`` over the
+    chunks to a Python loop (so its cost analysis sees every chunk); the
+    port's chunk loop is a Python loop either way, so it changes no
+    number and is accepted for the reference's signature."""
+    del unroll
     l = x.shape[1]
-    q, k, v = _qkv(p, x, dims, positions, theta)
+    q, k, v = _qkv(p, x, dims, positions, theta, kv_select)
     k = _expand_kv(k, dims.n_heads_p)
     v = _expand_kv(v, dims.n_heads_p)
     scale = dims.head_dim ** -0.5
@@ -172,13 +252,13 @@ def _write(cache: torch.Tensor, index, x: torch.Tensor) -> None:
 
 
 def prefill_kv_into_cache(p, x, positions, dims: AttnDims, theta,
-                          cache_k, cache_v):
+                          cache_k, cache_v, kv_select=None):
     """Write a full prompt's K/V into a (possibly ring) cache, in place.
 
     x (B, L, d); cache (B, Lc, KVC, D). For ring caches (window), slot s
     receives the *last* position p < L with p % Lc == s. Returns
     (cache_k, cache_v)."""
-    _, k, v = _qkv(p, x, dims, positions, theta)
+    _, k, v = _qkv(p, x, dims, positions, theta, kv_select)
     k = _expand_kv(k, dims.n_kv_cache)
     v = _expand_kv(v, dims.n_kv_cache)
     l = k.shape[1]
@@ -207,7 +287,7 @@ def init_cache(n_layers: int, batch: int, dims: AttnDims, seq_len: int,
 
 
 def decode_attention(p, x, cache_k, cache_v, pos: int, dims: AttnDims,
-                     theta: float):
+                     theta: float, kv_select=None):
     """One-token attention. x (B,1,d); cache_{k,v} (B,Lc,KVC,D); pos int.
 
     Writes the token's K/V into its slot of the cache and returns
@@ -217,7 +297,7 @@ def decode_attention(p, x, cache_k, cache_v, pos: int, dims: AttnDims,
     b, lc = x.shape[0], cache_k.shape[1]
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     # q (B, 1, HP, D); k, v (B, 1, KV, D)
-    q, k, v = _qkv(p, x, dims, positions, theta)
+    q, k, v = _qkv(p, x, dims, positions, theta, kv_select)
     k = _expand_kv(k, dims.n_kv_cache)
     v = _expand_kv(v, dims.n_kv_cache)
     slot = pos % lc if dims.window is not None else pos

@@ -11,8 +11,8 @@ precomputed inputs:
     ``extra_embeds`` to ``forward`` / ``prefill`` and projected there by
     ``mm_proj`` (576 patches: the canonical anyres base tile).
 
-The reference's ``frontend_input_specs`` (abstract inputs for its dry
-run) has no counterpart until the dry run is ported.
+``frontend_input_specs`` gives the same inputs as ``meta`` tensors (a
+dry run's abstract inputs).
 """
 from __future__ import annotations
 
@@ -21,7 +21,18 @@ import torch
 
 from ..core.device import resolve_device
 
-__all__ = ["make_frontend_stub"]
+__all__ = ["make_frontend_stub", "frontend_input_specs"]
+
+
+def frontend_input_specs(cfg, batch: int) -> dict:
+    """The frontend stub's extra inputs as ``meta`` tensors: the vision
+    stub's bf16 ``extra_embeds`` (batch, n_frontend_tokens, d_model);
+    {} for a model with no vision frontend."""
+    if cfg.frontend == "vision":
+        return {"extra_embeds": torch.empty(
+            (batch, cfg.n_frontend_tokens, cfg.d_model),
+            dtype=torch.bfloat16, device="meta")}
+    return {}
 
 
 def make_frontend_stub(cfg, batch: int, rng: np.random.Generator,

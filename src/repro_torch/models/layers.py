@@ -3,19 +3,36 @@
 Each keeps the JAX package's dtype steps (``models/layers.py``): the
 norm computes in float32 and casts back before the weight multiplies,
 the rotary frequencies and angles are float32, and padded vocabulary
-columns are masked with the dtype's most negative finite value. The
-reference's sharding annotation (``with_sharding_constraint_logical``)
-has no counterpart on one device.
+columns are masked with the dtype's most negative finite value.
+``with_sharding_constraint_logical`` places an activation on a mesh's
+slots by its logical axes (the reference's sharding annotation).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..sharding.placed import Sharded, shard, unshard
+from ..sharding.rules import named_sharding
 from .params import Spec
 
 __all__ = ["rms_norm", "rope", "swiglu", "embed_tokens", "unembed",
-           "norm_spec", "mlp_specs"]
+           "norm_spec", "mlp_specs", "with_sharding_constraint_logical"]
+
+
+def with_sharding_constraint_logical(x, mesh, rules, axes):
+    """``x`` placed on ``mesh``'s slots by its logical ``axes`` (a
+    ``Sharded``; one already placed otherwise is re-placed, one placed so
+    is returned as it is). Without a mesh (``mesh=None``) it is ``x``
+    itself, as the reference's is outside a mesh context."""
+    if mesh is None:
+        return x
+    placement = named_sharding(mesh, rules, axes, tuple(x.shape))
+    if isinstance(x, Sharded):
+        if x.placement == placement:
+            return x
+        x = unshard(x)
+    return shard(x, placement)
 
 
 # ---------------------------------------------------------------------- #
@@ -68,12 +85,15 @@ def embed_tokens(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return table[tokens]
 
 
-def unembed(x: torch.Tensor, head: torch.Tensor,
-            vocab_size: int) -> torch.Tensor:
-    """Logits with padded-vocab masking (padded columns -> dtype min)."""
+def unembed(x: torch.Tensor, head: torch.Tensor, vocab_size: int,
+            first: int = 0) -> torch.Tensor:
+    """Logits with padded-vocab masking (padded columns -> dtype min);
+    ``head`` holds the vocabulary's columns ``first ..`` (a slot's piece
+    on a mesh)."""
     logits = x @ head
     vp = head.shape[-1]
-    if vp != vocab_size:
-        mask = torch.arange(vp, device=logits.device) < vocab_size
+    if first + vp > vocab_size:
+        mask = torch.arange(first, first + vp,
+                            device=logits.device) < vocab_size
         logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
     return logits

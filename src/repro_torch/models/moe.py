@@ -1,14 +1,23 @@
-"""Mixture-of-Experts: top-k router + capacity dispatch/combine.
+"""Mixture-of-Experts: top-k router + capacity dispatch/combine, EP-ready.
 
-The port of the JAX package's ``models/moe.py`` on one device. Dispatch
-avoids the (tokens, experts, capacity) one-hot blow-up: each (token,
-choice) gets its slot from a cumsum rank within its expert, tokens are
-scattered into a dense (experts, capacity, d) buffer, the experts' SwiGLU
-runs as one batched product over the expert axis (plain ``torch.matmul``,
-as the reference leaves it to XLA, outside any kernel), and the results
-are gathered back and weighted. Overflow choices are dropped (capacity-
+The port of the JAX package's ``models/moe.py``. Dispatch avoids the
+(tokens, experts, capacity) one-hot blow-up: each (token, choice) gets
+its slot from a cumsum rank within its expert, tokens are scattered into
+a dense (experts, capacity, d) buffer, the experts' SwiGLU runs as one
+batched product over the expert axis (plain ``torch.matmul``, as the
+reference leaves it to XLA, outside any kernel), and the results are
+gathered back and weighted. Overflow choices are dropped (capacity-
 factor semantics, decode included: at T = B tokens the capacity is often
 1); a Switch-style aux loss keeps the router near-uniform.
+
+Experts are padded to a multiple of ``tp`` (``pad_experts``): a padded
+expert's router logit is -1e30, so it never routes, and the capacity is
+``capacity_factor * T * k / E_padded``, as in the reference. Expert
+parallelism (``moe_parts(experts=...)``): a ``model`` slot holds a range
+of the experts (their router columns and weights); the routing is made
+from every slot's logits, gathered, so it is the same on every slot;
+each slot runs only its experts' buffer rows, and the slots' partial
+outputs are summed by the caller's ``all_reduce``.
 
 qwen2-moe's shared experts are one always-on dense SwiGLU of width
 ``d_ff_shared`` (= n_shared x per-expert width), as in the reference.
@@ -18,18 +27,19 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..sharding.rules import pad_to_multiple
 from .layers import swiglu
 from .params import Spec
 
-__all__ = ["moe_specs", "moe_block", "pad_experts", "route"]
+__all__ = ["moe_specs", "moe_block", "moe_parts", "pad_experts", "route"]
 
 NEG = -1e30
 
 
 def pad_experts(n_experts: int, tp: int) -> int:
-    """Experts padded to a multiple of ``tp`` (identity at ``tp=1``, the
-    only degree the port runs)."""
-    return n_experts if n_experts % tp == 0 else -(-n_experts // tp) * tp
+    """Experts padded to a multiple of ``tp``."""
+    return n_experts if n_experts % tp == 0 else pad_to_multiple(n_experts,
+                                                                 tp)
 
 
 def moe_specs(layers: int, d_model: int, moe, tp: int) -> dict:
@@ -54,16 +64,19 @@ def moe_specs(layers: int, d_model: int, moe, tp: int) -> dict:
     return sp
 
 
-def route(router: torch.Tensor, xt: torch.Tensor, moe, n_experts_padded: int):
+def route(router: torch.Tensor, xt: torch.Tensor, moe,
+          n_experts_padded: int, logits: torch.Tensor | None = None):
     """Router of ``xt`` (T, d) -> (probs (T, E), top_w (T, k) renormalised,
-    top_e (T, k)), all but ``top_e`` float32.
+    top_e (T, k)), all but ``top_e`` float32. ``logits`` (T, E), when
+    given, replaces ``xt @ router`` (a mesh gathers them from the slots'
+    expert columns).
 
     The logits are made in the weights' dtype and then cast to float32.
     Top-k ties: ``jax.lax.top_k`` returns the lower expert first among
     equal probabilities, which ``torch.topk`` does not promise; a stable
     descending sort does (bf16 logits make exact ties plausible)."""
     e = n_experts_padded
-    logits = (xt @ router).float()
+    logits = (xt @ router if logits is None else logits).float()
     if e != moe.n_experts:  # padded experts never route
         logits = torch.where(torch.arange(e, device=xt.device)
                              < moe.n_experts, logits, NEG)
@@ -75,11 +88,28 @@ def route(router: torch.Tensor, xt: torch.Tensor, moe, n_experts_padded: int):
 
 def moe_block(p, x: torch.Tensor, moe, n_experts_padded: int):
     """x (B, L, d) -> (out (B, L, d), aux_loss float32 scalar)."""
+    routed, shared, aux = moe_parts(p, x, moe, n_experts_padded)
+    return (routed if shared is None else routed + shared), aux
+
+
+def moe_parts(p, x: torch.Tensor, moe, n_experts_padded: int, *,
+              experts: tuple | None = None, routing=None):
+    """x (B, L, d) -> (routed (B, L, d), shared (B, L, d) or None, aux
+    float32 scalar), the parts ``moe_block`` adds.
+
+    ``experts=(first, count)``: ``p`` holds only experts first ..
+    first+count-1 (their router columns are not used: ``routing``, the
+    ``route`` result of all the experts, must be given), and ``routed``
+    is their share of the output, zero for the choices of other experts.
+    Capacity and ranks are those of all ``n_experts_padded`` experts."""
     b, l, d = x.shape
     tkns = b * l
     e, k = n_experts_padded, moe.top_k
     xt = x.reshape(tkns, d)
-    probs, top_w, top_e = route(p["router"], xt, moe, e)
+    if routing is None:
+        routing = route(p["router"], xt, moe, e)
+    probs, top_w, top_e = routing
+    first, count = experts if experts is not None else (0, e)
 
     # aux load-balance loss (Switch-style)
     density = F.one_hot(top_e[:, 0], e).float().mean(dim=0)
@@ -92,14 +122,16 @@ def moe_block(p, x: torch.Tensor, moe, n_experts_padded: int):
     onehot = F.one_hot(flat_e, e)
     rank = onehot.cumsum(dim=0).gather(1, flat_e[:, None])[:, 0] - 1
     keep = rank < capacity
+    if experts is not None:   # this slot's experts only
+        keep = keep & (flat_e >= first) & (flat_e < first + count)
 
     # scatter into the expert buffer (E, C, d). Kept choices own distinct
     # slots; dropped ones all go to slot (0, 0) carrying zeros, so the
     # accumulating scatter is exact in any order of its atomics
-    idx_e = torch.where(keep, flat_e, 0)
+    idx_e = torch.where(keep, flat_e - first, 0)
     idx_c = torch.where(keep, rank, 0)
     src = torch.where(keep[:, None], xt.repeat_interleave(k, dim=0), 0)
-    buf = torch.zeros((e, capacity, d), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((count, capacity, d), dtype=x.dtype, device=x.device)
     buf.index_put_((idx_e, idx_c), src, accumulate=True)
 
     # every expert's SwiGLU as one batched product over the expert axis
@@ -107,9 +139,9 @@ def moe_block(p, x: torch.Tensor, moe, n_experts_padded: int):
 
     gathered = torch.where(keep[:, None], out_buf[idx_e, idx_c], 0)
     weights = top_w.reshape(-1)[:, None].to(x.dtype)
-    out = (gathered * weights).reshape(tkns, k, d).sum(dim=1).reshape(
+    routed = (gathered * weights).reshape(tkns, k, d).sum(dim=1).reshape(
         b, l, d)
+    shared = None
     if "ws_g" in p:  # shared experts (always on)
-        out = out + swiglu(xt, p["ws_g"], p["ws_u"], p["ws_d"]).reshape(
-            b, l, d)
-    return out, aux
+        shared = swiglu(xt, p["ws_g"], p["ws_u"], p["ws_d"]).reshape(b, l, d)
+    return routed, shared, aux

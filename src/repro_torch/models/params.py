@@ -1,10 +1,12 @@
 """Parameter specs: one source of truth for shapes, logical axes and init.
 
 ``Model.param_specs()`` (in transformer.py) returns a nested dict of
-``Spec``; ``init_params`` materializes it as a nested dict of tensors
-with the reference's init rules. The JAX package's ``abstract_params``
-(sharded shape structs for its dry run) has no counterpart: the dry run
-is not ported.
+``Spec``; from it come
+  * ``init_params``      — materialized tensors, the reference's init rules;
+  * ``abstract_params``  — ``meta`` tensors, each with its ``Placement``
+                           (a dry run's shapes and per-slot pieces);
+  * ``place_params``     — a whole tree cut into per-slot pieces on a
+                           mesh by the rules (``gather_params`` inverts it).
 """
 from __future__ import annotations
 
@@ -15,9 +17,12 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..sharding.placed import Sharded, shard, unshard
+from ..sharding.rules import Rules, named_sharding
 
-__all__ = ["Spec", "init_params", "spec_tree_bytes", "tree_map",
-           "tree_leaves"]
+__all__ = ["Spec", "init_params", "abstract_params", "place_params",
+           "gather_params", "param_placements", "spec_tree_bytes",
+           "tree_map", "tree_leaves"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,12 +38,14 @@ class Spec:
                              "differ in length")
 
 
-def tree_map(fn, tree):
-    """``fn`` over the leaves of a nested dict, keys in sorted order (the
-    order ``jax.tree`` flattens a dict in)."""
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of a nested dict (and the same leaves of
+    ``rest``, trees of one structure), keys in sorted order (the order
+    ``jax.tree`` flattens a dict in)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
-    return fn(tree)
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
@@ -73,3 +80,38 @@ def init_params(specs, generator: torch.Generator, dtype=torch.bfloat16,
 def spec_tree_bytes(specs, bytes_per_el: int = 2) -> int:
     return sum(int(np.prod(s.shape)) * bytes_per_el
                for s in tree_leaves(specs))
+
+
+def param_placements(specs, mesh, rules: Rules):
+    """Each spec's ``Placement`` on ``mesh`` by ``rules`` (a logical axis
+    that does not divide is replicated)."""
+    return tree_map(lambda s: named_sharding(mesh, rules, s.axes, s.shape),
+                    specs)
+
+
+def abstract_params(specs, mesh, rules: Rules, dtype=torch.bfloat16,
+                    strict: bool = False):
+    """``meta`` tensors, each with its placement: a tree of ``Sharded``
+    whose pieces are ``meta`` tensors of each slot's local shape. Nothing
+    is allocated (the reference's ``ShapeDtypeStruct``s with their
+    ``NamedSharding``s)."""
+    def one(s: Spec):
+        return shard(torch.empty(s.shape, dtype=dtype, device="meta"),
+                     named_sharding(mesh, rules, s.axes, s.shape,
+                                    strict=strict))
+    return tree_map(one, specs)
+
+
+def place_params(params, placements):
+    """A whole param tree cut into per-slot pieces by ``placements``
+    (``param_placements``' tree): a tree of ``Sharded``, each slot
+    holding only its piece on its device."""
+    return tree_map(lambda x, p: shard(x, p), params, placements)
+
+
+def gather_params(placed, device=None):
+    """``place_params`` inverted: the whole tensors, on ``device``
+    (default: each leaf's first slot's). Leaves that are not ``Sharded``
+    pass through."""
+    return tree_map(lambda x: unshard(x, device) if isinstance(x, Sharded)
+                    else x, placed)

@@ -5,8 +5,19 @@ for every family: dense and MoE transformers (every layer ``"attn"``,
 with a SwiGLU MLP or a mixture of experts), the vision and audio
 backbones (their frontends are stubs, ``models/frontend.py``), and the
 pattern archs whose layers cycle through ``"rec"`` (RG-LRU, hybrid),
-``"mlstm"`` and ``"slstm"`` (xLSTM). Tensor parallelism (``tp > 1``)
-raises :class:`NotPortedError` when the model is built.
+``"mlstm"`` and ``"slstm"`` (xLSTM).
+
+``build(cfg, tp)`` pads as the reference's does: query heads and experts
+to a multiple of ``tp``, the vocabulary too (padded logit columns are
+the dtype's most negative value), the decode cache repeated to
+``n_kv_cache`` heads (``attention.make_dims``). On one device such a
+build runs the padded model whole; ``build(cfg, tp, mesh=)`` runs it
+over a ``(pod, data, model)`` mesh (``models/parallel.py``: Megatron
+tensor parallelism, expert parallelism and data parallelism), taking
+params placed by ``Model.place``. Both run one body, ``run_group``:
+the layers over one group's ``model`` slots, each slot on its weights'
+pieces with the collectives between them; off a mesh the group is one
+slot holding the whole model, and every collective is the identity.
 
 Parameters are a plain nested dict of tensors, not parameters registered
 on the module, so that one set of weights serves several builds (the
@@ -41,12 +52,16 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..configs.base import ModelConfig
 from ..core.device import resolve_device
+from ..launch.mesh import check_mesh
+from ..sharding import collectives as coll
+from ..sharding.rules import Rules, pad_to_multiple
 from . import attention as attn
 from . import moe as moe_mod
 from . import rglru as rg
 from . import ssm
 from .layers import embed_tokens, mlp_specs, rms_norm, swiglu, unembed
-from .params import Spec, tree_leaves, tree_map
+from .parallel import Group, MeshPlan, SlotLayout, group_mean
+from .params import Spec, place_params, tree_leaves, tree_map
 
 __all__ = ["Model", "build", "REMAT_MODES"]
 
@@ -73,9 +88,13 @@ def _dots_contexts():
 class Model(torch.nn.Module):
     """A model of ``cfg``; holds no weights (see the module docstring).
     ``cfg.attn_impl`` picks the prefill attention: ``"flash"`` (kernel
-    K7) or ``"jnp"`` (row-chunked plain PyTorch)."""
+    K7) or ``"jnp"`` (row-chunked plain PyTorch). With ``mesh`` (whose
+    ``model`` axis must be ``tp`` slots) it runs over the mesh's slots,
+    on params from ``place``; ``rules`` default to
+    ``Rules.default(fsdp=cfg.fsdp)``."""
 
-    def __init__(self, cfg: ModelConfig, tp: int = 1):
+    def __init__(self, cfg: ModelConfig, tp: int = 1, mesh=None,
+                 rules: Rules | None = None):
         super().__init__()
         if cfg.attn_impl not in ("flash", "jnp"):
             raise ValueError(f"attn_impl must be 'flash' or 'jnp', got "
@@ -83,12 +102,30 @@ class Model(torch.nn.Module):
         if cfg.remat not in REMAT_MODES:
             raise ValueError(f"remat must be one of {REMAT_MODES}, got "
                              f"{cfg.remat!r}")
+        if tp < 1:
+            raise ValueError(f"tp must be >= 1, got {tp}")
         self.cfg = cfg
         self.tp = tp
-        self.dims = attn.make_dims(cfg, tp)     # raises unless tp == 1
-        self.vocab_p = cfg.vocab_size      # tp=1: no vocab padding
+        self.dims = attn.make_dims(cfg, tp)
+        if "attn" in cfg.layer_kinds():
+            attn.check_grouping(self.dims, tp)
+        self.vocab_p = (cfg.vocab_size if cfg.vocab_size % tp == 0
+                        else pad_to_multiple(cfg.vocab_size, tp))
         self.n_experts_p = (moe_mod.pad_experts(cfg.moe.n_experts, tp)
                             if cfg.moe else 0)
+        self.rules = rules or Rules.default(fsdp=cfg.fsdp)
+        self.mesh = None if mesh is None else check_mesh(mesh)
+        self.plan = None if mesh is None else MeshPlan(self)
+        self.layout = (SlotLayout.whole(self) if self.plan is None
+                       else self.plan.layout)
+
+    # ---------------------------------------------------------------- #
+    # placement on a mesh
+    # ---------------------------------------------------------------- #
+    def place(self, params):
+        """A whole param tree cut into the pieces each slot of the
+        model's mesh holds (a tree of ``sharding.Sharded``)."""
+        return place_params(params, self.plan.placements)
 
     # ---------------------------------------------------------------- #
     # parameter specs
@@ -151,14 +188,6 @@ class Model(torch.nn.Module):
         a loop over the layers takes ``layers`` once instead)."""
         return cls.layers(params, kind)[i]
 
-    def _all_layers(self, params: dict):
-        """(kind, index within the kind, weights) for every layer, in
-        order, each kind's stack sliced once."""
-        stacks = {kind: self.layers(params, kind)
-                  for kind in dict.fromkeys(self.cfg.layer_kinds())}
-        for kind, i in self._layers():
-            yield kind, i, stacks[kind][i]
-
     def _layers(self):
         """(kind, index within the kind) for every layer, in order."""
         seen: dict = {}
@@ -170,100 +199,239 @@ class Model(torch.nn.Module):
         return params["lm_head"] if "lm_head" in params else params["embed"].T
 
     # ---------------------------------------------------------------- #
-    # one layer (weights already sliced)
+    # the layers over one group's model slots (see models/parallel.py);
+    # off a mesh the group is one slot holding the whole model
     # ---------------------------------------------------------------- #
-    def _attend(self, p, hn, positions):
+    def _norm(self, h, ws, devs):
+        eps = self.cfg.norm_eps
+        return coll.per_device(lambda x, w: rms_norm(x, w, eps), devs, h, ws)
+
+    def _attend(self, p, hn, positions, dims, kv_select):
         cfg = self.cfg
         if cfg.attn_impl == "flash":
-            return attn.flash_attention_block(p["attn"], hn, positions,
-                                              self.dims, cfg.rope_theta)
-        return attn.attention(p["attn"], hn, positions, self.dims,
-                              cfg.rope_theta, chunk=cfg.attn_chunk)
+            return attn.flash_attention_block(p["attn"], hn, positions, dims,
+                                              cfg.rope_theta, kv_select)
+        return attn.attention(p["attn"], hn, positions, dims, cfg.rope_theta,
+                              chunk=cfg.attn_chunk, unroll=cfg.unroll_attn,
+                              kv_select=kv_select)
 
-    def _ffn(self, p, h):
+    def _attn_block(self, ps, h, positions, devs, caches=None, i=None,
+                    pos=None):
+        """One attention layer -> (h per slot, aux or None). Each slot runs
+        its own query heads; their partial out-projections are
+        ``all_reduce``d where the heads are split. ``caches`` (each slot's
+        k, v stacks) with ``pos`` is a decode step against layer ``i``'s;
+        ``caches`` alone a prefill that fills them; neither the
+        full-sequence forward."""
+        cfg, lay = self.cfg, self.layout
+        hn = self._norm(h, [p["ln1"] for p in ps], devs)
+        outs = []
+        for m, p in enumerate(ps):
+            dims, sel = lay.attn[m]
+            if pos is not None:
+                o, _, _ = attn.decode_attention(
+                    p["attn"], hn[m], caches[m]["k"][i], caches[m]["v"][i],
+                    pos, dims, cfg.rope_theta, sel)
+            else:
+                if caches is not None:
+                    attn.prefill_kv_into_cache(
+                        p["attn"], hn[m], positions[m], dims, cfg.rope_theta,
+                        caches[m]["k"][i], caches[m]["v"][i], sel)
+                o = self._attend(p, hn[m], positions[m], dims, sel)
+            outs.append(o)
+        if lay.heads_split:
+            outs = coll.all_reduce(outs, devs)
+        return self._ffn(ps, coll.per_device(torch.add, devs, h, outs), devs)
+
+    def _ffn(self, ps, h, devs):
         """The attention block's second half -> (h, aux loss or None): the
         experts (and their aux loss), the MLP, or nothing."""
-        cfg = self.cfg
+        cfg, lay = self.cfg, self.layout
         if cfg.moe is None and not cfg.d_ff:
             return h, None
-        hn = rms_norm(h, p["ln2"], cfg.norm_eps)
+        hn = self._norm(h, [p["ln2"] for p in ps], devs)
+        aux = None
         if cfg.moe is not None:
-            out, aux = moe_mod.moe_block(p["moe"], hn, cfg.moe,
-                                         self.n_experts_p)
-            return h + out, aux
-        return h + swiglu(hn, p["mlp"]["wg"], p["mlp"]["wu"],
-                          p["mlp"]["wd"]), None
+            out, aux = self._experts(ps, hn, devs)
+        elif lay.mlp_split:
+            out = coll.all_reduce([swiglu(x, p["mlp"]["wg"], p["mlp"]["wu"],
+                                          p["mlp"]["wd"])
+                                   for x, p in zip(hn, ps)], devs)
+        else:
+            out = coll.per_device(lambda x, p: swiglu(
+                x, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"]), devs,
+                hn, ps)
+        return coll.per_device(torch.add, devs, h, out), aux
 
-    def _apply_block(self, kind, p, h, positions, state=None, cache=None,
-                     pos=None):
-        """One layer -> (h, aux or None, state or None).
+    def _experts(self, ps, hn, devs):
+        """The experts over the group's slots (expert parallelism where
+        they are split) -> (out per slot, aux): one routing of all the
+        experts, made from the router logits (``all_gather``ed from the
+        slots' columns), each slot's experts' share, ``all_reduce``d."""
+        moe, e, lay = self.cfg.moe, self.n_experts_p, self.layout
+        xts = [x.reshape(-1, x.shape[-1]) for x in hn]
+        logits = [x @ p["moe"]["router"] for x, p in zip(xts, ps)]
+        if lay.experts_split:
+            logits = coll.all_gather(logits, 1, devs)
+        routing = moe_mod.route(ps[0]["moe"]["router"], xts[0], moe, e,
+                                logits=logits[0])
+        routings = coll.per_device(
+            lambda d: tuple(r.to(d) for r in routing), devs, devs)
+        routed, shared, aux = [], [], None
+        for m, p in enumerate(ps):
+            r, sh, a = moe_mod.moe_parts(p["moe"], hn[m], moe, e,
+                                         experts=lay.experts[m],
+                                         routing=routings[m])
+            aux = a if aux is None else aux
+            if sh is not None and lay.shared_split:
+                r = r + sh
+            elif sh is not None:
+                shared.append(sh)
+            routed.append(r)
+        if lay.experts_split:
+            routed = coll.all_reduce(routed, devs)
+        if shared:
+            routed = [r + s for r, s in zip(routed, shared)]
+        return routed, aux
 
-        ``"attn"``: ``cache`` (the layer's k, v) with ``pos`` is a decode
-        step against it; ``cache`` alone is a prefill that fills it; no
-        cache is the full-sequence forward. The other kinds run from
-        ``state`` (None: fresh zeros) and return their new state."""
+    def _state_block(self, kind, ps, h, stacks=None, i=None):
+        """One layer of a recurrent kind on each slot (these run on groups
+        of one ``model`` slot) -> (h per slot, None): from layer ``i``'s
+        state in ``stacks`` (each slot's, written back in place), else
+        from fresh zeros."""
         cfg = self.cfg
-        if kind == "attn":
-            hn = rms_norm(h, p["ln1"], cfg.norm_eps)
-            if pos is not None:
-                out, _, _ = attn.decode_attention(
-                    p["attn"], hn, cache["k"], cache["v"], pos, self.dims,
-                    cfg.rope_theta)
+        out = []
+        for m, (p, x) in enumerate(zip(ps, h)):
+            st = None if stacks is None else tree_map(lambda a: a[i],
+                                                      stacks[m])
+            if kind == "rec":
+                x, st = rg.rglru_block(p["rec"], x, cfg.conv1d_width,
+                                       cfg.norm_eps, st)
+                x = x + swiglu(rms_norm(x, p["ln2"], cfg.norm_eps),
+                               p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"])
+            elif kind == "mlstm":
+                x, st = ssm.mlstm_block(p["cell"], x, cfg.n_heads,
+                                        cfg.norm_eps, cfg.mlstm_chunk, st)
+            elif kind == "slstm":
+                x, st = ssm.slstm_block(p["cell"], x, cfg.n_heads,
+                                        cfg.norm_eps, st)
             else:
-                if cache is not None:
-                    attn.prefill_kv_into_cache(
-                        p["attn"], hn, positions, self.dims, cfg.rope_theta,
-                        cache["k"], cache["v"])
-                out = self._attend(p, hn, positions)
-            h, aux = self._ffn(p, h + out)
-            return h, aux, None
-        if kind == "rec":
-            h, state = rg.rglru_block(p["rec"], h, cfg.conv1d_width,
-                                      cfg.norm_eps, state)
-            hn = rms_norm(h, p["ln2"], cfg.norm_eps)
-            out = swiglu(hn, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"])
-            return h + out, None, state
-        if kind == "mlstm":
-            h, state = ssm.mlstm_block(p["cell"], h, cfg.n_heads,
-                                       cfg.norm_eps, cfg.mlstm_chunk, state)
-            return h, None, state
-        if kind == "slstm":
-            h, state = ssm.slstm_block(p["cell"], h, cfg.n_heads,
-                                       cfg.norm_eps, state)
-            return h, None, state
-        raise ValueError(kind)
+                raise ValueError(kind)
+            if stacks is not None:
+                for key, leaf in st.items():
+                    stacks[m][key][i].copy_(leaf)
+            out.append(x)
+        return out, None
 
-    def _embed(self, params, tokens, extra_embeds):
+    def _apply_block(self, kind, ps, h, positions, devs, states=None,
+                     i=None, pos=None):
+        """Layer ``i`` of ``kind`` over the group's slots -> (h, aux or
+        None); ``states`` (each slot's decode state) as ``run_group``."""
+        stacks = None if states is None else [s[kind] for s in states]
+        if kind == "attn":
+            return self._attn_block(ps, h, positions, devs, stacks, i, pos)
+        return self._state_block(kind, ps, h, stacks, i)
+
+    def _embed(self, trees, devs, tokens, extra_embeds):
         """Token embeddings, after the projected stub embeddings when
-        ``extra_embeds`` (B, P, d) is given."""
-        h = embed_tokens(tokens, params["embed"])
+        ``extra_embeds`` (B, P, d) is given; a vocab-split table looks up
+        the slot's rows (zero elsewhere), then ``all_reduce``s."""
+        lay = self.layout
+        if lay.vocab_split:
+            parts = []
+            for t, dev, (v0, vl) in zip(trees, devs, lay.vocab):
+                loc = tokens.to(dev) - v0
+                ok = (loc >= 0) & (loc < vl)
+                parts.append(torch.where(
+                    ok[..., None], t["embed"][loc.clamp(0, vl - 1)], 0))
+            h = coll.all_reduce(parts, devs)
+        else:
+            h = coll.per_device(lambda t, d: embed_tokens(
+                tokens.to(d), t["embed"]), devs, trees, devs)
         if extra_embeds is not None:
-            pe = extra_embeds.to(h.dtype)
-            if "mm_proj" in params:
-                pe = pe @ params["mm_proj"]
-            h = torch.cat([pe, h], dim=1)
+            def prefix(x, t):
+                pe = extra_embeds.to(device=x.device, dtype=x.dtype)
+                if "mm_proj" in t:
+                    pe = pe @ t["mm_proj"]
+                return torch.cat([pe, x], dim=1)
+            h = coll.per_device(prefix, devs, h, trees)
         return h
 
-    def _logits(self, params, h):
-        h = rms_norm(h, params["out_norm"], self.cfg.norm_eps)
-        return unembed(h, self._head(params), self.cfg.vocab_size)
+    def _logits(self, trees, h, devs):
+        """Each slot's logits over its vocabulary piece, padded columns
+        masked."""
+        lay, vocab = self.layout, self.cfg.vocab_size
+        hn = self._norm(h, [t["out_norm"] for t in trees], devs)
+
+        def one(x, t, v):
+            return unembed(x, self._head(t), vocab, v[0])
+        if lay.vocab_split:
+            return [one(*a) for a in zip(hn, trees, lay.vocab)]
+        return coll.per_device(one, devs, hn, trees, lay.vocab)
+
+    def run_group(self, trees, devs, tokens, extra_embeds=None, states=None,
+                  pos=None):
+        """The model over one group's ``model`` slots (each slot's weight
+        tree and device): a forward without ``states``, a prefill with
+        them (each slot's decode state, filled in place; the last
+        position's logits), or a decode step with them and ``pos`` ->
+        (per-slot logits, aux loss float32)."""
+        h = self._embed(trees, devs, tokens, extra_embeds)
+        l = h[0].shape[1]
+        positions = coll.per_device(lambda d: torch.arange(
+            l, dtype=torch.int32, device=d) if pos is None else torch.full(
+            (1,), pos, dtype=torch.int32, device=d), devs, devs)
+        layers = [{kind: self.layers(t, kind)
+                   for kind in dict.fromkeys(self.cfg.layer_kinds())}
+                  for t in trees]
+        aux_total = torch.zeros((), dtype=torch.float32, device=devs[0])
+        for kind, i in self._layers():
+            ps = [lt[kind][i] for lt in layers]
+            if states is None:
+                h, aux = self._remat(functools.partial(
+                    self._apply_block, kind))(ps, h, positions, devs)
+            else:
+                h, aux = self._apply_block(kind, ps, h, positions, devs,
+                                           states, i, pos)
+            if aux is not None:
+                aux_total = aux_total + aux
+        if states is not None and pos is None:
+            h = [x[:, -1:] for x in h]
+        return self._logits(trees, h, devs), aux_total
+
+    def slot_groups(self, params, b: int) -> list:
+        """The ``Group``s (``models.parallel``) that run a batch of ``b``
+        rows: the mesh's ``(pod, data)`` groups on placed params, or off a
+        mesh one slot holding ``params`` whole, on their device, with
+        every row."""
+        if self.plan is None:
+            return [Group((0,), [params], [params["embed"].device],
+                          slice(None))]
+        return self.plan.groups_of(params, b)
+
+    def _joined(self, per_group, shape):
+        """The groups' per-slot logits as one tensor: off a mesh the one
+        slot's, on a mesh a ``Sharded`` (batch over the data slots,
+        vocabulary over the model slots)."""
+        if self.plan is None:
+            return per_group[0][0]
+        return self.plan.sharded(per_group, shape, ("batch", None, "vocab"))
 
     # ---------------------------------------------------------------- #
     # forward (logits over the full sequence)
     # ---------------------------------------------------------------- #
     def forward(self, params, tokens, extra_embeds=None):
         """tokens (B, L) -> (logits (B, L', vocab_p), aux_loss float32),
-        L' = L plus the stub tokens of ``extra_embeds``."""
-        h = self._embed(params, tokens, extra_embeds)
-        positions = torch.arange(h.shape[1], dtype=torch.int32,
-                                 device=h.device)
-        aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
-        for kind, _, p in self._all_layers(params):
-            h, aux, _ = self._remat(functools.partial(self._apply_block,
-                                                      kind))(p, h, positions)
-            if aux is not None:
-                aux_total = aux_total + aux
-        return self._logits(params, h), aux_total
+        L' = L plus the stub tokens of ``extra_embeds``. On a mesh the
+        logits are a ``Sharded`` and the aux loss the groups' mean."""
+        outs, auxs = [], []
+        for g in self.slot_groups(params, tokens.shape[0]):
+            lg, aux = self.run_group(g.trees, g.devs, tokens[g.rows].to(
+                g.devs[0]), _rows(extra_embeds, g))
+            outs.append(lg)
+            auxs.append(aux)
+        shape = (tokens.shape[0], outs[0][0].shape[1], self.vocab_p)
+        return self._joined(outs, shape), group_mean(auxs)
 
     def _remat(self, fn):
         """``fn`` under ``cfg.remat``'s checkpoint (see the module
@@ -284,40 +452,34 @@ class Model(torch.nn.Module):
         The KV cache is made in ``dtype`` (bfloat16 by default, as in the
         reference) and must match the weights' dtype: float32 weights
         need ``dtype=torch.float32``, or the cache write raises. The other
-        kinds' states are float32 whatever ``dtype``."""
-        state = self.init_decode_state(tokens.shape[0], cache_len, dtype,
-                                       device=tokens.device)
-        h = self._embed(params, tokens, extra_embeds)
-        positions = torch.arange(h.shape[1], dtype=torch.int32,
-                                 device=h.device)
-        for kind, i, p in self._all_layers(params):
-            if kind == "attn":
-                cache = {"k": state["attn"]["k"][i],
-                         "v": state["attn"]["v"][i]}
-                h, _, _ = self._apply_block(kind, p, h, positions,
-                                            cache=cache)
-            else:
-                # from the fresh state, so the final state comes back
-                h, _, st = self._apply_block(
-                    kind, p, h, positions,
-                    state=tree_map(lambda a: a[i], state[kind]))
-                self._store(state[kind], i, st)
-        return self._logits(params, h[:, -1:]), state
-
-    @staticmethod
-    def _store(stack: dict, i: int, st: dict) -> None:
-        """Write one layer's new state into slot ``i`` of its stack."""
-        for key, leaf in st.items():
-            stack[key][i].copy_(leaf)
+        kinds' states are float32 whatever ``dtype``. On a mesh the
+        logits are a ``Sharded`` and the state holds each slot's own
+        (``{"groups": [[slot state, ...], ...]}``)."""
+        outs, states = [], []
+        for g in self.slot_groups(params, tokens.shape[0]):
+            toks = tokens[g.rows].to(g.devs[0])
+            st = [self.init_decode_state(toks.shape[0], cache_len, dtype,
+                                         d, dims)
+                  for d, (dims, _) in zip(g.devs, self.layout.attn)]
+            lg, _ = self.run_group(g.trees, g.devs, toks,
+                                   _rows(extra_embeds, g), states=st)
+            outs.append(lg)
+            states.append(st)
+        logits = self._joined(outs, (tokens.shape[0], 1, self.vocab_p))
+        if self.plan is None:
+            return logits, states[0][0]
+        return logits, {"groups": states}
 
     # ---------------------------------------------------------------- #
     # decode
     # ---------------------------------------------------------------- #
     def init_decode_state(self, batch: int, seq_len: int,
-                          dtype=torch.bfloat16, device=None) -> dict:
+                          dtype=torch.bfloat16, device=None,
+                          dims=None) -> dict:
         """Stacked per-layer decode state for every layer kind, on
         ``device`` (default: the first CUDA device): the KV caches in
-        ``dtype``, zeros; the recurrent states float32, zeros with the
+        ``dtype``, zeros, of ``dims`` (default: the model's; a slot's
+        on a mesh); the recurrent states float32, zeros with the
         stabilisers at -1e30."""
         cfg, dev = self.cfg, resolve_device(device)
         kinds = cfg.layer_kinds()
@@ -328,7 +490,8 @@ class Model(torch.nn.Module):
         state: dict = {}
         if kinds.count("attn"):
             state["attn"] = attn.init_cache(kinds.count("attn"), batch,
-                                            self.dims, seq_len, dtype, dev)
+                                            dims or self.dims, seq_len,
+                                            dtype, dev)
         if kinds.count("rec"):
             state["rec"] = stacked(kinds.count("rec"), rg.init_rglru_state(
                 batch, cfg.rg_lru_dim or cfg.d_model, cfg.conv1d_width, dev))
@@ -346,21 +509,21 @@ class Model(torch.nn.Module):
     def decode_step(self, params, token, pos: int, state):
         """token (B, 1) int; pos int. Returns (logits (B, 1, V), state),
         every layer's state updated in place."""
-        h = embed_tokens(token, params["embed"])
-        positions = torch.full((1,), pos, dtype=torch.int32, device=h.device)
-        for kind, i, p in self._all_layers(params):
-            if kind == "attn":
-                cache = {"k": state["attn"]["k"][i],
-                         "v": state["attn"]["v"][i]}
-                h, _, _ = self._apply_block(kind, p, h, positions,
-                                            cache=cache, pos=pos)
-            else:
-                h, _, st = self._apply_block(
-                    kind, p, h, positions,
-                    state=tree_map(lambda a: a[i], state[kind]))
-                self._store(state[kind], i, st)
-        return self._logits(params, h), state
+        groups = self.slot_groups(params, token.shape[0])
+        per = [[state]] if self.plan is None else state["groups"]
+        outs = [self.run_group(g.trees, g.devs, token[g.rows].to(g.devs[0]),
+                               states=st, pos=pos)[0]
+                for g, st in zip(groups, per)]
+        return self._joined(outs, (token.shape[0], 1, self.vocab_p)), state
 
 
-def build(cfg: ModelConfig, tp: int = 1) -> Model:
-    return Model(cfg, tp)
+def _rows(x, group):
+    """``x``'s rows of ``group`` on its first device (None stays None)."""
+    return None if x is None else x[group.rows].to(group.devs[0])
+
+
+def build(cfg: ModelConfig, tp: int = 1, mesh=None,
+          rules: Rules | None = None) -> Model:
+    """A model of ``cfg`` padded for ``tp``-way tensor parallelism, run
+    over ``mesh`` if given (see ``Model``)."""
+    return Model(cfg, tp, mesh, rules)

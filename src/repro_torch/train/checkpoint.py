@@ -10,8 +10,10 @@ the other::
 order ``jax.tree`` flattens a dict in, joined by ``//``) to its logical
 content as a numpy array; bfloat16, which numpy cannot store, is kept as
 its uint16 bit pattern under the key plus ``::bf16``. ``meta.json``
-holds the step and the sorted keys. Placement is applied on load, to
-whatever device the restarting job has.
+holds the step and the sorted keys. A state placed on a mesh (leaves
+``sharding.Sharded``) is saved whole, so the layout stays logical;
+placement is applied on load, to whatever device or mesh the restarting
+job has (``restore(..., placements)`` reshards).
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..sharding.placed import Sharded, shard, unshard
+from ..sharding.rules import Placement
 
 __all__ = ["CheckpointManager"]
 
@@ -45,6 +49,8 @@ def _host(t: torch.Tensor) -> tuple[str, np.ndarray]:
     """A leaf's key suffix and its host copy: a copy even of a CPU tensor,
     which ``.cpu()`` would share, since the train step updates the state
     in place while an async save writes."""
+    if isinstance(t, Sharded):
+        t = unshard(t)
     t = t.detach()
     if t.dtype == torch.bfloat16:
         return _BF16, t.view(torch.int16).to("cpu", copy=True).numpy().view(
@@ -128,14 +134,19 @@ class CheckpointManager:
         """Rebuild ``target``-structured state from step ``step``'s arrays,
         in the dtypes stored. ``target``'s leaves give the structure and
         shapes and may be ``meta`` tensors (see
-        ``trainer.abstract_train_state``). Each leaf goes to ``placement``
-        (a device) if given, else to its target leaf's device, or to the
-        first CUDA device for a ``meta`` leaf. A shape that differs from
-        the target's raises ``ValueError``."""
+        ``trainer.abstract_train_state``). ``placement`` is a device for
+        every leaf, or a tree of ``target``'s structure whose leaves are
+        each a ``Placement`` (the leaf is cut into its pieces on that
+        mesh: resharded onto the restart's mesh), a device, or None;
+        where it gives none, a leaf goes to its target leaf's device, or
+        to the first CUDA device for a ``meta`` leaf. A shape that
+        differs from the target's raises ``ValueError``."""
         path = os.path.join(self.directory, f"step_{step:08d}", "arrays.npz")
-        fixed = None if placement is None else resolve_device(placement)
+        per_leaf = isinstance(placement, dict)
+        fixed = (None if placement is None or per_leaf
+                 else resolve_device(placement))
         with np.load(path) as data:
-            def load(keys, leaf):
+            def load(keys, leaf, where=None):
                 key = _SEP.join(keys)
                 bf16 = key + _BF16 in data
                 t = _tensor(data[key + _BF16] if bf16 else data[key], bf16)
@@ -143,7 +154,30 @@ class CheckpointManager:
                     raise ValueError(f"checkpoint step {step}: {key} has "
                                      f"shape {tuple(t.shape)}, the target "
                                      f"{tuple(leaf.shape)}")
-                dev = fixed or (resolve_device(None) if leaf.is_meta
-                                else leaf.device)
+                if isinstance(where, Placement):
+                    return shard(t, where)
+                if where is not None:
+                    return t.to(resolve_device(where))
+                dev = fixed or (resolve_device(None) if _is_meta(leaf)
+                                else _device(leaf))
                 return t.to(dev)
+            if per_leaf:
+                return _map_paths2(load, target, placement)
             return _map_paths(load, target)
+
+
+def _is_meta(leaf) -> bool:
+    return (leaf.shards[0].is_meta if isinstance(leaf, Sharded)
+            else leaf.is_meta)
+
+
+def _device(leaf):
+    return leaf.shards[0].device if isinstance(leaf, Sharded) else leaf.device
+
+
+def _map_paths2(fn, tree, other, prefix=()):
+    """``_map_paths`` over ``tree`` with ``other``'s leaf at each path."""
+    if isinstance(tree, dict):
+        return {k: _map_paths2(fn, tree[k], other[k], prefix + (str(k),))
+                for k in sorted(tree)}
+    return fn(prefix, tree, other)

@@ -10,9 +10,10 @@ compressed SGD trajectory tracks the exact one (Karimireddy et al.,
 The reference calls ``compressed_psum`` inside a ``shard_map`` body over
 the ``data`` axis, one rank's tensor at a time. The port's mesh
 (``launch/mesh.Mesh``) is one process driving a list of slots, so
-``compressed_psum`` takes one tensor per slot and returns each slot's
-(mean, new error). Nothing on the training path calls it yet, as in the
-reference; the data-parallel step that will comes with ``sharding/``.
+``compressed_psum`` takes one tensor per slot of a mesh axis (one group
+of ``Mesh.groups``) and returns each slot's (mean, new error). As in the
+reference, nothing on the training path calls it: the data-parallel step
+(``train/parallel.py``) reduces its gradients exactly.
 """
 from __future__ import annotations
 

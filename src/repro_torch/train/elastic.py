@@ -9,9 +9,11 @@ The port of the JAX package's ``train/elastic.py``. The policy:
   * elastic remesh -> same path, deliberately: shrink/grow the slots.
   * straggler     -> Trainer's watchdog fires ``on_straggler``.
 
-Slots are those of the port's ``launch/mesh.Mesh``. On one card the step
-that ``build`` returns is the single-device train step whatever the slot
-count; a data-parallel step over slots comes with ``sharding/``.
+Slots are those of the port's ``launch/mesh.Mesh``: ``build(slots)``
+returns the data-parallel step over a mesh of that many data slots
+(``trainer.make_train_step`` of a model on the mesh) and the real
+placements of its train state (``train/parallel.train_state_placements``),
+onto which ``resume`` reshards the checkpoint.
 """
 from __future__ import annotations
 
@@ -25,9 +27,9 @@ __all__ = ["resume", "ElasticRun"]
 
 
 def resume(manager: CheckpointManager, abstract_state, placement=None):
-    """Restore the latest checkpoint onto ``placement`` (see
-    ``CheckpointManager.restore``). Returns (state, step) or (None, 0)
-    for a cold start."""
+    """Restore the latest checkpoint onto ``placement`` (a device, or a
+    tree of placements: see ``CheckpointManager.restore``). Returns
+    (state, step) or (None, 0) for a cold start."""
     step = manager.latest_step()
     if step is None:
         return None, 0

@@ -2,16 +2,19 @@
 
 The port of the JAX package's ``train/trainer.py`` on one device.
 ``make_train_step(model, opt_cfg)`` returns ``step(state, batch)``:
-forward (causal-LM cross entropy plus the MoE aux loss), gradients by
+forward (causal-LM cross entropy plus the MoE aux loss, ``loss.py``,
+one form for one slot and for a mesh), gradients by
 ``torch.autograd.grad`` with respect to the param leaves (in the params'
 dtype, as in the reference), clip, AdamW. Unlike the reference's pure
 step, it updates the optimizer state's tensors in place (see
 ``adamw_update(inplace=True)``) and returns the new state dict.
 
 The ``Trainer`` loop adds checkpoint/restart, deterministic-seek data
-and a straggler watchdog, unchanged in behaviour. A data-parallel step
-over mesh slots (the reference's batch sharding, with its gradient
-reduce) comes with ``sharding/``.
+and a straggler watchdog, unchanged in behaviour. On a mesh (a model
+built with ``mesh=``, or ``make_train_step(..., mesh=)``) the step is
+the data-parallel ZeRO-1 step of ``train/parallel.py`` on a placed train
+state: the same loss and microbatch loop (``loss.py``) per data group,
+then the reductions over the mesh and AdamW on each slot's pieces.
 """
 from __future__ import annotations
 
@@ -22,45 +25,13 @@ from typing import Any, Callable
 import torch
 
 from ..models.params import init_params, tree_leaves, tree_map
+from .loss import grad_sums, make_loss_fn
 from .optimizer import AdamWConfig, adamw_init, adamw_update
+from .parallel import make_mesh_train_step, place_train_state
 
 __all__ = ["make_loss_fn", "make_grad_fn", "make_train_step",
            "make_serve_step", "Trainer", "init_train_state",
            "abstract_train_state"]
-
-
-def make_loss_fn(model):
-    """Causal-LM cross entropy: ``loss_fn(params, batch) -> (ce + aux,
-    {"ce", "aux"})``, the reference's numbers: float32 logits, a detached
-    row max, ``lse`` from the shifted exponentials, the frontend's prefix
-    positions dropped, labels < 0 masked out. The label's logit comes
-    from a gather where the reference sums a float32 one-hot product over
-    the vocabulary: at tp = 1 that sum has one nonzero term, so the value
-    is the same, without a (B, L, V) float32 one-hot (5 GB a microbatch
-    at qwen2's 151 936 classes)."""
-    def loss_fn(params, batch):
-        logits, aux = model.forward(params, batch["tokens"],
-                                    batch.get("extra_embeds"))
-        labels = batch["labels"]
-        # frontend prefix tokens carry no labels
-        if logits.shape[1] != labels.shape[1]:
-            logits = logits[:, logits.shape[1] - labels.shape[1]:]
-        lf = logits.float()
-        # no backward keeps the logits: drop them (and lf below) as soon
-        # as they are read, 5 GB a microbatch at qwen2's vocabulary
-        del logits
-        m = lf.amax(dim=-1, keepdim=True).detach()
-        lse = torch.log(torch.exp(lf - m).sum(dim=-1)) + m[..., 0]
-        valid = labels >= 0
-        label_logit = torch.where(
-            valid, lf.gather(-1, torch.where(valid, labels, 0)[..., None]
-                             .long())[..., 0], 0.0)
-        del lf
-        mask = valid.float()
-        ce = -((label_logit - lse) * mask).sum() / torch.clamp(
-            mask.sum(), min=1.0)
-        return ce + aux.float(), {"ce": ce, "aux": aux}
-    return loss_fn
 
 
 def _unflatten(tree, leaves):
@@ -75,57 +46,44 @@ def make_grad_fn(model, microbatches: int = 1) -> Callable:
     gradient of every param leaf, in sorted-key order, by
     ``torch.autograd.grad``: in the params' dtype, as in the reference.
 
-    ``microbatches > 1`` accumulates: microbatch k takes rows
-    k*B/mb .. (k+1)*B/mb of every batch entry (the reference's reshape),
-    the float32 sum of the gradients is divided by mb, and loss and
-    metrics are averaged. Live activation memory shrinks by the
-    microbatch factor."""
+    ``microbatches > 1`` accumulates (``loss.grad_sums``): the float32
+    sum of the microbatches' gradients is divided by mb, and loss and
+    metrics are averaged."""
     loss_fn = make_loss_fn(model)
 
-    def grads_of(params, batch):
-        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
-        loss, metrics = loss_fn(_unflatten(params, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(leaves, grads)]
-        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-                grads)
-
     def grad_fn(params, batch):
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        tree = _unflatten(params, leaves)
+        grads, losses, mets = grad_sums(lambda one: loss_fn(tree, one),
+                                        leaves, batch, microbatches)
         if microbatches == 1:
-            return grads_of(params, batch)
-        rows = next(iter(batch.values())).shape[0]
-        if rows % microbatches:
-            raise ValueError(f"microbatches={microbatches} does not divide "
-                             f"the batch of {rows} rows")
-        per = rows // microbatches
-        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for p in tree_leaves(params)]
-        losses, mets = [], []
-        for k in range(microbatches):
-            one = {key: x[k * per:(k + 1) * per] for key, x in batch.items()}
-            loss, met, grads = grads_of(params, one)
-            for a, g in zip(acc, grads):
-                a.add_(g.float())
-            del grads
-            losses.append(loss)
-            mets.append(met)
+            return losses[0], mets[0], grads
         div = torch.tensor(float(microbatches), dtype=torch.float32,
-                           device=acc[0].device)
+                           device=grads[0].device)
         metrics = {k: torch.stack([m[k] for m in mets]).mean()
                    for k in mets[0]}
         return (torch.stack(losses).mean(), metrics,
-                [a.div_(div) for a in acc])
+                [a.div_(div) for a in grads])
 
     return grad_fn
 
 
-def make_train_step(model, opt_cfg: AdamWConfig,
-                    microbatches: int = 1) -> Callable:
+def make_train_step(model, opt_cfg: AdamWConfig, microbatches: int = 1,
+                    mesh=None) -> Callable:
     """``step(state, batch) -> (new_state, metrics)`` with metrics ``ce``,
     ``aux``, ``loss``, ``grad_norm`` and ``lr`` (0-dim float32 tensors):
     ``make_grad_fn``'s gradients (accumulated over ``microbatches``),
-    then AdamW with its clip."""
+    then AdamW with its clip.
+
+    On a mesh (``mesh``, or the model's own) the step is data-parallel
+    with ZeRO-1 (``train/parallel.make_mesh_train_step``): each data slot
+    runs ``microbatches`` of its rows, so it equals the single-device
+    step at ``data x microbatches`` microbatches; the state is placed
+    (``init_train_state`` of a model on the mesh)."""
+    if mesh is not None and mesh is not model.mesh:
+        model = type(model)(model.cfg, model.tp, mesh, model.rules)
+    if model.plan is not None:
+        return make_mesh_train_step(model, opt_cfg, microbatches)
     grad_fn = make_grad_fn(model, microbatches)
 
     def train_step(state, batch):
@@ -195,7 +153,13 @@ def init_train_state(model, generator: torch.Generator,
                      dtype=torch.bfloat16, device=None) -> dict:
     """``{"params", "opt"}``: ``init_params`` from ``generator`` in
     ``dtype`` on ``device`` (default: the first CUDA device), and a fresh
-    AdamW state."""
+    AdamW state. For a model on a mesh the params are made on its first
+    slot's device and placed, and the optimizer state is ZeRO-1's
+    pieces."""
+    if model.plan is not None:
+        params = init_params(model.param_specs(), generator, dtype,
+                             model.mesh.devices[0])
+        return place_train_state(model, params=model.place(params))
     params = init_params(model.param_specs(), generator, dtype, device)
     return {"params": params, "opt": adamw_init(params)}
 

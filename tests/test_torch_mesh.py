@@ -390,8 +390,8 @@ def test_host_mesh_and_checks(port_sets):
     assert mesh.devices == (torch.device("cpu"),) * 3
     assert make_host_mesh(device="cpu").shape["data"] == 1
     assert Mesh(("cpu", "cpu")) == make_host_mesh(2, device="cpu")
-    with pytest.raises(ValueError, match="one axis"):
-        Mesh(("cpu",), axis_names=("data", "model"))
+    two = Mesh(("cpu",), axis_names=("data", "model"))
+    assert two.shape == {"data": 1, "model": 1} and two.size == 1
     with pytest.raises(ValueError, match="n_shards=4"):
         port_dist.mr_cf_rs_join(R, S, 0.5, 4, method="lfvt", mesh=mesh)
     with pytest.raises(ValueError, match="'model' axis"):

@@ -34,7 +34,6 @@ from repro.models.params import init_params as ref_init_params
 from repro.models.params import spec_tree_bytes as ref_spec_tree_bytes
 from repro.models.transformer import build as ref_build
 from repro_torch.configs import get_config
-from repro_torch.errors import NotPortedError
 from repro_torch.models import attention as port_attn
 from repro_torch.models import layers as port_layers
 from repro_torch.models.convert import params_from_reference
@@ -86,23 +85,40 @@ def test_dense_configs_match_reference(name, smoke):
             == dataclasses.asdict(ref_get_config(name, smoke=smoke)))
 
 
+def same_build(port, ref):
+    """A port build and a reference build agree in their padded counts
+    and their spec trees."""
+    assert port.dims.n_heads_p == ref.dims.n_heads_p
+    assert port.dims.n_kv_cache == ref.dims.n_kv_cache
+    assert (port.vocab_p, port.n_experts_p) == (ref.vocab_p, ref.n_experts_p)
+    ref_leaves = jax.tree.leaves_with_path(
+        ref.param_specs(),
+        is_leaf=lambda x: hasattr(x, "shape") and hasattr(x, "axes"))
+    port_leaves = []
+    tree_map(port_leaves.append, port.param_specs())
+    assert [(s.shape, s.axes, s.init) for _, s in ref_leaves] == [
+        (s.shape, s.axes, s.init) for s in port_leaves]
+
+
 @pytest.mark.parametrize("name,family", sorted(OTHERS.items()))
-def test_other_families_raise_not_ported(name, family):
-    """The other families raised ``NotPortedError`` until they were
-    ported: their configs now equal the reference's and build at
-    ``tp=1``; only tensor parallelism still raises."""
+def test_other_families_match_reference_at_tp2(name, family):
+    """The other families' configs equal the reference's and build at
+    ``tp=1``; at ``tp=2`` (which raised ``NotPortedError`` before the
+    sharding slice) the padded build equals the reference's: head,
+    cache, vocab and expert counts and the spec tree."""
     cfg = get_config(name)
     assert cfg.family == family
     assert dataclasses.asdict(cfg) == dataclasses.asdict(
         ref_get_config(name))
     assert build(ref_get_config(name, smoke=True)).cfg.family == family
-    with pytest.raises(NotPortedError, match="tp=2"):
-        build(cfg, tp=2)
+    same_build(build(cfg, tp=2), ref_build(ref_get_config(name), tp=2))
 
 
-def test_build_rejects_tensor_parallelism_and_unknown_archs():
-    with pytest.raises(NotPortedError, match="tp=2"):
-        build(get_config("qwen2-1.5b", smoke=True), tp=2)
+def test_build_pads_for_tensor_parallelism_and_rejects_unknown_archs():
+    cfg = get_config("qwen2-1.5b", smoke=True)
+    same_build(build(cfg, tp=2), ref_build(ref_get_config(
+        "qwen2-1.5b", smoke=True), tp=2))
+    assert build(cfg, tp=2).vocab_p == 152          # 151 padded to 2
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("gpt-7")
     assert repro_torch.get_config is get_config
