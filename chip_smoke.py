@@ -180,7 +180,23 @@ through these phases, in order; any failure raises and exits non-zero:
      grad norm within ``PAR_LOSS_TOL`` and ``PAR_GNORM_TOL``, the master
      weights' median difference within ``PAR_MEDIAN_TOL`` x lr and their
      largest within ``PAR_FLIPS`` x the steps' lrs; step time, tokens/s,
-     peak memory, collective bytes a step;
+     peak memory, collective bytes a step; then the last modules (phase
+     6e, ``state_moe_phase``, every slot on the one card):
+     recurrentgemma-2b (26 layers, 4 x 4 096 tokens) and xlstm-350m (24
+     layers, 4 x 512) at full width served at tp = 2 on (data, model) =
+     (1, 2) slots, their recurrent (``state``) weights split over the
+     two, against the same weights on one slot (last-token logits within
+     ``LLM_LOGIT_TOL``, greedy tokens equal while the one slot's top-2
+     gap exceeds it; K7 once per slot per attention layer, 16 a
+     recurrentgemma prefill); qwen2-moe-a2.7b at full width, 4 of 24
+     layers, on (2, 2) slots, its data groups in lockstep under one
+     routing of the whole 8 x 2 048 batch, its prefill against the
+     unsharded build under one routing (``RouteLog``); its ZeRO-1 train
+     step at 2 of 24 layers on (2, 2) slots, 2 steps on 4 x 2 048 tokens
+     as 2 microbatches of the whole batch, against the single-slot step
+     by the ``PAR_*`` bounds; and one cell of the dry run
+     (``launch/dryrun.py``, ``DRY_RUN_CELL``) on 16 x 16 ``meta`` slots,
+     its roofline terms beside the card's name and power limit;
   7. kernel phase: the 1024-row R block, as ``cf_rs_join_device`` cuts
      it, that holds the most paired rows of the join, against the full S, at
      t = 0.8 and t = 0.5: K1 (size-sorted and tile-padded as its dispatch
@@ -437,6 +453,37 @@ PAR_GNORM_TOL = 2e-2
 PAR_MEDIAN_TOL = 0.05
 PAR_SAMPLE_STRIDE = 211
 PAR_FLIPS = 2.05
+# phase 6e, the last modules over the port's mesh (its slots on the one
+# card): the state-axis layers split over (data, model) = (1, 2) slots,
+# each family at full width and depth as FAMILY_RUNS serves it (arch,
+# prompts, prompt tokens); an MoE model routed whole over (2, 2) slots,
+# qwen2-moe at full width cut to STATE_MOE_LAYERS of 24 layers (as 6d),
+# its prefill of STATE_MOE_BATCH x 2 048 tokens, and its ZeRO-1 train
+# step cut to STATE_MOE_TRAIN_LAYERS layers, STATE_MOE_TRAIN_STEPS steps
+# on one batch of STATE_MOE_TRAIN_SEQS x 2 048 tokens as 2 microbatches
+# (each the whole batch's rows 2k, 2k + 1, one a data slot), against the
+# single-slot step at 2 microbatches, by the PAR_* bounds; and one cell
+# of the dry run (launch/dryrun.py) on 16 x 16 meta slots
+STATE_RUNS = (("recurrentgemma-2b", 4, 4096), ("xlstm-350m", 4, 512))
+STATE_NEW = 16
+# the state-axis families against one slot in float32 (each step's
+# last-token logits, of the largest |logit|): the split path adds each
+# layer's partial sums in another order than one product does, a few
+# float32 roundings (2^-24) compounded through 24-26 layers; 1e-3 is 50x
+# below LLM_LOGIT_TOL. In bf16 the partial sums round twice (each slot's
+# product to bf16, then their sum), as the reference's own tensor-
+# parallel products do under XLA, and these two archs amplify rounding
+# more than qwen2 (the families phase's flash vs plain: 0.0341 against
+# qwen2-moe's 0.0214): on an NVIDIA H100 80GB HBM3 at 700 W they read
+# 0.065-0.067 of the largest logit in bf16 against 1.7e-5-2.1e-5 in
+# float32, so bf16 is logged, not held
+STATE_F32_TOL = 1e-3
+STATE_MOE_LAYERS = 4
+STATE_MOE_BATCH = 8
+STATE_MOE_TRAIN_LAYERS = 2
+STATE_MOE_TRAIN_SEQS = 4
+STATE_MOE_TRAIN_STEPS = 2
+DRY_RUN_CELL = ("qwen2-1.5b", "decode_32k")
 # the LLM serve phase: qwen2-1.5b at full width and depth, bf16
 LLM_ARCH = "qwen2-1.5b"
 LLM_BATCH = 8              # prompts served together
@@ -2628,12 +2675,12 @@ def par_experts(runs, dev) -> None:
     torch.cuda.empty_cache()
 
 
-def par_train_run(step, state, batch):
-    """PAR_TRAIN_STEPS steps -> (state, per step: s, collectives, loss,
-    lr, grad_norm)."""
+def par_train_run(step, state, batch, steps=PAR_TRAIN_STEPS):
+    """``steps`` steps -> (state, per step: s, collectives, loss, lr,
+    grad_norm)."""
     from repro_torch.sharding import counter
     out = []
-    for _ in range(PAR_TRAIN_STEPS):
+    for _ in range(steps):
         counter.reset()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -2822,6 +2869,326 @@ def parallel_phase(runs, dev) -> None:
         fn(runs, dev)
         parts[fn.__name__] = round(time.perf_counter() - t, 3)
     log(f"[parallel] phase_s={time.perf_counter() - t0:.3f} parts_s="
+        f"{json.dumps(parts)}")
+
+
+def f32_decode(model, params, toks, cache, new):
+    """Prefill and ``new - 1`` greedy decode steps in float32 -> (per step
+    the last-token logits on the host, float32, (B, V); the tokens,
+    (B, new))."""
+    from repro_torch.models.parallel import greedy_tokens
+    from repro_torch.sharding import Sharded, unshard
+    outs, tokens = [], []
+    with torch.inference_mode():
+        logits, state = model.prefill(params, toks, cache,
+                                      dtype=torch.float32)
+        for step in range(new):
+            sharded = isinstance(logits, Sharded)
+            last = (unshard(logits) if sharded else logits)[:, -1].float()
+            tok = (greedy_tokens(logits) if sharded
+                   else last.argmax(dim=-1).to(torch.int32))
+            outs.append(last.cpu())
+            tokens.append(tok.cpu())
+            if step < new - 1:
+                logits, state = model.decode_step(
+                    params, tok[:, None], toks.shape[1] + step, state)
+    return outs, torch.stack(tokens, dim=1).numpy()
+
+
+def state_serve(name, batch, prompt, runs, dev) -> None:
+    """One state-axis family at full width and depth, tp = 2 on (data,
+    model) = (1, 2) slots of the card, its recurrent weights split over
+    the two: served in bf16 behind ``ServeEngine`` (prefill, decode, K7
+    once per slot per attention layer, collectives), and held against
+    the same weights on one slot at tp = 2 in float32 (the prefill's and
+    every decode step's last-token logits within STATE_F32_TOL, greedy
+    tokens equal while the one slot's top-2 gap exceeds it); the bf16
+    runs' difference is logged beside it."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.sharding import counter, unshard
+    cfg = dataclasses.replace(repro_torch.get_config(name),
+                              attn_impl="flash")
+    mesh = repro_torch.make_host_mesh(1, model=2)
+    par = repro_torch.build_model(cfg, 2, mesh=mesh)
+    one = repro_torch.build_model(cfg, 2)
+    n_attn = cfg.layer_kinds().count("attn")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(one.param_specs(),
+                         torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    if n_attn:
+        condition_attention(params, one.dims, cfg.d_model)
+    placed = par.place(params)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
+    toks = torch.from_numpy(prompts).to(dev)
+    cache = prompt + STATE_NEW
+    label = f"tp2 {name} prefill"
+    eng = repro_torch.ServeEngine(par, placed, max_seq_len=cache)
+    eng.generate(prompts, 1)
+    counter.reset()
+    t0 = time.perf_counter()
+    first, runs[label] = counted(lambda: eng.generate(prompts, 1))
+    prefill_s = time.perf_counter() - t0
+    c_pre = counter.snapshot()
+    if runs[label]["K7"] != 2 * n_attn:
+        raise AssertionError(f"{name} tp=2: the prefill launched K7 "
+                             f"{runs[label]['K7']} times, not once per slot "
+                             f"per attention layer ({2 * n_attn})")
+    counter.reset()
+    t0 = time.perf_counter()
+    out, _ = counted(lambda: eng.generate(prompts, STATE_NEW))
+    gen_s = time.perf_counter() - t0
+    c_gen = counter.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    if (out.shape != (batch, STATE_NEW) or out.min() < 0
+            or out.max() >= cfg.vocab_size
+            or not np.array_equal(out[:, :1], first)):
+        raise AssertionError(f"{name} tp=2: generated {out.shape} tokens "
+                             f"in [{out.min()}, {out.max()}]")
+    steps = STATE_NEW - 1
+    c_dec = {k: {kind: c_gen[k][kind] - c_pre[k][kind]
+                 for kind in c_gen[k]} for k in ("bytes", "calls")}
+    with torch.inference_mode():
+        lf = unshard(par.prefill(placed, toks, cache)[0])[:, -1].float()
+        lo = one.prefill(params, toks, cache)[0][:, -1].float()
+    bf16_err = float(((lf - lo).abs().amax(-1) / lo.abs().amax(-1)).max())
+    del eng, placed, lf, lo
+    torch.cuda.empty_cache()
+    # float32 copies of the same weights: the split path's function
+    # against one slot's, below bf16's rounding of the partial sums
+    params = tree_map(lambda x: x.float(), params)
+    got, got_toks = f32_decode(par, par.place(params), toks, cache,
+                               STATE_NEW)
+    want, want_toks = f32_decode(one, params, toks, cache, STATE_NEW)
+    worst, compared = 0.0, [0] * batch
+    live = [True] * batch
+    for step, (g, w) in enumerate(zip(got, want)):
+        if not (torch.isfinite(g).all() and torch.isfinite(w).all()):
+            raise AssertionError(f"{name} tp=2 float32: logits not finite")
+        scale = w.abs().amax(dim=-1)
+        err = (g - w).abs().amax(dim=-1) / scale
+        worst = max(worst, float(err.max()))
+        if (err > STATE_F32_TOL).any():
+            raise AssertionError(f"{name} tp=2 float32 step {step}: logits "
+                                 f"differ by {err.tolist()} of the largest "
+                                 f"(tolerance {STATE_F32_TOL})")
+        top2 = w.topk(2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]) / scale
+        for i in range(batch):
+            live[i] = live[i] and bool(gap[i] > STATE_F32_TOL)
+            if live[i]:
+                if got_toks[i, step] != want_toks[i, step]:
+                    raise AssertionError(f"{name} tp=2 float32 stream {i}: "
+                                         f"greedy tokens differ at step "
+                                         f"{step}")
+                compared[i] += 1
+    lay = par.layout
+    splits = [k for k in ("rec_split", "mlp_split", "mlstm_split",
+                          "mlstm_cell_split", "slstm_split",
+                          "slstm_state_split") if getattr(lay, k)]
+    kinds = {k: cfg.layer_kinds().count(k)
+             for k in dict.fromkeys(cfg.layer_kinds())}
+    log(f"[state serve] {cfg.name} layers={cfg.n_layers} kinds={kinds} "
+        f"tp=2 on mesh {mesh.shape}, flash; split={splits}; "
+        f"prompts={batch}x{prompt} new_tokens={STATE_NEW} (bf16) "
+        f"prefill_s={prefill_s:.4f} generate_s={gen_s:.3f} "
+        f"decode_ms_per_step={(gen_s - prefill_s) / steps * 1e3:.2f} "
+        f"max_memory_allocated={peak} launches={runs[label]} "
+        f"K7_per_slot={runs[label]['K7'] // 2}; collectives a prefill: "
+        f"{coll_line(c_pre)}; a decode step: "
+        f"{coll_line(dict(c_dec, total=0), steps)}; float32 vs one slot, "
+        f"prefill and {steps} decode steps: max_err_over_max_logit="
+        f"{worst:.2e} (tolerance {STATE_F32_TOL}), greedy tokens equal "
+        f"for compared_steps={compared} of {STATE_NEW}; bf16 vs one slot "
+        f"(logged, the partial sums' bf16 rounding) "
+        f"max_err_over_max_logit={bf16_err:.4f}")
+    del params, got, want
+    torch.cuda.empty_cache()
+
+
+def moe_groups_serve(runs, dev) -> None:
+    """qwen2-moe-a2.7b at full width, STATE_MOE_LAYERS of 24 layers, on
+    (data, model) = (2, 2) slots: the two data groups in lockstep, one
+    routing over the whole batch, each group's 30 experts a slot; the
+    prefill against the unsharded build (one slot, tp = 2) under one
+    routing (``RouteLog`` replays the one slot's top-k), the routing of
+    its own logged."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_params
+    from repro_torch.sharding import counter, unshard
+    cfg = dataclasses.replace(repro_torch.get_config(PAR_MOE_ARCH),
+                              attn_impl="flash", n_layers=STATE_MOE_LAYERS)
+    mesh = repro_torch.make_host_mesh(2, model=2)
+    par = repro_torch.build_model(cfg, 2, mesh=mesh)
+    one = repro_torch.build_model(cfg, 2)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(one.param_specs(),
+                         torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    condition_attention(params, one.dims, cfg.d_model)
+    placed = par.place(params)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (STATE_MOE_BATCH, LLM_PROMPT)).astype(np.int32)
+    ).to(dev)
+
+    def prefill(m, p):
+        with torch.inference_mode():
+            lg = m.prefill(p, toks, LLM_PROMPT)[0]
+        return (unshard(lg) if m is par else lg)[:, -1].float()
+    prefill(par, placed)
+    counter.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, runs["moe 2x2 prefill"] = counted(lambda: prefill(par, placed))
+    prefill_s = time.perf_counter() - t0
+    c_pre = counter.snapshot()
+    if runs["moe 2x2 prefill"]["K7"] != 4 * cfg.n_layers:
+        raise AssertionError(f"the (2, 2) MoE prefill launched K7 "
+                             f"{runs['moe 2x2 prefill']['K7']} times, not "
+                             f"once per slot per layer ({4 * cfg.n_layers})")
+    peak = torch.cuda.max_memory_allocated()
+    route = moe.route
+    try:
+        moe.route = one_log = RouteLog(route)
+        lo = prefill(one, params)
+        moe.route = own_log = RouteLog(route)
+        free = prefill(par, placed)
+        moe.route = RouteLog(route, replay=one_log.calls)
+        lf = prefill(par, placed)
+    finally:
+        moe.route = route
+    if [c.shape for c in own_log.calls] != [c.shape for c in one_log.calls]:
+        raise AssertionError("the (2, 2) prefill did not route the whole "
+                             "batch once a layer")
+    worst = logits_agree("MoE on (2, 2) vs one slot", lf, lo)
+    log(f"[state moe] {cfg.name} layers={cfg.n_layers} of 24 on mesh "
+        f"{mesh.shape}: groups in lockstep, experts {list(par.layout.experts)}"
+        f" (first, count) a slot; prompts={STATE_MOE_BATCH}x{LLM_PROMPT} "
+        f"prefill_s={prefill_s:.4f} max_memory_allocated={peak} launches="
+        f"{runs['moe 2x2 prefill']} K7_per_slot="
+        f"{runs['moe 2x2 prefill']['K7'] // 4}; collectives a prefill: "
+        f"{coll_line(c_pre)}; vs one slot under one routing "
+        f"max_err_over_max_logit={worst:.4f} (tolerance {LLM_LOGIT_TOL}); "
+        f"own routing routed_alike="
+        f"{routed_alike(one_log.calls, own_log.calls):.5f} "
+        f"max_err_over_max_logit="
+        f"{float(((free - lo).abs().amax(-1) / lo.abs().amax(-1)).max()):.4f}")
+    del params, placed, lo, lf, free
+    torch.cuda.empty_cache()
+
+
+def moe_groups_train(runs, dev) -> None:
+    """The ZeRO-1 train step of qwen2-moe (full width, STATE_MOE_TRAIN_
+    LAYERS layers, plain attention, remat "dots") on (data, model) =
+    (2, 2) slots, the groups in lockstep: STATE_MOE_TRAIN_STEPS steps on
+    one batch of STATE_MOE_TRAIN_SEQS x 2 048 tokens as 2 microbatches of
+    the whole batch, against the single-slot step (tp = 2, 2
+    microbatches) on the same batch and weights, by the PAR_* bounds."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.parallel import place_train_state
+    cfg = dataclasses.replace(repro_torch.get_config(PAR_MOE_ARCH),
+                              attn_impl="jnp", remat="dots",
+                              n_layers=STATE_MOE_TRAIN_LAYERS)
+    opt = repro_torch.AdamWConfig(lr=TRAIN_LR, warmup_steps=1)
+    batch = repro_torch.TokenStream(cfg.vocab_size, STATE_MOE_TRAIN_SEQS,
+                                    LLM_PROMPT, seed=0,
+                                    device=dev).batch_at(0)
+    one = repro_torch.build_model(cfg, 2)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    p = par_train_weights(one, cfg, dev)
+    n_params = sum(x.numel() for x in tree_leaves(p))
+    state = {"params": p, "opt": adamw_init(p)}
+    del p
+    (state, ref), _ = counted(lambda: par_train_run(
+        repro_torch.make_train_step(one, opt, microbatches=2), state, batch,
+        STATE_MOE_TRAIN_STEPS))
+    ref_peak = torch.cuda.max_memory_allocated()
+    master = [x.cpu() for x in tree_leaves(state["opt"]["master"])]
+    del state
+    torch.cuda.empty_cache()
+    mesh = repro_torch.make_host_mesh(2, model=2)
+    par = repro_torch.build_model(cfg, 2, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    state = place_train_state(par, params=par.place(par_train_weights(
+        par, cfg, dev)))
+    step = repro_torch.make_train_step(par, opt, microbatches=2)
+    (state, got), runs["moe 2x2 train"] = counted(lambda: par_train_run(
+        step, state, batch, STATE_MOE_TRAIN_STEPS))
+    peak = torch.cuda.max_memory_allocated()
+    r = par_train_readings(state, got, ref, master)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        log(f"[state moe train] step {i + 1}: loss={a['loss']:.5f} (one "
+            f"slot {b['loss']:.5f}) grad_norm={a['grad_norm']:.4f} (one "
+            f"slot {b['grad_norm']:.4f}) s={a['s']:.3f} (one slot "
+            f"{b['s']:.3f}) collectives: {coll_line(a['coll'])}")
+    bad = par_train_faults(r)
+    if bad:
+        raise AssertionError("MoE training on (2, 2) vs one slot: "
+                             + "; ".join(bad))
+    if runs["moe 2x2 train"]["K7"] != 0:
+        raise AssertionError("training launched K7")
+    log(f"[state moe train] {cfg.name} layers={cfg.n_layers} of 24 "
+        f"params={n_params} on mesh {mesh.shape}: ZeRO-1, groups in "
+        f"lockstep, remat={cfg.remat}, batch={STATE_MOE_TRAIN_SEQS}x"
+        f"{LLM_PROMPT} as 2 microbatches of the whole batch; last_step_s="
+        f"{got[-1]['s']:.3f} max_memory_allocated={peak} (one slot: "
+        f"last_step_s={ref[-1]['s']:.3f} max_memory_allocated={ref_peak});"
+        f" {par_train_line(r)}")
+    del state, master, batch, step
+    torch.cuda.empty_cache()
+
+
+def dry_run_line(smi) -> None:
+    """One cell of the dry run (``launch/dryrun.py``) on the 16 x 16
+    ``meta`` mesh: its per-card roofline terms on the H100's peaks,
+    beside the card they stand for."""
+    from repro_torch.launch.dryrun import lower_cell
+    arch, shape = DRY_RUN_CELL
+    t0 = time.perf_counter()
+    res = lower_cell(arch, shape)
+    r, m = res["roofline"], res["memory"]
+    log(f"[dry run] {arch} {shape} on {res['mesh']} meta slots "
+        f"({res['slots_counted']} counted) for {smi}: compute_s="
+        f"{r['compute_s']:.4e} memory_s={r['memory_s']:.4e} collective_s="
+        f"{r['collective_s']:.4e} dominant={r['dominant']} "
+        f"roofline_fraction={r['roofline_fraction']:.4f} flops="
+        f"{r['flops']:.4e} bytes={r['bytes_accessed']:.4e} "
+        f"collective_bytes={r['collective_bytes']:.4e} argument_bytes="
+        f"{m['argument_bytes']} peak_hbm_estimate={m['peak_hbm_estimate']} "
+        f"wall_s={time.perf_counter() - t0:.3f}")
+
+
+def state_moe_phase(runs, dev, smi) -> None:
+    """Phase 6e: the state-axis layers over model slots, an MoE model
+    routed whole across data groups, and one dry-run cell; every slot on
+    the one card."""
+    t0 = time.perf_counter()
+    jobs = [(f"state_serve {name}", functools.partial(state_serve, name, b,
+                                                      length))
+            for name, b, length in STATE_RUNS]
+    jobs += [("moe_groups_serve", moe_groups_serve),
+             ("moe_groups_train", moe_groups_train),
+             ("dry_run_line", lambda runs, dev: dry_run_line(smi))]
+    parts = {}
+    for key, fn in jobs:
+        t = time.perf_counter()
+        fn(runs, dev)
+        parts[key] = round(time.perf_counter() - t, 3)
+    log(f"[state] phase_s={time.perf_counter() - t0:.3f} parts_s="
         f"{json.dumps(parts)}")
 
 
@@ -3690,6 +4057,10 @@ def main() -> int:
 
     # ---- phase 6d: tensor, expert and data parallelism over the mesh -- #
     parallel_phase(runs, dev)
+
+    # ---- phase 6e: state-axis layers over model slots, MoE across data
+    # groups, one dry-run cell ------------------------------------------ #
+    state_moe_phase(runs, dev, smi)
     for kid, label in MAIN_RUN.items():
         if runs[label][kid] <= 0:
             raise AssertionError(f"the {label} run never launched {kid}")

@@ -12,16 +12,17 @@ __all__ = ["resolve_device", "upload"]
 def resolve_device(device=None) -> torch.device:
     """``None`` means the first CUDA device. A CUDA device that torch
     cannot see raises :class:`DeviceUnavailableError`; the port never
-    moves to the CPU unless the caller asks for it."""
+    moves to the CPU unless the caller asks for it. ``"meta"`` (shapes
+    only, nothing allocated) serves a dry run's abstract tensors."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise DeviceUnavailableError(
             f"device {str(dev)!r} requested but torch sees no CUDA device "
             "(torch.cuda.is_available() is False); pass device='cpu' to "
             "run the plain PyTorch path")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {str(dev)!r}; use 'cuda' or "
-                         "'cpu'")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {str(dev)!r}; use 'cuda', "
+                         "'cpu' or 'meta'")
     return dev
 
 

@@ -24,6 +24,8 @@ qwen2-moe's shared experts are one always-on dense SwiGLU of width
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 import torch.nn.functional as F
 
@@ -31,7 +33,8 @@ from ..sharding.rules import pad_to_multiple
 from .layers import swiglu
 from .params import Spec
 
-__all__ = ["moe_specs", "moe_block", "moe_parts", "pad_experts", "route"]
+__all__ = ["moe_specs", "moe_block", "moe_parts", "pad_experts", "route",
+           "dispatch", "plan_to", "Dispatch"]
 
 NEG = -1e30
 
@@ -86,6 +89,36 @@ def route(router: torch.Tensor, xt: torch.Tensor, moe,
     return probs, top_w / top_w.sum(dim=-1, keepdim=True), top_e
 
 
+# a routing's dispatch over T tokens: top-k weights and experts (T, k),
+# each (token, choice)'s rank in its expert's queue and whether it is
+# kept (T*k,), the capacity, and the aux loss
+Dispatch = collections.namedtuple("Dispatch",
+                                  "top_w top_e rank keep capacity aux")
+
+
+def dispatch(routing, moe, n_experts_padded: int) -> Dispatch:
+    """The dispatch of a ``route`` result over all its T tokens: the
+    Switch-style aux loss, the capacity ``max(int(cf * T * k / E), 1)``,
+    and the ranks in token-major order (a choice beyond the capacity is
+    dropped)."""
+    probs, top_w, top_e = routing
+    e, k = n_experts_padded, moe.top_k
+    tkns = top_e.shape[0]
+    density = F.one_hot(top_e[:, 0], e).float().mean(dim=0)
+    aux = (density * probs.mean(dim=0)).sum() * e * moe.aux_loss_weight
+    capacity = max(int(moe.capacity_factor * tkns * k / e), 1)
+    flat_e = top_e.reshape(-1)                               # (T*k,)
+    rank = F.one_hot(flat_e, e).cumsum(dim=0).gather(
+        1, flat_e[:, None])[:, 0] - 1
+    return Dispatch(top_w, top_e, rank, rank < capacity, capacity, aux)
+
+
+def plan_to(plan: Dispatch, device) -> Dispatch:
+    """``plan``'s tensors on ``device``."""
+    return Dispatch(*(x.to(device) if torch.is_tensor(x) else x
+                      for x in plan))
+
+
 def moe_block(p, x: torch.Tensor, moe, n_experts_padded: int):
     """x (B, L, d) -> (out (B, L, d), aux_loss float32 scalar)."""
     routed, shared, aux = moe_parts(p, x, moe, n_experts_padded)
@@ -93,45 +126,39 @@ def moe_block(p, x: torch.Tensor, moe, n_experts_padded: int):
 
 
 def moe_parts(p, x: torch.Tensor, moe, n_experts_padded: int, *,
-              experts: tuple | None = None, routing=None):
+              experts: tuple | None = None, plan: Dispatch | None = None,
+              first: int = 0):
     """x (B, L, d) -> (routed (B, L, d), shared (B, L, d) or None, aux
     float32 scalar), the parts ``moe_block`` adds.
 
-    ``experts=(first, count)``: ``p`` holds only experts first ..
-    first+count-1 (their router columns are not used: ``routing``, the
-    ``route`` result of all the experts, must be given), and ``routed``
-    is their share of the output, zero for the choices of other experts.
-    Capacity and ranks are those of all ``n_experts_padded`` experts."""
+    ``plan`` (``dispatch`` of a ``route`` result; default: x's own) may
+    span more tokens than x's: x's are its tokens ``first ..``, and the
+    capacity, ranks and aux loss are the plan's. ``experts=(first,
+    count)``: ``p`` holds only those experts (their router columns are
+    not used: ``plan`` must be given), and ``routed`` is their share of
+    the output, zero for the choices of other experts."""
     b, l, d = x.shape
     tkns = b * l
     e, k = n_experts_padded, moe.top_k
     xt = x.reshape(tkns, d)
-    if routing is None:
-        routing = route(p["router"], xt, moe, e)
-    probs, top_w, top_e = routing
-    first, count = experts if experts is not None else (0, e)
-
-    # aux load-balance loss (Switch-style)
-    density = F.one_hot(top_e[:, 0], e).float().mean(dim=0)
-    aux = (density * probs.mean(dim=0)).sum() * e * moe.aux_loss_weight
-
-    capacity = max(int(moe.capacity_factor * tkns * k / e), 1)
-    # slot ranks: each (token, choice)'s place in its expert's queue, in
-    # token-major order
-    flat_e = top_e.reshape(-1)                               # (T*k,)
-    onehot = F.one_hot(flat_e, e)
-    rank = onehot.cumsum(dim=0).gather(1, flat_e[:, None])[:, 0] - 1
-    keep = rank < capacity
+    if plan is None:
+        plan = dispatch(route(p["router"], xt, moe, e), moe, e)
+    e0, count = experts if experts is not None else (0, e)
+    top_w = plan.top_w[first:first + tkns]
+    flat_e = plan.top_e[first:first + tkns].reshape(-1)
+    rank = plan.rank[first * k:(first + tkns) * k]
+    keep = plan.keep[first * k:(first + tkns) * k]
     if experts is not None:   # this slot's experts only
-        keep = keep & (flat_e >= first) & (flat_e < first + count)
+        keep = keep & (flat_e >= e0) & (flat_e < e0 + count)
 
     # scatter into the expert buffer (E, C, d). Kept choices own distinct
     # slots; dropped ones all go to slot (0, 0) carrying zeros, so the
     # accumulating scatter is exact in any order of its atomics
-    idx_e = torch.where(keep, flat_e - first, 0)
+    idx_e = torch.where(keep, flat_e - e0, 0)
     idx_c = torch.where(keep, rank, 0)
     src = torch.where(keep[:, None], xt.repeat_interleave(k, dim=0), 0)
-    buf = torch.zeros((count, capacity, d), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((count, plan.capacity, d), dtype=x.dtype,
+                      device=x.device)
     buf.index_put_((idx_e, idx_c), src, accumulate=True)
 
     # every expert's SwiGLU as one batched product over the expert axis
@@ -144,4 +171,4 @@ def moe_parts(p, x: torch.Tensor, moe, n_experts_padded: int, *,
     shared = None
     if "ws_g" in p:  # shared experts (always on)
         shared = swiglu(xt, p["ws_g"], p["ws_u"], p["ws_d"]).reshape(b, l, d)
-    return routed, shared, aux
+    return routed, shared, plan.aux

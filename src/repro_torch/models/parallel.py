@@ -1,12 +1,12 @@
 """Tensor, expert and data parallelism of the LM stack over a mesh.
 
-A ``Model`` runs its layers over the ``model`` slots of one *group*
-(``Model.run_group``); off a mesh the group is one slot holding the
-whole model. This module says what each slot of a group holds
-(``SlotLayout``) and cuts a batch over a mesh's groups (``MeshPlan``).
-The batch is cut over the ``(pod, data)`` slots (each cut a group, run
-one after another); within a group the ``model`` slots split every
-layer Megatron-style, each slot on its own weights' pieces:
+A ``Model`` runs its layers over the ``model`` slots of its *groups*
+(``Model.run_groups``); off a mesh there is one group of one slot
+holding the whole model. This module says what each slot of a group
+holds (``SlotLayout``) and cuts a batch over a mesh's groups
+(``MeshPlan``). The batch is cut over the ``(pod, data)`` slots, one cut
+per group; within a group the ``model`` slots split every layer, each
+slot on its own weights' pieces:
 
   * attention: ``wq``/``wk``/``wv`` column-split on ``heads``/``kv_heads``
     (each slot runs its own query heads on the KV heads they read,
@@ -19,21 +19,51 @@ layer Megatron-style, each slot on its own weights' pieces:
     ``all_reduce``;
   * the embedding split on ``vocab`` (a look-up within the slot's rows,
     zero outside, then an ``all_reduce``), the ``lm_head`` too, with the
-    logits left split (a ``Sharded``).
+    logits left split (a ``Sharded``);
+  * RG-LRU (``state`` = its recurrence width): ``w_gate``/``w_x``, the
+    depthwise conv, ``b_a``, ``b_i`` and ``lam`` on the slot's channels,
+    so they stay local; ``w_a``/``w_i`` are ``(state, state)``, whose
+    second ``state`` finds ``model`` taken, so only their rows split:
+    ``xc @ w_a`` is a partial sum on each slot, and one
+    ``reduce_scatter`` onto the slot's channels gives exactly what the
+    local scan needs; ``w_down`` row-split, then an ``all_reduce``. The
+    decode state's ``h`` and ``conv`` hold the slot's channels;
+  * mLSTM (``state`` = its up-projected width ``du``): ``w_up`` and
+    ``w_gate`` column-split, ``wq``/``wk``/``wv``/``w_if`` row-split, so
+    q, k, v and the gates are partial sums: q, k and the gates are
+    ``all_reduce``d (every slot needs them whole), v is
+    ``reduce_scatter``ed onto the slot's piece of ``dv``, and the cell
+    runs split over ``dv`` (its matrix state ``C`` on ``dv``, as the
+    reference's decode state places it; ``n`` is stored on ``dk`` and
+    ``all_gather``ed whole at each call, the cell's normaliser needing
+    all of it). The cell's output is then head-major split over ``dv``,
+    not the contiguous ``du / m`` columns that ``norm_h`` and
+    ``w_down``'s rows hold on the slot (xlstm-350m's 4 heads cannot be
+    split 16 ways), so ``collectives.all_to_all_heads`` turns one into
+    the other; ``norm_h``, an RMS norm over all of ``du``, reduces its
+    sum of squares; ``w_down`` row-split, then an ``all_reduce``;
+  * sLSTM (``state`` = its gate width ``4d``): ``w_gates``/``b_gates``
+    column-split, but the cell cuts its ``4d`` into (z, i, f, o) after a
+    head-major reshape of the recurrent term, so a slot's contiguous
+    columns mix gates and heads, and the token scan is sequential: the
+    gate pre-activations are ``all_gather``ed once before the scan
+    (never a collective a token), every slot runs the scan whole on the
+    replicated ``r_gates``, and keeps its piece of ``d`` of the state
+    (``c``/``n``/``h``/``m``), gathered whole at the next call;
+    ``w_out`` and ``norm_h`` are replicated.
 
 A weight whose logical axis does not divide its mesh axes is replicated,
 exactly as ``logical_to_spec`` resolves it, and then its product is
-whole on every slot and is not reduced. FSDP (``embed_fsdp`` on
-``data``) ``all_gather``s a weight over the data slots before use.
+whole on every slot and is not reduced (a decode state likewise). FSDP
+(``embed_fsdp`` on ``data``) ``all_gather``s a weight over the data
+slots before use.
 
-Only attention stacks (dense, MoE, vision, audio) split over ``model``;
-the ``state``-axis layers (RG-LRU, xLSTM) run on meshes with one
-``model`` slot, and raise ``NotPortedError`` on more. MoE runs on one
-group only: the reference's forward over a data-sharded batch routes
-the whole batch at once (capacity, ranks and the aux loss from every
-row), which groups run one after another cannot do, so an MoE model on
-a mesh with more than one ``(pod, data)`` group raises
-``NotPortedError``.
+Groups run one after another, except an MoE model's: the reference
+routes a data-sharded batch whole (capacity, ranks and the aux loss from
+every token), so its groups run in lockstep, layer by layer
+(``lockstep``): at each MoE layer the router logits of every
+group's rows are ``all_gather``ed over ``(pod, data)``, one routing is
+made over the whole batch, and each group dispatches its own rows.
 
 Slots that share a device share what is the same for them (a replicated
 weight's product, a reduced activation): ``collectives.per_device``.
@@ -50,10 +80,12 @@ from ..sharding import collectives as coll
 from ..sharding.placed import Sharded
 from ..sharding.rules import Placement, logical_to_spec
 from . import attention as attn
+from .ssm import UP
 from .params import param_placements, tree_leaves, tree_map
 
 __all__ = ["MeshPlan", "SlotLayout", "Group", "greedy_tokens",
-           "slot_trees", "leafify", "group_mean"]
+           "slot_trees", "leafify", "group_mean", "decode_state_axes",
+           "lockstep"]
 
 # one group of slots running a batch's rows: the slots' indices in the
 # mesh, their weight trees and devices, and the rows of the batch
@@ -65,7 +97,11 @@ class SlotLayout:
     """What each ``model`` slot of a group holds, in slot order: its
     attention dims and ``kv_select`` (``attention.slot_dims``), its
     vocabulary range and its experts' range ((first, count); None: all),
-    and which products are split (their partials ``all_reduce``d)."""
+    and which products are split (their partials reduced): for the
+    recurrent kinds their ``state`` weights (``rec``, ``mlstm``,
+    ``slstm``) and their decode state's ``state`` axis
+    (``mlstm_cell``: ``C`` on ``dv`` and ``n`` on ``dk``;
+    ``slstm_state``; RG-LRU's state splits with its weights)."""
 
     attn: tuple
     vocab: tuple
@@ -75,12 +111,43 @@ class SlotLayout:
     mlp_split: bool = False
     experts_split: bool = False
     shared_split: bool = False
+    rec_split: bool = False
+    mlstm_split: bool = False
+    mlstm_cell_split: bool = False
+    slstm_split: bool = False
+    slstm_state_split: bool = False
+
+    @property
+    def m(self) -> int:
+        """The group's ``model`` slots."""
+        return len(self.attn)
 
     @classmethod
     def whole(cls, model) -> "SlotLayout":
         """One slot holding the whole model: the model off a mesh, or on
         a mesh with one ``model`` slot."""
         return cls(((model.dims, None),), ((0, model.vocab_p),), (None,))
+
+
+def decode_state_axes(kind: str, ndim: int) -> tuple:
+    """The logical axes of a decode-state leaf of ``kind`` with ``ndim``
+    dimensions (layer stack first), as the reference's dry run places
+    them (``launch/dryrun.abstract_decode_state``): the KV caches on
+    ``kv_heads``; RG-LRU's ``h`` and ``conv`` on ``state``; the mLSTM's
+    ``C`` on ``dv`` and ``n`` on ``dk`` (``m`` replicated); the sLSTM's
+    ``c``/``n``/``h``/``m`` on ``d``."""
+    if kind == "attn":
+        return (None, "batch", None, "kv_heads", None)
+    if kind == "rec":
+        return ((None, "batch", "state") if ndim == 3
+                else (None, "batch", None, "state"))
+    if kind == "mlstm":
+        return {5: (None, "batch", None, None, "state"),
+                4: (None, "batch", None, "state"),
+                3: (None, "batch", None)}[ndim]
+    if kind == "slstm":
+        return (None, "batch", "state")
+    return (None,) * ndim
 
 
 def _data_dim(placement: Placement):
@@ -194,75 +261,87 @@ class MeshPlan:
         if m != model.tp:
             raise ValueError(f"build(cfg, tp={model.tp}) on a mesh of "
                              f"{m} 'model' slots: tp must equal them")
-        kinds = set(cfg.layer_kinds())
-        if m > 1 and kinds - {"attn"}:
-            raise NotPortedError(
-                f"{cfg.name}: sharded execution of its "
-                f"{sorted(kinds - {'attn'})} layers (the 'state' axis) over "
-                f"{m} model slots is not ported; ROADMAP queue 1 names it "
-                "next. It runs on meshes with one model slot.")
         self.model, self.mesh = model, mesh
         self.groups = mesh.groups(("model",))
-        if cfg.moe is not None and len(self.groups) > 1:
-            raise NotPortedError(
-                f"{cfg.name}: MoE over {len(self.groups)} (pod, data) "
-                "groups is not ported: the reference routes the whole batch "
-                "at once, and the groups run one after another; ROADMAP "
-                "queue 1 names it. It runs on meshes with one data slot.")
         self.placements = param_placements(model.param_specs(), mesh,
                                            model.rules)
         self.layout = (SlotLayout.whole(model) if m == 1
                        else self._layout(model))
 
     def _layout(self, model) -> SlotLayout:
-        pl, specs = self.placements, model.param_specs()
+        pl, specs, cfg = self.placements, model.param_specs(), model.cfg
         slot0 = self.groups[0]
+        blocks = pl["blocks"]
+
+        def leaf(tree, name_path):
+            for k in name_path:
+                tree = tree[k]
+            return tree
 
         def rng(name_path, dim, s):
-            p, sp = pl, specs
-            for k in name_path:
-                p, sp = p[k], sp[k]
-            sl = p.slices(sp.shape, s)[dim]
+            sl = leaf(pl, name_path).slices(leaf(specs, name_path).shape,
+                                            s)[dim]
             return sl.start, sl.stop - sl.start
 
         def split(name_path, dim):
-            p = pl
-            for k in name_path:
-                p = p[k]
-            return p.spec[dim] is not None
-        a = ("blocks", "attn", "attn")
-        heads = [attn.slot_dims(model.dims, *rng(a + ("wq",), 2, s),
-                                *rng(a + ("wk",), 2, s)) for s in slot0]
-        kw = {"mlp_split": False, "experts_split": False,
-              "shared_split": False}
+            return leaf(pl, name_path).pieces(dim) > 1
+
+        def state_split(kind, shape):
+            spec = logical_to_spec(self.mesh, model.rules,
+                                   decode_state_axes(kind, len(shape)),
+                                   shape)
+            return Placement(self.mesh, spec).pieces(len(shape) - 1) > 1
+        kw = {}
+        if "attn" in blocks:
+            a = ("blocks", "attn", "attn")
+            heads = [attn.slot_dims(model.dims, *rng(a + ("wq",), 2, s),
+                                    *rng(a + ("wk",), 2, s)) for s in slot0]
+            kw["heads_split"] = split(a + ("wo",), 1)
+        else:
+            heads = [(model.dims, None)] * len(slot0)
         experts = [None] * len(slot0)
-        if model.cfg.moe is not None:
+        if cfg.moe is not None:
             e = ("blocks", "attn", "moe")
             kw["experts_split"] = split(e + ("we_g",), 1)
-            kw["shared_split"] = ("ws_d" in pl["blocks"]["attn"]["moe"]
+            kw["shared_split"] = ("ws_d" in blocks["attn"]["moe"]
                                   and split(e + ("ws_d",), 1))
             if kw["experts_split"]:
                 experts = [rng(e + ("we_g",), 1, s) for s in slot0]
-        elif model.cfg.d_ff:
-            kw["mlp_split"] = split(("blocks", "attn", "mlp", "wd"), 1)
+        for kind in ("attn", "rec"):
+            if "mlp" in blocks.get(kind, {}):
+                kw["mlp_split"] = split(("blocks", kind, "mlp", "wd"), 1)
+        d, heads_n = cfg.d_model, cfg.n_heads
+        if "rec" in blocks:
+            kw["rec_split"] = split(("blocks", "rec", "rec", "w_x"), 2)
+        if "mlstm" in blocks:
+            hd = UP * d // heads_n
+            kw["mlstm_split"] = split(("blocks", "mlstm", "cell", "w_up"), 2)
+            kw["mlstm_cell_split"] = state_split("mlstm",
+                                                 (1, 0, heads_n, hd, hd))
+        if "slstm" in blocks:
+            kw["slstm_split"] = split(("blocks", "slstm", "cell",
+                                       "w_gates"), 2)
+            kw["slstm_state_split"] = state_split("slstm", (1, 0, d))
         return SlotLayout(
             tuple(heads), tuple(rng(("embed",), 0, s) for s in slot0),
-            tuple(experts), vocab_split=split(("embed",), 0),
-            heads_split=split(a + ("wo",), 1), **kw)
+            tuple(experts), vocab_split=split(("embed",), 0), **kw)
+
+    def rows_of(self, b: int) -> list:
+        """Each group's rows of a batch of ``b``: an equal cut, or every
+        row for every group when the groups do not divide ``b``."""
+        spec = logical_to_spec(self.mesh, self.model.rules, ("batch",), (b,))
+        per = b // len(self.groups)
+        return [slice(None) if spec[0] is None
+                else slice(k * per, (k + 1) * per)
+                for k in range(len(self.groups))]
 
     def groups_of(self, placed, b: int) -> list:
         """The ``Group``s that run a batch of ``b`` rows on ``placed``
-        params: each group's rows are an equal cut, or every row for
-        every group when the groups do not divide ``b``."""
+        params (``rows_of``)."""
         trees = slot_trees(placed)
-        spec = logical_to_spec(self.mesh, self.model.rules, ("batch",), (b,))
-        g = len(self.groups)
-        per = b // g
         return [Group(grp, [trees[s] for s in grp],
-                      [self.mesh.devices[s] for s in grp],
-                      slice(None) if spec[0] is None
-                      else slice(k * per, (k + 1) * per))
-                for k, grp in enumerate(self.groups)]
+                      [self.mesh.devices[s] for s in grp], rows)
+                for grp, rows in zip(self.groups, self.rows_of(b))]
 
     def sharded(self, per_group: list, shape: tuple, logical) -> Sharded:
         """Per-group lists of per-slot pieces as one ``Sharded``."""
@@ -273,3 +352,14 @@ class MeshPlan:
         spec = logical_to_spec(self.mesh, self.model.rules, logical, shape)
         return Sharded(Placement(self.mesh, spec), tuple(shape),
                        tuple(shards))
+
+
+def lockstep(cfg, groups: list) -> list:
+    """The groups as runs: each run a list of groups that go through the
+    layers together. An MoE model's groups holding distinct rows run as
+    one (its routing spans the whole batch); every other model's, and an
+    MoE model's that all hold every row, one after another."""
+    if (cfg.moe is not None and len(groups) > 1
+            and groups[0].rows != slice(None)):
+        return [groups]
+    return [[g] for g in groups]

@@ -15,6 +15,13 @@ log-depth doubling scan (``_rglru_scan``): ceil(log2 L) elementwise steps
 over the whole (B, L, C) block, so a 4 096-token prefill is 12 steps, not
 4 096. It groups the products differently from the reference's scan, so
 the two agree to float32 rounding, not bit for bit.
+
+The block is two halves, so that a mesh's ``model`` slots can run it on
+their channels (``models/parallel.py``): ``rglru_in`` (the gate and conv
+branches, and the gates' products, on a slot a partial sum over its rows
+of ``w_a``/``w_i``, reduce-scattered onto its channels) and
+``rglru_mix`` (the gates, the scan and the slot's partial
+down-projection, then all-reduced). ``rglru_block`` is both on one slot.
 """
 from __future__ import annotations
 
@@ -25,8 +32,8 @@ from ..core.device import resolve_device
 from .layers import rms_norm
 from .params import Spec
 
-__all__ = ["rglru_specs", "rglru_block", "rglru_decode_step",
-           "init_rglru_state", "C_SCALE"]
+__all__ = ["rglru_specs", "rglru_block", "rglru_in", "rglru_mix",
+           "rglru_decode_step", "init_rglru_state", "C_SCALE"]
 
 C_SCALE = 8.0
 
@@ -90,18 +97,28 @@ def _rglru_scan(xc, a_log):
     return b, a
 
 
-def rglru_block(p, x, conv_w: int, eps: float, state=None):
-    """x (B, L, d) -> (x + out, state {h, conv} in float32)."""
-    B, L, d = x.shape
-    xn = rms_norm(x, p["norm_in"], eps)
+def rglru_in(p, xn, state=None):
+    """The normed input xn (B, L, d) -> (gate (B, L, c), conv output
+    float32 (B, L, c), the conv history for the next call, and the
+    gates' products ``xc @ w_a`` and ``xc @ w_i``, float32 (B, L, dr)),
+    c the channels of ``p``'s columns (a slot's piece, or all dr)."""
     # jax.nn.gelu's default is the tanh approximation, not torch's erf
-    gate = F.gelu(xn @ p["w_gate"], approximate="tanh")   # (B, L, dr)
+    gate = F.gelu(xn @ p["w_gate"], approximate="tanh")   # (B, L, c)
     xr = xn @ p["w_x"]
     hist = state["conv"] if state is not None else None
     xc, new_hist = _causal_conv(xr, p["conv_k"], p["conv_b"], hist)
     xcf = xc.float()
-    r = torch.sigmoid(xcf @ p["w_a"].float() + p["b_a"].float())
-    i = torch.sigmoid(xcf @ p["w_i"].float() + p["b_i"].float())
+    return (gate, xcf, new_hist, xcf @ p["w_a"].float(),
+            xcf @ p["w_i"].float())
+
+
+def rglru_mix(p, x, gate, xcf, ra, ri, state=None):
+    """The gates from their products ``ra``, ``ri`` (B, L, c), the scan
+    from ``state``'s h (else zeros), and the down-projection of the
+    gated output -> (out (B, L, d) in x's dtype, the last h float32)."""
+    B, L = x.shape[:2]
+    r = torch.sigmoid(ra + p["b_a"].float())
+    i = torch.sigmoid(ri + p["b_i"].float())
     a_log = -C_SCALE * F.softplus(p["lam"].float()) * r
     xin = i * xcf
     if state is not None and L == 1:
@@ -113,13 +130,20 @@ def rglru_block(p, x, conv_w: int, eps: float, state=None):
         new_h = h
     else:
         h0 = (state["h"] if state is not None else
-              xcf.new_zeros((B, xr.shape[-1])))
+              xcf.new_zeros((B, xcf.shape[-1])))
         # the initial state folds in through the running products of a
         hs, aa = _rglru_scan(xin, a_log)
         hs = hs + aa * h0[:, None, :]
         new_h = hs[:, -1]
-    out = (gate * hs.to(x.dtype)) @ p["w_down"]
-    return x + out, {"h": new_h, "conv": new_hist.float()}
+    return (gate * hs.to(x.dtype)) @ p["w_down"], new_h
+
+
+def rglru_block(p, x, conv_w: int, eps: float, state=None):
+    """x (B, L, d) -> (x + out, state {h, conv} in float32)."""
+    gate, xcf, hist, ra, ri = rglru_in(p, rms_norm(x, p["norm_in"], eps),
+                                       state)
+    out, new_h = rglru_mix(p, x, gate, xcf, ra, ri, state)
+    return x + out, {"h": new_h, "conv": hist.float()}
 
 
 def rglru_decode_step(p, x, conv_w: int, eps: float, state):

@@ -13,6 +13,14 @@ training checkpoints, which change what the backward pass keeps and not
 the numbers: ``mlstm_cell`` checkpoints groups of ``ckpt_group`` chunks
 (only the group boundaries' matrix states are kept), ``slstm_block``
 chunks of ``time_chunk`` tokens.
+
+Each block is also given in the parts a mesh's ``model`` slots run on
+their pieces, with collectives between them (``models/parallel.py``):
+``mlstm_proj`` (partial sums of q, k, v and the gates on a slot),
+``mlstm_run`` (the cell; split over ``dv`` it needs only the slot's v
+and ``C``) and ``mlstm_out``; ``slstm_scan`` (the token scan over the
+gathered gate pre-activations). ``mlstm_block`` and ``slstm_block`` are
+the parts on one slot.
 """
 from __future__ import annotations
 
@@ -26,7 +34,8 @@ from .params import Spec
 
 __all__ = ["mlstm_specs", "slstm_specs", "mlstm_block", "slstm_block",
            "mlstm_cell", "mlstm_cell_ref", "mlstm_decode_step",
-           "slstm_decode_step", "init_mlstm_state", "init_slstm_state", "UP"]
+           "slstm_decode_step", "init_mlstm_state", "init_slstm_state", "UP",
+           "mlstm_proj", "mlstm_run", "mlstm_out", "slstm_scan"]
 
 UP = 2  # mLSTM up-projection factor
 NEG = -1e30
@@ -197,33 +206,45 @@ def mlstm_decode_step(q, k, v, it, ft, state):
 # ---------------------------------------------------------------------- #
 # blocks
 # ---------------------------------------------------------------------- #
-def _mlstm_qkvif(p, xn, heads):
-    xu = xn @ p["w_up"]                                   # (B, L, du)
-    B, L, du = xu.shape
-    hd = du // heads
+def mlstm_proj(p, xn):
+    """xn (B, L, d) -> (xu (B, L, c), q, k, v (B, L, du), the gates
+    (B, L, 2H) before ``b_if``), c the columns of ``p``'s ``w_up``; on a
+    slot holding c of du rows of ``wq``/``wk``/``wv``/``w_if``, q, k, v
+    and the gates are its partial sums."""
+    xu = xn @ p["w_up"]                                   # (B, L, c)
+    return xu, xu @ p["wq"], xu @ p["wk"], xu @ p["wv"], xu @ p["w_if"]
 
-    def split(w):
-        return (xu @ w).reshape(B, L, heads, hd)
-    q, k, v = split(p["wq"]), split(p["wk"]), split(p["wv"])
-    gif = (xu @ p["w_if"]) + p["b_if"]                    # (B, L, 2H)
-    return xu, q, k, v, gif[..., :heads], gif[..., heads:]
+
+def mlstm_run(q, k, v, it, ft, state, chunk: int):
+    """The cell over q, k (B, L, H, dk), v (B, L, H, dv) and the gates
+    from ``state``: one token as the decode step, else chunkwise ->
+    (h (B, L, H, dv), state). Each dv column reads only its own columns
+    of v and ``C``, so a slot may run it on its piece of dv."""
+    if q.shape[1] == 1:
+        state, h = mlstm_decode_step(q, k, v, it, ft, state)
+        return h, state
+    return mlstm_cell(q, k, v, it, ft, state, chunk)
+
+
+def mlstm_out(p, xn, h):
+    """The normed cell output h (B, L, c) gated and projected down: the
+    whole output, or a slot's partial over its c rows of ``w_down``."""
+    return (h * F.silu(xn @ p["w_gate"])) @ p["w_down"]
 
 
 def mlstm_block(p, x, heads: int, eps: float, chunk: int, state=None):
     xn = rms_norm(x, p["norm_in"], eps)
-    xu, q, k, v, it, ft = _mlstm_qkvif(p, xn, heads)
+    xu, q, k, v, gif = mlstm_proj(p, xn)
     B, L, du = xu.shape
+    hd = du // heads
+    q, k, v = (t.reshape(B, L, heads, hd) for t in (q, k, v))
+    gif = gif + p["b_if"]                                 # (B, L, 2H)
     if state is None:
-        state = init_mlstm_state(B, heads, du // heads, du // heads,
-                                 device=x.device)
-    if L == 1:
-        state, h = mlstm_decode_step(q, k, v, it, ft, state)
-    else:
-        h, state = mlstm_cell(q, k, v, it, ft, state, chunk)
-    h = h.reshape(B, L, du).to(x.dtype)
-    h = rms_norm(h, p["norm_h"], eps)
-    gated = h * F.silu(xn @ p["w_gate"])
-    return x + gated @ p["w_down"], state
+        state = init_mlstm_state(B, heads, hd, hd, device=x.device)
+    h, state = mlstm_run(q, k, v, gif[..., :heads], gif[..., heads:],
+                         state, chunk)
+    h = rms_norm(h.reshape(B, L, du).to(x.dtype), p["norm_h"], eps)
+    return x + mlstm_out(p, xn, h), state
 
 
 def init_slstm_state(batch: int, d: int, device=None) -> dict:
@@ -269,17 +290,13 @@ def _slstm_steps(p, heads, state, gx):
     return state, torch.stack(hs, dim=1)
 
 
-def slstm_block(p, x, heads: int, eps: float, state=None,
-                time_chunk: int = 256):
-    """sLSTM layer: x (B, L, d) -> (x + out, state), token by token. Under
-    grad mode, when ``time_chunk`` divides L and is below it, each chunk
-    of ``time_chunk`` tokens runs under a checkpoint (only the chunk
+def slstm_scan(p, heads: int, gx, state, time_chunk: int = 256):
+    """The token scan over the gate pre-activations gx (B, L, 4d) from
+    ``state`` -> (state, h (B, L, d) float32). Under grad mode, when
+    ``time_chunk`` divides L and is below it, each chunk of
+    ``time_chunk`` tokens runs under a checkpoint (only the chunk
     boundaries' states are kept), as in the reference."""
-    B, L, d = x.shape
-    xn = rms_norm(x, p["norm_in"], eps)
-    gx = xn @ p["w_gates"] + p["b_gates"]                 # (B, L, 4d)
-    if state is None:
-        state = init_slstm_state(B, d, device=x.device)
+    L = gx.shape[1]
     if torch.is_grad_enabled() and L % time_chunk == 0 and L > time_chunk:
         hs = []
         for c in range(0, L, time_chunk):
@@ -287,11 +304,21 @@ def slstm_block(p, x, heads: int, eps: float, state=None,
                                   gx[:, c:c + time_chunk],
                                   use_reentrant=False)
             hs.append(h)
-        h = torch.cat(hs, dim=1)
-    else:
-        state, h = _slstm_steps(p, heads, state, gx)
-    h = h.to(x.dtype)                                     # (B, L, d)
-    h = rms_norm(h, p["norm_h"], eps)
+        return state, torch.cat(hs, dim=1)
+    return _slstm_steps(p, heads, state, gx)
+
+
+def slstm_block(p, x, heads: int, eps: float, state=None,
+                time_chunk: int = 256):
+    """sLSTM layer: x (B, L, d) -> (x + out, state), token by token
+    (``slstm_scan``)."""
+    B, L, d = x.shape
+    xn = rms_norm(x, p["norm_in"], eps)
+    gx = xn @ p["w_gates"] + p["b_gates"]                 # (B, L, 4d)
+    if state is None:
+        state = init_slstm_state(B, d, device=x.device)
+    state, h = slstm_scan(p, heads, gx, state, time_chunk)
+    h = rms_norm(h.to(x.dtype), p["norm_h"], eps)         # (B, L, d)
     return x + h @ p["w_out"], state
 
 

@@ -14,10 +14,12 @@ the dtype's most negative value), the decode cache repeated to
 build runs the padded model whole; ``build(cfg, tp, mesh=)`` runs it
 over a ``(pod, data, model)`` mesh (``models/parallel.py``: Megatron
 tensor parallelism, expert parallelism and data parallelism), taking
-params placed by ``Model.place``. Both run one body, ``run_group``:
-the layers over one group's ``model`` slots, each slot on its weights'
-pieces with the collectives between them; off a mesh the group is one
-slot holding the whole model, and every collective is the identity.
+params placed by ``Model.place``. Both run one body, ``run_groups``:
+the layers over groups of ``model`` slots, each slot on its weights'
+pieces with the collectives between them, the groups in lockstep (an
+MoE model's: one routing over the batch) or one by one; off a mesh
+there is one group of one slot holding the whole model, and every
+collective is the identity.
 
 Parameters are a plain nested dict of tensors, not parameters registered
 on the module, so that one set of weights serves several builds (the
@@ -60,7 +62,7 @@ from . import moe as moe_mod
 from . import rglru as rg
 from . import ssm
 from .layers import embed_tokens, mlp_specs, rms_norm, swiglu, unembed
-from .parallel import Group, MeshPlan, SlotLayout, group_mean
+from .parallel import Group, MeshPlan, SlotLayout, group_mean, lockstep
 from .params import Spec, place_params, tree_leaves, tree_map
 
 __all__ = ["Model", "build", "REMAT_MODES"]
@@ -206,6 +208,21 @@ class Model(torch.nn.Module):
         eps = self.cfg.norm_eps
         return coll.per_device(lambda x, w: rms_norm(x, w, eps), devs, h, ws)
 
+    def _split_norm(self, hs, ws, devs, split: bool):
+        """RMS norm of an activation split over the slots' columns: the
+        sum of squares ``all_reduce``d over them; each slot's columns
+        normed by its piece of the weight. Whole on every slot when not
+        ``split``."""
+        eps = self.cfg.norm_eps
+        if not split:
+            return [rms_norm(x, w, eps) for x, w in zip(hs, ws)]
+        xfs = [x.float() for x in hs]
+        tot = coll.all_reduce([xf.square().sum(dim=-1, keepdim=True)
+                               for xf in xfs], devs)
+        n = sum(x.shape[-1] for x in hs)
+        return [(xf * torch.rsqrt(t / n + eps)).to(x.dtype) * w
+                for xf, t, x, w in zip(xfs, tot, hs, ws)]
+
     def _attend(self, p, hn, positions, dims, kv_select):
         cfg = self.cfg
         if cfg.attn_impl == "flash":
@@ -215,14 +232,14 @@ class Model(torch.nn.Module):
                               chunk=cfg.attn_chunk, unroll=cfg.unroll_attn,
                               kv_select=kv_select)
 
-    def _attn_block(self, ps, h, positions, devs, caches=None, i=None,
-                    pos=None):
-        """One attention layer -> (h per slot, aux or None). Each slot runs
-        its own query heads; their partial out-projections are
-        ``all_reduce``d where the heads are split. ``caches`` (each slot's
-        k, v stacks) with ``pos`` is a decode step against layer ``i``'s;
-        ``caches`` alone a prefill that fills them; neither the
-        full-sequence forward."""
+    def _attn_mix(self, ps, h, positions, devs, caches=None, i=None,
+                  pos=None):
+        """The attention half of an attention layer over one group's
+        slots -> h per slot. Each slot runs its own query heads; their
+        partial out-projections are ``all_reduce``d where the heads are
+        split. ``caches`` (each slot's k, v stacks) with ``pos`` is a
+        decode step against layer ``i``'s; ``caches`` alone a prefill
+        that fills them; neither the full-sequence forward."""
         cfg, lay = self.cfg, self.layout
         hn = self._norm(h, [p["ln1"] for p in ps], devs)
         outs = []
@@ -241,96 +258,230 @@ class Model(torch.nn.Module):
             outs.append(o)
         if lay.heads_split:
             outs = coll.all_reduce(outs, devs)
-        return self._ffn(ps, coll.per_device(torch.add, devs, h, outs), devs)
+        return coll.per_device(torch.add, devs, h, outs)
 
-    def _ffn(self, ps, h, devs):
-        """The attention block's second half -> (h, aux loss or None): the
-        experts (and their aux loss), the MLP, or nothing."""
-        cfg, lay = self.cfg, self.layout
+    def _mlp(self, ps, hn, devs):
+        """The SwiGLU MLP on each slot: column/row-split and
+        ``all_reduce``d, or whole."""
+        def one(x, p):
+            return swiglu(x, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"])
+        if self.layout.mlp_split:
+            return coll.all_reduce([one(x, p) for x, p in zip(hn, ps)], devs)
+        return coll.per_device(one, devs, hn, ps)
+
+    def _ffn(self, ps, h, groups):
+        """The second half of an attention layer over the groups (lists
+        per group of per-slot values) -> (h per group, aux loss or None):
+        the experts (one routing over every group's rows) and their aux
+        loss, the MLP, or nothing."""
+        cfg = self.cfg
         if cfg.moe is None and not cfg.d_ff:
             return h, None
-        hn = self._norm(h, [p["ln2"] for p in ps], devs)
+        hn = [self._norm(hg, [p["ln2"] for p in pg], g.devs)
+              for pg, hg, g in zip(ps, h, groups)]
         aux = None
         if cfg.moe is not None:
-            out, aux = self._experts(ps, hn, devs)
-        elif lay.mlp_split:
-            out = coll.all_reduce([swiglu(x, p["mlp"]["wg"], p["mlp"]["wu"],
-                                          p["mlp"]["wd"])
-                                   for x, p in zip(hn, ps)], devs)
+            out, aux = self._experts(ps, hn, groups)
         else:
-            out = coll.per_device(lambda x, p: swiglu(
-                x, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"]), devs,
-                hn, ps)
-        return coll.per_device(torch.add, devs, h, out), aux
+            out = [self._mlp(pg, x, g.devs)
+                   for pg, x, g in zip(ps, hn, groups)]
+        return [coll.per_device(torch.add, g.devs, hg, og)
+                for g, hg, og in zip(groups, h, out)], aux
 
-    def _experts(self, ps, hn, devs):
-        """The experts over the group's slots (expert parallelism where
-        they are split) -> (out per slot, aux): one routing of all the
-        experts, made from the router logits (``all_gather``ed from the
-        slots' columns), each slot's experts' share, ``all_reduce``d."""
+    def _group_logits(self, logits, groups):
+        """Each group's per-slot router logits (T_g, E) ``all_gather``ed
+        over ``(pod, data)``, along the tokens in group order."""
+        per_slot = [None] * self.mesh.size
+        for g, lg in zip(groups, logits):
+            for s, x in zip(g.slots, lg):
+                per_slot[s] = x
+        got = coll.over_groups(coll.all_gather, per_slot,
+                               self.mesh.groups(("pod", "data")),
+                               self.mesh.devices, 0)
+        return [[got[s] for s in g.slots] for g in groups]
+
+    def _experts(self, ps, hn, groups):
+        """The experts over the groups' slots (expert parallelism where
+        they are split) -> (out per group per slot, aux): one routing of
+        all the experts over every group's tokens, in group order, made
+        from the router logits (``all_gather``ed from the slots' columns,
+        then over the groups), each slot's experts' share of its group's
+        tokens, ``all_reduce``d over the group's slots."""
         moe, e, lay = self.cfg.moe, self.n_experts_p, self.layout
-        xts = [x.reshape(-1, x.shape[-1]) for x in hn]
-        logits = [x @ p["moe"]["router"] for x, p in zip(xts, ps)]
-        if lay.experts_split:
-            logits = coll.all_gather(logits, 1, devs)
-        routing = moe_mod.route(ps[0]["moe"]["router"], xts[0], moe, e,
-                                logits=logits[0])
-        routings = coll.per_device(
-            lambda d: tuple(r.to(d) for r in routing), devs, devs)
-        routed, shared, aux = [], [], None
-        for m, p in enumerate(ps):
-            r, sh, a = moe_mod.moe_parts(p["moe"], hn[m], moe, e,
-                                         experts=lay.experts[m],
-                                         routing=routings[m])
-            aux = a if aux is None else aux
-            if sh is not None and lay.shared_split:
-                r = r + sh
-            elif sh is not None:
-                shared.append(sh)
-            routed.append(r)
-        if lay.experts_split:
-            routed = coll.all_reduce(routed, devs)
-        if shared:
-            routed = [r + s for r, s in zip(routed, shared)]
-        return routed, aux
+        xts = [[x.reshape(-1, x.shape[-1]) for x in hg] for hg in hn]
+        logits = []
+        for pg, xg, g in zip(ps, xts, groups):
+            lg = [x @ p["moe"]["router"] for x, p in zip(xg, pg)]
+            if lay.experts_split:
+                lg = coll.all_gather(lg, 1, g.devs)
+            logits.append(lg)
+        if len(groups) > 1:
+            logits = self._group_logits(logits, groups)
+        plan = moe_mod.dispatch(moe_mod.route(
+            ps[0][0]["moe"]["router"], xts[0][0], moe, e,
+            logits=logits[0][0]), moe, e)
+        out, first = [], 0
+        for pg, hg, xg, g in zip(ps, hn, xts, groups):
+            plans = coll.per_device(lambda d: moe_mod.plan_to(plan, d),
+                                    g.devs, g.devs)
+            routed, shared = [], []
+            for m, p in enumerate(pg):
+                r, sh, _ = moe_mod.moe_parts(p["moe"], hg[m], moe, e,
+                                             experts=lay.experts[m],
+                                             plan=plans[m], first=first)
+                if sh is not None and lay.shared_split:
+                    r = r + sh
+                elif sh is not None:
+                    shared.append(sh)
+                routed.append(r)
+            if lay.experts_split:
+                routed = coll.all_reduce(routed, g.devs)
+            if shared:
+                routed = [r + s for r, s in zip(routed, shared)]
+            out.append(routed)
+            first += xg[0].shape[0]
+        return out, plan.aux
 
-    def _state_block(self, kind, ps, h, stacks=None, i=None):
-        """One layer of a recurrent kind on each slot (these run on groups
-        of one ``model`` slot) -> (h per slot, None): from layer ``i``'s
-        state in ``stacks`` (each slot's, written back in place), else
-        from fresh zeros."""
-        cfg = self.cfg
-        out = []
-        for m, (p, x) in enumerate(zip(ps, h)):
-            st = None if stacks is None else tree_map(lambda a: a[i],
-                                                      stacks[m])
-            if kind == "rec":
-                x, st = rg.rglru_block(p["rec"], x, cfg.conv1d_width,
-                                       cfg.norm_eps, st)
-                x = x + swiglu(rms_norm(x, p["ln2"], cfg.norm_eps),
-                               p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"])
-            elif kind == "mlstm":
-                x, st = ssm.mlstm_block(p["cell"], x, cfg.n_heads,
-                                        cfg.norm_eps, cfg.mlstm_chunk, st)
-            elif kind == "slstm":
-                x, st = ssm.slstm_block(p["cell"], x, cfg.n_heads,
-                                        cfg.norm_eps, st)
-            else:
-                raise ValueError(kind)
-            if stacks is not None:
-                for key, leaf in st.items():
-                    stacks[m][key][i].copy_(leaf)
-            out.append(x)
-        return out, None
+    def _rec(self, ps, h, devs, sts):
+        """RG-LRU over the slots' channels (``models/parallel.py``) ->
+        (h, each slot's new state)."""
+        split = self.layout.rec_split
+        xn = self._norm(h, [p["rec"]["norm_in"] for p in ps], devs)
+        gates, xcs, hists, ras, ris = map(list, zip(*(
+            rg.rglru_in(p["rec"], x, st) for p, x, st in zip(ps, xn, sts))))
+        if split:
+            ras = coll.reduce_scatter(ras, -1, devs)
+            ris = coll.reduce_scatter(ris, -1, devs)
+        outs, hs = map(list, zip(*(
+            rg.rglru_mix(p["rec"], x, *a) for p, x, a in
+            zip(ps, h, zip(gates, xcs, ras, ris, sts)))))
+        if split:
+            outs = coll.all_reduce(outs, devs)
+        return (coll.per_device(torch.add, devs, h, outs),
+                [{"h": a, "conv": b.float()} for a, b in zip(hs, hists)])
 
-    def _apply_block(self, kind, ps, h, positions, devs, states=None,
+    def _mlstm(self, ps, h, devs, sts):
+        """The mLSTM over the slots (``models/parallel.py``): q, k and the
+        gates reduced whole, v onto each slot's piece of ``dv``, the cell
+        on it, its output turned to contiguous columns -> (h, each slot's
+        new state: ``C`` on ``dv``, ``n`` on ``dk``)."""
+        cfg, lay = self.cfg, self.layout
+        heads, m = cfg.n_heads, len(ps)
+        xn = self._norm(h, [p["cell"]["norm_in"] for p in ps], devs)
+        _, qs, ks, vs, gifs = map(list, zip(*(
+            ssm.mlstm_proj(p["cell"], x) for p, x in zip(ps, xn))))
+        b, l = xn[0].shape[:2]
+        du = ssm.UP * cfg.d_model
+        hd = du // heads
+        vs = [v.reshape(b, l, heads, hd) for v in vs]
+        if lay.mlstm_split:
+            qs, ks, gifs = (coll.all_reduce(t, devs) for t in (qs, ks, gifs))
+            vs = (coll.reduce_scatter(vs, 3, devs) if lay.mlstm_cell_split
+                  else coll.all_reduce(vs, devs))
+        dv = vs[0].shape[-1]
+        if sts[0] is None:
+            cells = [ssm.init_mlstm_state(b, heads, hd, dv, device=d)
+                     for d in devs]
+        else:
+            ns = [st["n"] for st in sts]
+            if lay.mlstm_cell_split:
+                ns = coll.all_gather(ns, -1, devs)
+            cells = [{"C": st["C"], "n": n, "m": st["m"]}
+                     for st, n in zip(sts, ns)]
+        outs, new = [], []
+        for k, (p, q, kk, v, g, c) in enumerate(zip(ps, qs, ks, vs, gifs,
+                                                    cells)):
+            g = g + p["cell"]["b_if"]
+            y, c = ssm.mlstm_run(q.reshape(b, l, heads, hd),
+                                 kk.reshape(b, l, heads, hd), v,
+                                 g[..., :heads], g[..., heads:], c,
+                                 cfg.mlstm_chunk)
+            if lay.mlstm_cell_split:
+                c = dict(c, n=c["n"].narrow(-1, k * dv, dv))
+            new.append(c)
+            outs.append(y)
+        if lay.mlstm_cell_split:
+            ys = coll.all_to_all_heads(outs, devs)
+        elif lay.mlstm_split:
+            ys = [y.reshape(b, l, du).narrow(-1, k * du // m, du // m)
+                  for k, y in enumerate(outs)]
+        else:
+            ys = [y.reshape(b, l, du) for y in outs]
+        ys = self._split_norm([y.to(h[0].dtype) for y in ys],
+                              [p["cell"]["norm_h"] for p in ps], devs,
+                              lay.mlstm_split)
+        outs = [ssm.mlstm_out(p["cell"], x, y) for p, x, y in zip(ps, xn, ys)]
+        if lay.mlstm_split:
+            outs = coll.all_reduce(outs, devs)
+        return coll.per_device(torch.add, devs, h, outs), new
+
+    def _slstm(self, ps, h, devs, sts):
+        """The sLSTM over the slots (``models/parallel.py``): the gate
+        pre-activations ``all_gather``ed once, the token scan whole on
+        each device -> (h, each slot's piece of the new state)."""
+        cfg, lay = self.cfg, self.layout
+        d, eps = cfg.d_model, cfg.norm_eps
+        xn = self._norm(h, [p["cell"]["norm_in"] for p in ps], devs)
+        gx = [x @ p["cell"]["w_gates"] + p["cell"]["b_gates"]
+              for x, p in zip(xn, ps)]
+        if lay.slstm_split:
+            gx = coll.all_gather(gx, -1, devs)
+        keys = ("c", "n", "h", "m")
+        if sts[0] is None:
+            st0 = coll.per_device(lambda dv: ssm.init_slstm_state(
+                xn[0].shape[0], d, device=dv), devs, devs)
+        elif lay.slstm_state_split:
+            st0 = [dict(zip(keys, x.unbind(0))) for x in coll.all_gather(
+                [torch.stack([st[k] for k in keys]) for st in sts], -1, devs)]
+        else:
+            st0 = sts
+        ran = coll.per_device(lambda p, g, st: ssm.slstm_scan(
+            p["cell"], cfg.n_heads, g, st), devs, ps, gx, st0)
+
+        def out(p, x, r):
+            y = rms_norm(r[1].to(x.dtype), p["cell"]["norm_h"], eps)
+            return x + y @ p["cell"]["w_out"]
+        if lay.slstm_state_split:
+            dl = d // len(ps)
+            new = [{k: v.narrow(-1, j * dl, dl) for k, v in r[0].items()}
+                   for j, r in enumerate(ran)]
+        else:
+            new = [r[0] for r in ran]
+        return coll.per_device(out, devs, ps, h, ran), new
+
+    def _state_block(self, kind, ps, h, devs, stacks=None, i=None):
+        """One layer of a recurrent kind over one group's slots -> h per
+        slot: from layer ``i``'s state in ``stacks`` (each slot's,
+        written back in place), else from fresh zeros."""
+        sts = ([None] * len(ps) if stacks is None else
+               [tree_map(lambda a: a[i], st) for st in stacks])
+        run = {"rec": self._rec, "mlstm": self._mlstm,
+               "slstm": self._slstm}[kind]
+        h, new = run(ps, h, devs, sts)
+        if kind == "rec":
+            hn = self._norm(h, [p["ln2"] for p in ps], devs)
+            h = coll.per_device(torch.add, devs, h,
+                                self._mlp(ps, hn, devs))
+        if stacks is not None:
+            for st, nw in zip(stacks, new):
+                for key, leaf in nw.items():
+                    st[key][i].copy_(leaf)
+        return h
+
+    def _apply_block(self, kind, ps, h, positions, groups, states=None,
                      i=None, pos=None):
-        """Layer ``i`` of ``kind`` over the group's slots -> (h, aux or
-        None); ``states`` (each slot's decode state) as ``run_group``."""
-        stacks = None if states is None else [s[kind] for s in states]
-        if kind == "attn":
-            return self._attn_block(ps, h, positions, devs, stacks, i, pos)
-        return self._state_block(kind, ps, h, stacks, i)
+        """Layer ``i`` of ``kind`` over the groups in lockstep (per group
+        lists of per-slot weights, activations and positions) -> (h per
+        group, aux or None); ``states`` (per group, each slot's decode
+        state) as ``run_groups``."""
+        stacks = ([None] * len(groups) if states is None
+                  else [[s[kind] for s in st] for st in states])
+        if kind != "attn":
+            return [self._state_block(kind, pg, hg, g.devs, sg, i)
+                    for pg, hg, g, sg in zip(ps, h, groups, stacks)], None
+        h = [self._attn_mix(pg, hg, pp, g.devs, sg, i, pos)
+             for pg, hg, pp, g, sg in zip(ps, h, positions, groups, stacks)]
+        return self._ffn(ps, h, groups)
 
     def _embed(self, trees, devs, tokens, extra_embeds):
         """Token embeddings, after the projected stub embeddings when
@@ -369,35 +520,45 @@ class Model(torch.nn.Module):
             return [one(*a) for a in zip(hn, trees, lay.vocab)]
         return coll.per_device(one, devs, hn, trees, lay.vocab)
 
-    def run_group(self, trees, devs, tokens, extra_embeds=None, states=None,
-                  pos=None):
-        """The model over one group's ``model`` slots (each slot's weight
-        tree and device): a forward without ``states``, a prefill with
-        them (each slot's decode state, filled in place; the last
-        position's logits), or a decode step with them and ``pos`` ->
-        (per-slot logits, aux loss float32)."""
-        h = self._embed(trees, devs, tokens, extra_embeds)
-        l = h[0].shape[1]
-        positions = coll.per_device(lambda d: torch.arange(
-            l, dtype=torch.int32, device=d) if pos is None else torch.full(
-            (1,), pos, dtype=torch.int32, device=d), devs, devs)
-        layers = [{kind: self.layers(t, kind)
-                   for kind in dict.fromkeys(self.cfg.layer_kinds())}
-                  for t in trees]
-        aux_total = torch.zeros((), dtype=torch.float32, device=devs[0])
+    def run_groups(self, groups, tokens, extra_embeds=None, states=None,
+                   pos=None):
+        """The model over ``groups`` in lockstep, layer by layer (each a
+        ``Group``: its ``model`` slots' weight trees and devices, running
+        its ``rows`` of ``tokens`` and ``extra_embeds``): a forward
+        without ``states``, a prefill with them (per group, each slot's
+        decode state, filled in place; the last position's logits), or a
+        decode step with them and ``pos`` -> (per group the per-slot
+        logits, aux loss float32)."""
+        h, positions, layers = [], [], []
+        kinds = dict.fromkeys(self.cfg.layer_kinds())
+        for g in groups:
+            dev = g.devs[0]
+            hg = self._embed(g.trees, g.devs, tokens[g.rows].to(dev),
+                             _rows(extra_embeds, g))
+            l = hg[0].shape[1]
+            positions.append(coll.per_device(lambda d: torch.arange(
+                l, dtype=torch.int32, device=d) if pos is None else
+                torch.full((1,), pos, dtype=torch.int32, device=d),
+                g.devs, g.devs))
+            layers.append([{kind: self.layers(t, kind) for kind in kinds}
+                           for t in g.trees])
+            h.append(hg)
+        aux_total = torch.zeros((), dtype=torch.float32,
+                                device=groups[0].devs[0])
         for kind, i in self._layers():
-            ps = [lt[kind][i] for lt in layers]
+            ps = [[lt[kind][i] for lt in lg] for lg in layers]
             if states is None:
                 h, aux = self._remat(functools.partial(
-                    self._apply_block, kind))(ps, h, positions, devs)
+                    self._apply_block, kind))(ps, h, positions, groups)
             else:
-                h, aux = self._apply_block(kind, ps, h, positions, devs,
+                h, aux = self._apply_block(kind, ps, h, positions, groups,
                                            states, i, pos)
             if aux is not None:
                 aux_total = aux_total + aux
         if states is not None and pos is None:
-            h = [x[:, -1:] for x in h]
-        return self._logits(trees, h, devs), aux_total
+            h = [[x[:, -1:] for x in hg] for hg in h]
+        return ([self._logits(g.trees, hg, g.devs)
+                 for g, hg in zip(groups, h)], aux_total)
 
     def slot_groups(self, params, b: int) -> list:
         """The ``Group``s (``models.parallel``) that run a batch of ``b``
@@ -423,12 +584,13 @@ class Model(torch.nn.Module):
     def forward(self, params, tokens, extra_embeds=None):
         """tokens (B, L) -> (logits (B, L', vocab_p), aux_loss float32),
         L' = L plus the stub tokens of ``extra_embeds``. On a mesh the
-        logits are a ``Sharded`` and the aux loss the groups' mean."""
+        logits are a ``Sharded`` and the aux loss the runs' mean (an MoE
+        model's groups make one run: one aux loss over the batch)."""
         outs, auxs = [], []
-        for g in self.slot_groups(params, tokens.shape[0]):
-            lg, aux = self.run_group(g.trees, g.devs, tokens[g.rows].to(
-                g.devs[0]), _rows(extra_embeds, g))
-            outs.append(lg)
+        groups = self.slot_groups(params, tokens.shape[0])
+        for run in lockstep(self.cfg, groups):
+            lg, aux = self.run_groups(run, tokens, extra_embeds)
+            outs += lg
             auxs.append(aux)
         shape = (tokens.shape[0], outs[0][0].shape[1], self.vocab_p)
         return self._joined(outs, shape), group_mean(auxs)
@@ -456,15 +618,14 @@ class Model(torch.nn.Module):
         logits are a ``Sharded`` and the state holds each slot's own
         (``{"groups": [[slot state, ...], ...]}``)."""
         outs, states = [], []
-        for g in self.slot_groups(params, tokens.shape[0]):
-            toks = tokens[g.rows].to(g.devs[0])
-            st = [self.init_decode_state(toks.shape[0], cache_len, dtype,
-                                         d, dims)
-                  for d, (dims, _) in zip(g.devs, self.layout.attn)]
-            lg, _ = self.run_group(g.trees, g.devs, toks,
-                                   _rows(extra_embeds, g), states=st)
-            outs.append(lg)
-            states.append(st)
+        groups = self.slot_groups(params, tokens.shape[0])
+        for run in lockstep(self.cfg, groups):
+            sts = [[self.init_decode_state(tokens[g.rows].shape[0],
+                                           cache_len, dtype, d, slot=k)
+                    for k, d in enumerate(g.devs)] for g in run]
+            lg, _ = self.run_groups(run, tokens, extra_embeds, states=sts)
+            outs += lg
+            states += sts
         logits = self._joined(outs, (tokens.shape[0], 1, self.vocab_p))
         if self.plan is None:
             return logits, states[0][0]
@@ -475,14 +636,19 @@ class Model(torch.nn.Module):
     # ---------------------------------------------------------------- #
     def init_decode_state(self, batch: int, seq_len: int,
                           dtype=torch.bfloat16, device=None,
-                          dims=None) -> dict:
+                          slot: int = 0) -> dict:
         """Stacked per-layer decode state for every layer kind, on
-        ``device`` (default: the first CUDA device): the KV caches in
-        ``dtype``, zeros, of ``dims`` (default: the model's; a slot's
-        on a mesh); the recurrent states float32, zeros with the
-        stabilisers at -1e30."""
-        cfg, dev = self.cfg, resolve_device(device)
+        ``device`` (default: the first CUDA device; ``"meta"`` for a dry
+        run): the KV caches in ``dtype``, zeros; the recurrent states
+        float32, zeros with the stabilisers at -1e30. On a mesh, model
+        slot ``slot``'s piece of it (its heads' caches; its piece of each
+        state the layout splits, ``models/parallel.decode_state_axes``);
+        off a mesh the whole."""
+        cfg, dev, lay = self.cfg, resolve_device(device), self.layout
         kinds = cfg.layer_kinds()
+
+        def piece(n, split):
+            return n // lay.m if split else n
 
         def stacked(n, st):
             return {k: v[None].repeat(n, *([1] * v.dim()))
@@ -490,30 +656,35 @@ class Model(torch.nn.Module):
         state: dict = {}
         if kinds.count("attn"):
             state["attn"] = attn.init_cache(kinds.count("attn"), batch,
-                                            dims or self.dims, seq_len,
+                                            lay.attn[slot][0], seq_len,
                                             dtype, dev)
         if kinds.count("rec"):
             state["rec"] = stacked(kinds.count("rec"), rg.init_rglru_state(
-                batch, cfg.rg_lru_dim or cfg.d_model, cfg.conv1d_width, dev))
+                batch, piece(cfg.rg_lru_dim or cfg.d_model, lay.rec_split),
+                cfg.conv1d_width, dev))
         if kinds.count("mlstm"):
             hd = ssm.UP * cfg.d_model // cfg.n_heads
-            state["mlstm"] = stacked(kinds.count("mlstm"),
-                                     ssm.init_mlstm_state(batch, cfg.n_heads,
-                                                          hd, hd, dev))
+            dv = piece(hd, lay.mlstm_cell_split)
+            st = ssm.init_mlstm_state(batch, cfg.n_heads, hd, dv, dev)
+            st["n"] = st["n"].new_zeros((batch, cfg.n_heads, dv))
+            state["mlstm"] = stacked(kinds.count("mlstm"), st)
         if kinds.count("slstm"):
             state["slstm"] = stacked(kinds.count("slstm"),
-                                     ssm.init_slstm_state(batch, cfg.d_model,
-                                                          dev))
+                                     ssm.init_slstm_state(
+                                         batch, piece(cfg.d_model,
+                                                      lay.slstm_state_split),
+                                         dev))
         return state
 
     def decode_step(self, params, token, pos: int, state):
         """token (B, 1) int; pos int. Returns (logits (B, 1, V), state),
         every layer's state updated in place."""
+        per = iter([[state]] if self.plan is None else state["groups"])
+        outs = []
         groups = self.slot_groups(params, token.shape[0])
-        per = [[state]] if self.plan is None else state["groups"]
-        outs = [self.run_group(g.trees, g.devs, token[g.rows].to(g.devs[0]),
-                               states=st, pos=pos)[0]
-                for g, st in zip(groups, per)]
+        for run in lockstep(self.cfg, groups):
+            outs += self.run_groups(run, token, pos=pos,
+                                    states=[next(per) for _ in run])[0]
         return self._joined(outs, (token.shape[0], 1, self.vocab_p)), state
 
 

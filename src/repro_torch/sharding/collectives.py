@@ -25,16 +25,23 @@ reads the same per kind from the compiled program of one device: divide
 by the slots of a group to compare. The one process runs a collective
 once per group, so its calls count groups, where an SPMD program counts
 one call for all groups.
+
+``separate_slots()`` makes every slot its own device for these helpers,
+whatever device it names: a dry run's slots all name ``meta``, yet stand
+for one card each, so nothing is shared between them and each holds its
+own copy of a collective's result (``launch/dryrun.py`` counts one
+card's work so).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
 
 __all__ = ["CollectiveCounter", "counter", "all_reduce", "all_gather",
-           "reduce_scatter", "all_to_all", "per_device", "per_piece",
-           "distinct", "over_groups", "KINDS"]
+           "reduce_scatter", "all_to_all", "all_to_all_heads", "per_device",
+           "per_piece", "distinct", "over_groups", "separate_slots", "KINDS"]
 
 KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all")
 
@@ -64,6 +71,24 @@ class CollectiveCounter:
 
 
 counter = CollectiveCounter()
+_separate = [False]
+
+
+@contextlib.contextmanager
+def separate_slots():
+    """Within it, slots that name one device share nothing (see the
+    module docstring)."""
+    before = _separate[0]
+    _separate[0] = True
+    try:
+        yield
+    finally:
+        _separate[0] = before
+
+
+def _key(i: int, d) -> object:
+    """The sharing key of slot ``i`` on device ``d``."""
+    return i if _separate[0] else str(d)
 
 
 def _devices(xs, devices):
@@ -77,10 +102,11 @@ def _fan_out(result: torch.Tensor, devs) -> list:
     """``result`` on each slot's device, one copy per distinct device."""
     per_device: dict = {}
     out = []
-    for d in devs:
-        key = str(d)
+    for i, d in enumerate(devs):
+        key = _key(i, d)
         if key not in per_device:
-            per_device[key] = result.to(d)
+            per_device[key] = (result.clone() if _separate[0]
+                               else result.to(d))
         out.append(per_device[key])
     return out
 
@@ -93,8 +119,8 @@ def per_device(fn, devices, *cols) -> list:
     weight, a collective's result, the device itself."""
     per: dict = {}
     out = []
-    for d, args in zip(devices, zip(*cols)):
-        key = str(d)
+    for i, (d, args) in enumerate(zip(devices, zip(*cols))):
+        key = _key(i, d)
         if key not in per:
             per[key] = fn(*args)
         out.append(per[key])
@@ -104,6 +130,8 @@ def per_device(fn, devices, *cols) -> list:
 def distinct(xs) -> list:
     """The first slot of each distinct tensor object of a per-slot list
     (slots that share storage hold one object), in slot order."""
+    if _separate[0]:
+        return list(range(len(xs)))
     seen: set = set()
     out = []
     for s, x in enumerate(xs):
@@ -121,7 +149,7 @@ def per_piece(fn, xs, keys=None) -> list:
     made: dict = {}
     out = []
     for i, x in enumerate(xs):
-        key = id(x) if keys is None else keys[i]
+        key = i if _separate[0] else id(x) if keys is None else keys[i]
         if key not in made:
             made[key] = fn(x)
         out.append(made[key])
@@ -139,7 +167,8 @@ def over_groups(fn, xs, groups, devices, *args) -> list:
     for grp in groups:
         ins = [xs[s] for s in grp]
         devs = [devices[s] for s in grp]
-        key = tuple(map(id, ins)) + tuple(map(str, devs))
+        key = (tuple(grp) if _separate[0]
+               else tuple(map(id, ins)) + tuple(map(str, devs)))
         if key not in done:
             done[key] = fn(ins, *args, devices=devs)
         for s, o in zip(grp, done[key]):
@@ -213,3 +242,23 @@ def all_to_all(xs, split_dim: int, cat_dim: int, devices=None) -> list:
     return [torch.cat([x.narrow(split_dim, j * step, step).to(d)
                        for x in xs], dim=cat_dim)
             for j, d in enumerate(devs)]
+
+
+def all_to_all_heads(xs, devices=None) -> list:
+    """Head-major pieces to contiguous ones. Slot ``p`` of ``n`` holds
+    (..., H, c): columns ``p*c .. (p+1)*c`` of every head of a whole
+    (..., H, n*c); slot ``q`` gets piece ``q`` of the whole flattened
+    head-major to (..., H*n*c), cut into ``n`` equal contiguous pieces:
+    (..., H*c). Piece ``q`` is the (head, slot) pairs ``s = head*n +
+    slot`` for ``s`` in ``q*H .. (q+1)*H``, in order, whatever ``n`` and
+    ``H`` (an mLSTM split over ``dv`` into the columns its ``norm_h`` and
+    ``w_down`` rows hold)."""
+    devs = _devices(xs, devices)
+    n = len(xs)
+    if n == 1:
+        return [xs[0].flatten(-2).to(devs[0])]
+    counter.add("all-to-all", xs)
+    heads = xs[0].shape[-2]
+    return [torch.cat([xs[s % n][..., s // n, :].to(d)
+                       for s in range(q * heads, (q + 1) * heads)], dim=-1)
+            for q, d in enumerate(devs)]

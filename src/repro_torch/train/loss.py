@@ -1,8 +1,9 @@
 """The causal-LM loss and its microbatched gradients, for every step.
 
 ``make_loss_fn(model)`` is the reference's cross entropy plus the MoE
-aux loss over the model's slot groups (``Model.slot_groups``): off a
-mesh one slot holding the whole logits, on a mesh the logits split over
+aux loss over the model's slot groups (``Model.slot_groups``, an MoE
+model's run together so that one routing spans the batch): off a mesh
+one slot holding the whole logits, on a mesh the logits split over
 the vocabulary per ``model`` slot, in the reference's own form, which
 needs no gather: the row max is an ``all_reduce`` (max), the sum of the
 exponentials an ``all_reduce``, and the label's logit comes from the
@@ -27,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from ..models.parallel import group_mean
+from ..models.parallel import group_mean, lockstep
 from ..sharding import collectives as coll
 
 __all__ = ["make_loss_fn", "batch_loss", "ce_parts", "grad_sums"]
@@ -67,21 +68,20 @@ def ce_parts(model, logits: list, devs, labels):
 
 def batch_loss(model, groups, batch):
     """``batch``'s loss over ``groups`` (``Model.slot_groups``' entries,
-    each running its rows) -> (ce + aux, {"ce", "aux"}) on the first
-    group's first device: the ce the whole batch's mean, the aux the
-    mean of the groups'."""
+    each running its rows; an MoE model's together,
+    ``models.parallel.lockstep``) ->
+    (ce + aux, {"ce", "aux"}) on the first group's first device: the ce
+    the whole batch's mean, the aux the mean of the runs'."""
     nums, cnts, auxs, devs = [], [], [], []
-    extra = batch.get("extra_embeds")
-    for g in groups:
-        dev = g.devs[0]
-        logits, aux = model.run_group(
-            g.trees, g.devs, batch["tokens"][g.rows].to(dev),
-            None if extra is None else extra[g.rows].to(dev))
-        num, cnt = ce_parts(model, logits, g.devs, batch["labels"][g.rows])
-        nums.append(num)
-        cnts.append(cnt)
+    for run in lockstep(model.cfg, groups):
+        logits, aux = model.run_groups(run, batch["tokens"],
+                                       batch.get("extra_embeds"))
+        for g, lg in zip(run, logits):
+            num, cnt = ce_parts(model, lg, g.devs, batch["labels"][g.rows])
+            nums.append(num)
+            cnts.append(cnt)
+            devs.append(g.devs[0])
         auxs.append(aux)
-        devs.append(dev)
     num = coll.all_reduce(nums, devs)[0]
     cnt = coll.all_reduce(cnts, devs)[0]
     ce = -num / torch.clamp(cnt, min=1.0)

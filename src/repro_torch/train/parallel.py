@@ -10,12 +10,17 @@ out over the slots of ``launch/mesh.Mesh`` with ``sharding/collectives``:
     forward (``models/parallel``), accumulating float32 gradients of its
     slots' weight pieces (a weight replicated over the ``model`` slots
     gets the sum of their partial gradients: an ``all_reduce`` where the
-    slots held distinct copies);
+    slots held distinct copies). An MoE model's groups run in lockstep
+    instead (one routing spans the batch): microbatch k is rows
+    k*B/mb .. (k+1)*B/mb of the whole batch, spread over the groups, as
+    the reference cuts it, and each group's slots get their partials of
+    that microbatch's one loss;
   * the gradients are ``reduce_scatter``ed over ``data`` onto the ZeRO-1
     pieces (``optimizer.zero1_shardings``) and divided by the count of
-    microbatches of all groups: their mean, as the single-device step's
-    over ``data x microbatches`` microbatches (an ``all_reduce`` where no
-    dimension divides, and over ``pod`` first);
+    losses summed: the mean, as the single-device step's over
+    ``data x microbatches`` microbatches (for MoE, over ``microbatches``
+    of the whole batch, the reference's), an ``all_reduce`` where no
+    dimension divides, and over ``pod`` first;
   * the clip's global norm is an ``all_reduce`` of each slot's sum of
     squares over the pieces it owns;
   * AdamW updates each piece of ``master``, ``m`` and ``v`` once, on the
@@ -131,6 +136,7 @@ def make_mesh_train_step(model, opt_cfg: AdamWConfig, microbatches: int = 1):
     plan, mesh = model.plan, model.mesh
     pl = train_state_placements(model)
     n_groups = len(plan.groups)
+    lock = model.cfg.moe is not None and n_groups > 1
     data_groups = mesh.groups(("data",))
     pod_groups = mesh.groups(("pod",)) if "pod" in mesh.shape else None
 
@@ -147,25 +153,59 @@ def make_mesh_train_step(model, opt_cfg: AdamWConfig, microbatches: int = 1):
         del grads
         return [tree_map(lambda x: by[id(x)], t) for t in lt], losses, mets
 
+    def lockstep_grads(groups, batch):
+        """An MoE model's groups in lockstep: microbatch k is rows
+        k*B/mb .. (k+1)*B/mb of the whole batch, each group its share of
+        them, through one loss (one routing) -> (per group, the per-slot
+        trees of each group's float32 gradient sums, losses, metrics).
+        Each group's weights are leaves of their own, so each gets its
+        partial of the one loss's gradient."""
+        lts, leaves = [], []
+        for g in groups:
+            lt, lv = leafify(g.trees)
+            lts.append(lt)
+            leaves += lv
+        rows = plan.rows_of(batch["tokens"].shape[0] // microbatches)
+        part = [Group(g.slots, lt, g.devs, r)
+                for g, lt, r in zip(groups, lts, rows)]
+        grads, losses, mets = grad_sums(
+            lambda one: batch_loss(model, part, one), leaves, batch,
+            microbatches)
+        by = {id(x): gr.float() for x, gr in zip(leaves, grads)}
+        del grads
+        return ([[tree_map(lambda x: by[id(x)], t) for t in lt]
+                 for lt in lts], losses, mets)
+
     def train_step(state, batch):
         params, opt = state["params"], state["opt"]
         b = batch["tokens"].shape[0]
-        if b % n_groups:
+        if b % (n_groups * (microbatches if lock else 1)):
             raise ValueError(f"a batch of {b} rows does not divide over "
-                             f"{n_groups} data slots")
+                             f"{n_groups} data slots"
+                             + (f" x {microbatches} microbatches" if lock
+                                else ""))
         grads = [None] * mesh.size
         losses, mets = [], []
-        for g in model.slot_groups(params, b):
-            trees, lo, me = group_grads(g, batch)
-            for s, t in zip(g.slots, trees):
-                grads[s] = t
-            losses += lo
-            mets += me
+        groups = model.slot_groups(params, b)
+        if lock:
+            trees, losses, mets = lockstep_grads(groups, batch)
+        else:
+            trees = []
+            for g in groups:
+                t, lo, me = group_grads(g, batch)
+                trees.append(t)
+                losses += lo
+                mets += me
+        for g, t in zip(groups, trees):
+            for s, x in zip(g.slots, t):
+                grads[s] = x
+        del trees
         grad_leaves = [tree_leaves(g) for g in grads]
         del grads
         p_leaves = tree_leaves(params)
         o_pl = tree_leaves(pl["opt"]["master"])
-        div = torch.tensor(float(n_groups * microbatches),
+        div = torch.tensor(float(microbatches if lock else
+                                 n_groups * microbatches),
                            dtype=torch.float32, device=mesh.devices[0])
         pieces = []          # per param leaf: per-slot gradient piece
         sq = [None] * mesh.size

@@ -78,8 +78,10 @@ def make_train_step(model, opt_cfg: AdamWConfig, microbatches: int = 1,
     On a mesh (``mesh``, or the model's own) the step is data-parallel
     with ZeRO-1 (``train/parallel.make_mesh_train_step``): each data slot
     runs ``microbatches`` of its rows, so it equals the single-device
-    step at ``data x microbatches`` microbatches; the state is placed
-    (``init_train_state`` of a model on the mesh)."""
+    step at ``data x microbatches`` microbatches (an MoE model's data
+    slots run in lockstep over ``microbatches`` of the whole batch, so it
+    equals the single-device step at ``microbatches``); the state is
+    placed (``init_train_state`` of a model on the mesh)."""
     if mesh is not None and mesh is not model.mesh:
         model = type(model)(model.cfg, model.tp, mesh, model.rules)
     if model.plan is not None:

@@ -9,9 +9,9 @@ placed by ``Model.place``:
 
 - ``forward``, ``prefill`` and 3 ``decode_step``s of every attention
   family on ``(data, model)`` meshes, K7's plain version and the chunked
-  path; the MoE archs on one data slot, and their named refusal on more
-  (the reference routes the whole batch at once, ``models/parallel.py``);
-  recurrentgemma and xLSTM data-parallel;
+  path; the MoE archs on one data slot, and on two, where the groups run
+  in lockstep and route the whole batch at once, as the reference does
+  (``models/parallel.py``); recurrentgemma and xLSTM data-parallel;
 - the loss over vocab-split logits and every param's gradient, FSDP
   included; the engine's greedy tokens, and the argmax's ties;
 - 3 ZeRO-1 train steps on ``(2, 2)`` against the single-slot step at
@@ -39,7 +39,6 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.errors import NotPortedError
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.frontend import make_frontend_stub
 from repro_torch.models.parallel import greedy_tokens, leafify
@@ -145,19 +144,30 @@ def test_state_families_run_data_parallel(name):
           one.decode_step(params, tok, 16, ws)[0])
 
 
-@pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b"])
-def test_moe_refuses_more_than_one_data_group(name):
-    """MoE on a mesh of two data groups raises the named error: the
-    reference routes the whole data-sharded batch at once (capacity,
-    ranks and the aux loss from every row), which groups run one after
-    another cannot reproduce; one data group serves and trains."""
-    cfg = get_config(name, smoke=True)
-    with pytest.raises(NotPortedError, match="routes the whole batch"):
-        build(cfg, 2, mesh=make_host_mesh(2, device="cpu", model=2))
-    with pytest.raises(NotPortedError, match="routes the whole batch"):
-        build(cfg, 1, mesh=make_host_mesh(2, device="cpu"))
-    assert build(cfg, 2, mesh=make_host_mesh(
-        1, device="cpu", model=2)).plan.layout.experts_split
+@pytest.mark.parametrize("name,tp", [("qwen2-moe-a2.7b", 2),
+                                     ("phi3.5-moe-42b-a6.6b", 1)])
+def test_moe_runs_on_more_than_one_data_group(name, tp):
+    """MoE on a mesh of two data groups routes the whole batch at once,
+    as the reference does (capacity, ranks and the aux loss from every
+    row; the groups run in lockstep): forward, aux, prefill and 3 decode
+    steps equal one slot's, which routes the same whole batch."""
+    cfg, one, par, params, placed = pair(name, tp, 2)
+    assert len(par.plan.groups) == 2
+    assert par.layout.experts_split == (tp > 1)
+    toks, _ = inputs(cfg)
+    got, aux = par.forward(placed, toks)
+    want, want_aux = one.forward(params, toks)
+    close(unshard(got), want, vocab=cfg.vocab_size)
+    close(aux, want_aux)
+    want, ws = one.prefill(params, toks, 32, dtype=torch.float32)
+    got, gs = par.prefill(placed, toks, 32, dtype=torch.float32)
+    close(unshard(got), want, vocab=cfg.vocab_size)
+    for step in range(3):
+        tok = want[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+        assert torch.equal(greedy_tokens(got), tok[:, 0])
+        want, ws = one.decode_step(params, tok, toks.shape[1] + step, ws)
+        got, gs = par.decode_step(placed, tok, toks.shape[1] + step, gs)
+        close(unshard(got), want, vocab=cfg.vocab_size)
 
 
 def test_greedy_breaks_ties_to_the_lower_index():

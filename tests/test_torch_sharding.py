@@ -45,7 +45,6 @@ from repro.sharding import rules as ref_rules
 from repro.train.optimizer import zero1_shardings as ref_zero1
 from repro_torch.configs import get_config
 from repro_torch.data.synth import make_join_dataset
-from repro_torch.errors import NotPortedError
 from repro_torch.launch.mesh import (Mesh, make_host_mesh,
                                      make_production_mesh)
 from repro_torch.models import attention as port_attn
@@ -383,14 +382,17 @@ def test_counter_hand_count_for_one_layer():
 # ---------------------------------------------------------------------- #
 # named errors
 # ---------------------------------------------------------------------- #
-def test_mesh_builds_refuse_what_is_not_ported():
+def test_mesh_builds_split_state_layers_and_refuse_bad_meshes():
     mesh = make_host_mesh(1, device="cpu", model=2)
     with pytest.raises(ValueError, match="tp must equal"):
         build(get_config("qwen2-1.5b", smoke=True), 4, mesh=mesh)
-    for name in ("recurrentgemma-2b", "xlstm-350m"):
-        with pytest.raises(NotPortedError, match="ROADMAP"):
-            build(get_config(name, smoke=True), 2, mesh=mesh)
-        # one model slot: they run, data-parallel
+    for name, splits in (("recurrentgemma-2b", ("rec_split", "mlp_split")),
+                         ("xlstm-350m", ("mlstm_split", "mlstm_cell_split",
+                                         "slstm_split", "slstm_state_split"))):
+        # two model slots: the 'state' weights and decode state split
+        lay = build(get_config(name, smoke=True), 2, mesh=mesh).layout
+        assert lay.m == 2 and all(getattr(lay, k) for k in splits), lay
+        # one model slot: they run whole, data-parallel
         one = build(get_config(name, smoke=True), 1,
                     mesh=make_host_mesh(2, device="cpu"))
         assert one.layout == SlotLayout.whole(one)
