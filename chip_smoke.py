@@ -33,10 +33,7 @@ through these phases, in order; any failure raises and exits non-zero:
      with ``lfvt``; one managed run per
      measure under a seeded ``MR_FAULT_PLANS`` plan, whose pairs and
      resilience counters must equal the CPU's and whose only
-     degradations may be the injected ones. Meanwhile one MR join runs in
-     a child process on the card with a checkpoint directory and is
-     killed (SIGKILL) at its 2nd checkpoint write; a second child
-     resumes it and must give the uninterrupted run's pairs. The
+     degradations may be the injected ones. The
      multi-device path (``mesh=make_host_mesh(4)``, 4 slots on the card)
      runs ``lfvt`` on dblp under both schedules and both emits and the
      stacked ``popcount`` and ``kernel_onehot`` reduces on kosarak with
@@ -86,7 +83,17 @@ through these phases, in order; any failure raises and exits non-zero:
      ``"static"`` (K1 as often), with ``n_buckets``, pad waste and live
      tiles, and the stacked ``popcount`` reduce with ``emit="pairs"``
      (K3 per shard; the host's globally padded shard packing timed
-     apart), each equal to the lfvt join's pairs;
+     apart), each equal to the lfvt join's pairs; then the managed paths
+     (``managed_phase``, ``checkpoint_dir=`` under ``build/managed``,
+     the guardrail's budget resolved from the card): the single-device
+     ``lfvt`` call, the 8-shard loop call and the 8-slot mesh call under
+     ``"planned"``, each with no split and no degradation, the lfvt
+     join's pairs and the unmanaged calls' launches and walk counters;
+     the loop call again with the budget pinned to cut every shard into
+     2-4 spans (each shard's S encoded once); meanwhile the loop call
+     runs in a child process on the livej sets saved under
+     ``build/managed``, is killed (SIGKILL) at its 2nd checkpoint write,
+     and a second child resumes it: the same pairs, a task resumed;
   5. serve phase: ``repro_torch.DedupServeEngine`` on the card, with the
      livej S side (100 000 sets) as its corpus, at t = 0.8. Stream A:
      4 096 requests (half exact copies of corpus sets, half livej R
@@ -232,7 +239,7 @@ through these phases, in order; any failure raises and exits non-zero:
   8. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Exits 2 without a result when torch sees no CUDA device. ``python3
-chip_smoke.py --mr-child kill|resume DIR`` and ``--train-child
+chip_smoke.py --mr-child kill|resume DIR SETS`` and ``--train-child
 kill|full|resume DIR`` are the kill-and-resume checks' children, not
 smoke runs.
 """
@@ -314,9 +321,14 @@ MR_COUNTERS = ("result_pairs", "regrows", "live_tiles", "total_tiles",
                "walk_steps", "early_stops", "reduce_bytes", "shard_methods",
                "retries", "degradations", "faults_injected",
                "guardrail_splits", "tasks_resumed")
-# the kill-and-resume child: its join is the measures phase's first MR
-# config, killed at its 2nd checkpoint write
+# the kill-and-resume child: the livej MR loop call (lfvt, MR_SHARDS
+# shards) on the sets the parent saved, killed at its 2nd checkpoint write
 MR_KILL_PLAN = "checkpoint_write:kill:2"
+# the managed phase (after the mesh phase): its checkpoints and the saved
+# livej sets under build/MANAGED_DIR; the forced-split loop call pins a
+# budget that cuts every shard into MANAGED_SPLIT_SPANS (least, most) spans
+MANAGED_DIR = "managed"
+MANAGED_SPLIT_SPANS = (2, 4)
 # the multi-device path (mesh=) in the measures phase, on
 # MR_MEASURE_SHARDS slots of the one card: (dataset, method, measure,
 # schedule, emit), each against the card's loop-path MR call of the same
@@ -689,18 +701,62 @@ def cpu_mr_join(cfg):
     return out, time.perf_counter() - t0
 
 
-def mr_child(phase: str, ckpt: str) -> int:
-    """The kill-and-resume check's child process, on the card: the first
-    MR config with ``checkpoint_dir=ckpt``; ``phase`` 'kill' arms
-    MR_KILL_PLAN (the process dies at its 2nd checkpoint write), 'resume'
-    prints the pair digest and the tasks it resumed as JSON."""
-    cfg = mr_configs()[0]
-    plan = MR_KILL_PLAN if phase == "kill" else None
-    digest, st = mr_join(*measures_data(cfg[0]), cfg[:6] + (plan,),
-                         checkpoint_dir=ckpt)
-    print(json.dumps({"digest": digest, "tasks_resumed":
-                      st["tasks_resumed"]}))
+def save_sets(path, **colls) -> None:
+    """Collections -> one ``.npz`` (per name: the elements end to end,
+    their offsets, the ids, the universe and the size-sorted flag), so
+    that a child process reads them instead of making them again."""
+    arrays = {}
+    for name, C in colls.items():
+        arrays[f"{name}_elements"] = np.concatenate(C.sets)
+        arrays[f"{name}_offsets"] = np.cumsum(C.sizes(), dtype=np.int64)
+        arrays[f"{name}_ids"] = C.ids
+        arrays[f"{name}_meta"] = np.array([C.universe, C.sorted_by_size])
+    np.savez(path, **arrays)
+
+
+def load_sets(path, *names) -> list:
+    """``save_sets``' collections back, in the order of ``names``."""
+    from repro_torch.core.sets import SetCollection
+    out = []
+    with np.load(path) as z:
+        for name in names:
+            universe, srt = (int(x) for x in z[f"{name}_meta"])
+            out.append(SetCollection(
+                np.split(z[f"{name}_elements"], z[f"{name}_offsets"][:-1]),
+                universe, z[f"{name}_ids"], sorted_by_size=bool(srt)))
+    return out
+
+
+def mr_child(phase: str, ckpt: str, data: str) -> int:
+    """The kill-and-resume check's child process, on the card: the livej
+    MR loop call (``lfvt``, MR_SHARDS load-aware shards, t = MAIN_T) on
+    the sets saved at ``data``, with ``checkpoint_dir=ckpt``; ``phase``
+    'kill' arms MR_KILL_PLAN (the process dies at its 2nd checkpoint
+    write), 'resume' prints the pair digest, the tasks it resumed, its
+    guardrail splits and its wall as JSON."""
+    import repro_torch
+    R, Ss = load_sets(data, "r", "s")
+    st: dict = {}
+    t0 = time.perf_counter()
+    out = repro_torch.join(
+        R, Ss, MAIN_T, n_shards=MR_SHARDS, method="lfvt", stats=st,
+        checkpoint_dir=ckpt,
+        fault_plan=MR_KILL_PLAN if phase == "kill" else None)
+    pr = np.array(sorted(out.pairs), np.int64).reshape(-1, 2)
+    print(json.dumps({"digest": pair_digest(pr[:, 0], pr[:, 1]),
+                      "tasks_resumed": st["tasks_resumed"],
+                      "guardrail_splits": st["guardrail_splits"],
+                      "wall_s": time.perf_counter() - t0}))
     return 0
+
+
+def mr_child_proc(phase: str, ckpt, data) -> subprocess.Popen:
+    """Start one ``mr_child`` in the background."""
+    return subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--mr-child", phase,
+         str(ckpt), str(data)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, REPRO_FAULT=""))
 
 
 def wrappers() -> dict:
@@ -3530,41 +3586,6 @@ def mesh_measures(cfgs, loop_out) -> None:
         f"s={time.perf_counter() - t0:.3f}")
 
 
-def kill_and_resume(want) -> None:
-    """Run the first MR config in a child process on the card, killed
-    (SIGKILL) at its 2nd checkpoint write, then resume it in a second
-    child: the resumed pairs must equal ``want`` (the card's
-    uninterrupted run) with at least one task resumed."""
-    import shutil
-    ckpt = ROOT / "build" / "mr_kill_ckpt"
-    shutil.rmtree(ckpt, ignore_errors=True)
-    t0 = time.perf_counter()
-
-    def child(phase):
-        return subprocess.run(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--mr-child", phase,
-             str(ckpt)], capture_output=True, text=True, timeout=300,
-            env=dict(os.environ, REPRO_FAULT=""))
-
-    out = child("kill")
-    if out.returncode != -9:
-        raise AssertionError(f"the killed child exited {out.returncode}: "
-                             f"{out.stderr[-2000:]}")
-    saved = sorted(p.name for p in ckpt.glob("task_*.npz"))
-    out = child("resume")
-    if out.returncode != 0:
-        raise AssertionError(f"the resumed child failed: "
-                             f"{out.stderr[-2000:]}")
-    got = json.loads(out.stdout.strip().splitlines()[-1])
-    if tuple(got["digest"]) != tuple(want) or got["tasks_resumed"] < 1:
-        raise AssertionError(f"kill and resume: {got} vs {want}")
-    shutil.rmtree(ckpt, ignore_errors=True)
-    log(f"[measures mr] kill and resume on the card: killed with "
-        f"{len(saved)} task(s) saved, resumed {got['tasks_resumed']}, "
-        f"pairs={got['digest'][0]} (== uninterrupted) "
-        f"s={time.perf_counter() - t0:.3f}")
-
-
 def mr_live_shards(R, S, t) -> int:
     """Shards of the full-size MR join with a row whose window holds a
     column: each launches K1 once (``method='lfvt'``), K2 at least once
@@ -3826,9 +3847,188 @@ def mesh_phase(R, Ss, want, runs, loop, dev) -> str:
     return mesh_shard_check(R, Ss, s_rows, r_rows, want, dev)
 
 
+def child_result(proc, label: str) -> dict:
+    """Wait for an ``mr_child`` that must run to its end -> its JSON."""
+    out, err = child_output(proc)
+    if proc.returncode != 0:
+        raise AssertionError(f"the {label} MR child exited "
+                             f"{proc.returncode}: {err[-2000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def managed_phase(R, Ss, want, runs, device_stats, loop, dev) -> None:
+    """The fault-tolerant drivers (``checkpoint_dir=``) at livej scale,
+    the guardrail's budget resolved from the card: the single-device
+    ``lfvt`` call (K1 as often as the unmanaged call, ``device_stats``,
+    whose walk counters it must equal), the MR loop call (K1 once per
+    shard with a live row; pairs, walk counters and bytes equal to
+    ``loop``, the unmanaged call's stats) and the mesh call under
+    ``"planned"`` (K6 once per shard with rows, no guardrail
+    degradation, walk counters equal to ``loop``), each with no split,
+    no degradation and ``want``'s pairs; then the loop call again with
+    the budget pinned to cut every shard into MANAGED_SPLIT_SPANS spans
+    (each shard's S encoded once, ``want``'s pairs). Meanwhile a child
+    process runs the loop call, killed at its 2nd checkpoint write, and
+    a second child resumes it: ``want``'s pairs, a task resumed."""
+    import shutil
+    import repro_torch
+    from repro_torch import global_config
+    from repro_torch.core import lfvt_flat
+    from repro_torch.core.config import resolve_guardrail_budget
+    from repro_torch.core.partition import load_aware_partition, route
+    base = ROOT / "build" / MANAGED_DIR
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    t0 = time.perf_counter()
+    data = base / "livej.npz"
+    save_sets(data, r=R, s=Ss)
+    kill_dir = base / "kill"
+    children = {"kill": mr_child_proc("kill", kill_dir, data)}
+    try:
+        log(f"[managed] livej sets saved for the kill-and-resume children: "
+            f"bytes={data.stat().st_size} s={time.perf_counter() - t0:.3f}; "
+            f"guardrail budget={resolve_guardrail_budget(dev)} B (total"
+            f"_memory={torch.cuda.get_device_properties(dev).total_memory} "
+            f"B, guardrail_budget={global_config.guardrail_budget})")
+        part = load_aware_partition(R, Ss, MAIN_T, MR_SHARDS)
+        s_rows, r_rows, _ = route(R, Ss, part)
+        walked = [k for k in range(MR_SHARDS)
+                  if len(r_rows[k]) and len(s_rows[k])]
+        live = mr_live_shards(R, Ss, MAIN_T)
+        want_digest = pair_digest(*np.array(sorted(want), np.int64)
+                                  .reshape(-1, 2).T)
+
+        def call(label, **kw):
+            st: dict = {}
+            ckpt = base / label
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            out, launches = counted(lambda: repro_torch.join(
+                R, Ss, MAIN_T, stats=st, checkpoint_dir=str(ckpt), **kw))
+            wall = time.perf_counter() - t1
+            tasks = len(list(ckpt.glob("task_*.npz")))
+            if out.pairs != want:
+                raise AssertionError(f"managed {label}: {len(out.pairs)} "
+                                     f"pairs, the single-device join "
+                                     f"{len(want)}")
+            log(f"[managed {label}] pairs={len(out.pairs)} (== single-"
+                f"device) wall_s={wall:.3f} max_memory_allocated="
+                f"{torch.cuda.max_memory_allocated()} guardrail_splits="
+                f"{st['guardrail_splits']} degradations="
+                f"{json.dumps(st['degradations'])} retries={st['retries']} "
+                f"tasks={tasks} tasks_resumed={st['tasks_resumed']} "
+                f"live_tiles={st.get('live_tiles')}/"
+                f"{st.get('total_tiles')} walk_steps={st.get('walk_steps')} "
+                f"early_stops="
+                f"{st.get('early_stops')} launches={launches}")
+            runs[f"managed_{label}"] = launches
+            return launches, st, tasks
+
+        def same(label, st, want_st, keys):
+            diff = {k: (st[k], want_st[k]) for k in keys
+                    if st[k] != want_st[k]}
+            if diff:
+                raise AssertionError(f"managed {label} (managed, "
+                                     f"unmanaged): {diff}")
+
+        def clean(label, st):
+            if (st["guardrail_splits"] or st["degradations"]
+                    or st["retries"]):
+                raise AssertionError(f"managed {label}: splits "
+                                     f"{st['guardrail_splits']}, "
+                                     f"degradations {st['degradations']}, "
+                                     f"retries {st['retries']}")
+
+        got, st, tasks = call("device", method="lfvt")
+        clean("device", st)
+        blocks = device_stats["r_blocks"]
+        if got["K1"] != runs["lfvt"]["K1"] or tasks != blocks:
+            raise AssertionError(f"managed device: K1 {got['K1']} times, "
+                                 f"{tasks} tasks; the unmanaged call "
+                                 f"{runs['lfvt']['K1']}, {blocks} blocks")
+        same("device", st, device_stats, ("walk_steps", "early_stops",
+                                          "live_tiles", "total_tiles"))
+        got, st, tasks = call("loop", n_shards=MR_SHARDS, method="lfvt")
+        clean("loop", st)
+        if got["K1"] != live or tasks != len(walked):
+            raise AssertionError(f"managed loop: K1 {got['K1']} times, "
+                                 f"{tasks} tasks; {live} live shards, "
+                                 f"{len(walked)} with rows")
+        same("loop", st, loop, ("result_pairs", "walk_steps", "early_stops",
+                                "live_tiles", "total_tiles",
+                                "shard_block_bytes", "reduce_bytes"))
+
+        killed = children["kill"]
+        _, err = child_output(killed)
+        if killed.returncode != -signal.SIGKILL:
+            raise AssertionError(f"the killed MR child exited "
+                                 f"{killed.returncode}: {err[-2000:]}")
+        saved = len(list(kill_dir.glob("task_*.npz")))
+        children["resume"] = mr_child_proc("resume", kill_dir, data)
+
+        got, st, tasks = call(
+            "mesh", mesh=repro_torch.make_host_mesh(MR_SHARDS),
+            method="lfvt", schedule="planned")
+        clean("mesh", st)
+        if got["K6"] != len(walked) or got["K1"]:
+            raise AssertionError(f"managed mesh launched K6 {got['K6']} and "
+                                 f"K1 {got['K1']} times for {len(walked)} "
+                                 "shards with rows")
+        same("mesh", st, loop, ("walk_steps", "early_stops", "live_tiles"))
+
+        # the loop call with every shard cut into spans: each shard's S is
+        # encoded once, not once a span
+        est = {k: len(r_rows[k]) * len(s_rows[k]) * 4 for k in walked}
+        least, most = MANAGED_SPLIT_SPANS
+        forced = -(-max(est.values()) // most)
+        spans = {k: min(len(r_rows[k]), -(-e // forced))
+                 for k, e in est.items()}
+        if not all(least <= n <= most for n in spans.values()):
+            raise AssertionError(f"a budget of {forced} B cuts the shards "
+                                 f"into {spans} spans, not {least}-{most}")
+        encodes, encode = [], lfvt_flat.encode
+        pinned = global_config.guardrail_budget
+
+        def counting(*args, **kw):
+            encodes.append(1)
+            return encode(*args, **kw)
+
+        lfvt_flat.encode, global_config.guardrail_budget = counting, forced
+        try:
+            got, st, tasks = call("split", n_shards=MR_SHARDS, method="lfvt")
+        finally:
+            lfvt_flat.encode, global_config.guardrail_budget = encode, pinned
+        if (st["guardrail_splits"] != sum(spans.values()) - len(spans)
+                or tasks != sum(spans.values()) or st["degradations"]
+                or len(encodes) != len(walked) or got["K1"] < live):
+            raise AssertionError(f"managed split at {forced} B: splits "
+                                 f"{st['guardrail_splits']}, tasks {tasks}, "
+                                 f"encodes {len(encodes)}, K1 {got['K1']}; "
+                                 f"spans {spans}")
+        log(f"[managed split] budget={forced} B spans_per_shard="
+            f"{json.dumps(spans)} encodes={len(encodes)} (one per shard with "
+            f"rows, {len(walked)})")
+
+        resumed = child_result(children["resume"], "resumed")
+        if (tuple(resumed["digest"]) != tuple(want_digest)
+                or resumed["tasks_resumed"] < 1):
+            raise AssertionError(f"kill and resume: {resumed} vs "
+                                 f"{want_digest}")
+        log(f"[managed kill] livej MR loop call killed at its 2nd "
+            f"checkpoint write with {saved} task(s) saved, resumed "
+            f"{resumed['tasks_resumed']}, guardrail_splits="
+            f"{resumed['guardrail_splits']}, pairs={resumed['digest'][0]} "
+            f"(== single-device) resume_wall_s={resumed['wall_s']:.3f}")
+    finally:
+        for proc in children.values():   # none outlives the phase
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--mr-child"]:
-        return mr_child(*sys.argv[2:4])
+        return mr_child(*sys.argv[2:5])
     if sys.argv[1:2] == ["--train-child"]:
         return train_child(*sys.argv[2:4])
     if not torch.cuda.is_available():
@@ -3900,7 +4100,6 @@ def main() -> int:
         cuda_out, fronts, sizes = measures_cuda(configs)
         mr_out = mr_measures_cuda(mr_cfgs)
         mesh_measures(mr_cfgs, mr_out)
-        kill_and_resume(mr_out[0][0])
         # phase 6b's untimed half runs on the card while the CPU workers
         # finish: the training checks and the kill-and-resume children
         train_side_checks(dev)
@@ -4034,6 +4233,9 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh_note = mesh_phase(R, Ss, res.pairs, runs, loop_stats, dev)
     log(f"[mesh] phase_s={time.perf_counter() - t0:.3f}")
+    t0 = time.perf_counter()
+    managed_phase(R, Ss, res.pairs, runs, st, loop_stats, dev)
+    log(f"[managed] phase_s={time.perf_counter() - t0:.3f}")
 
     # ---- phase 5: the dedup service on the livej corpus -------------- #
     t0 = time.perf_counter()

@@ -10,7 +10,14 @@ from __future__ import annotations
 
 import os
 
-__all__ = ["ConfigError", "GlobalConfig", "global_config"]
+__all__ = ["ConfigError", "GlobalConfig", "global_config",
+           "GUARDRAIL_SHARE", "resolve_guardrail_budget"]
+
+#: the share of a device's total memory that the guardrail's estimate
+#: (4 B a dense cell) may reach before a task is split. The port's real
+#: working set a cell is the bool mask (1 B) plus the pair buffer, so half
+#: keeps the masks near an eighth of the card
+GUARDRAIL_SHARE = 0.5
 
 
 class ConfigError(ValueError):
@@ -63,12 +70,14 @@ class GlobalConfig:
         # inputs legally produce empty results)
         self.strict_validation = False
         # pre-dispatch memory guardrail: split a task whose estimated
-        # dense (rows, cols) int32 working set exceeds guardrail_budget
-        # bytes (resilience path only). The budget is the reference's
-        # vmem_budget (a TPU core's 16 MiB), kept so that task ids and
-        # guardrail_splits equal the reference's
+        # dense (rows, cols) int32 working set exceeds the budget
+        # (resilience path only). None: GUARDRAIL_SHARE of the total
+        # memory of the device the task runs on, resolved at each call
+        # (resolve_guardrail_budget); an int pins it in bytes. The
+        # reference's counterpart is vmem_budget: at equal budgets the
+        # task ids and guardrail_splits are the reference's
         self.memory_guardrail = True
-        self.guardrail_budget = 16 * 2 ** 20
+        self.guardrail_budget = None
         # fault-injection plan ("site:kind[:count];..."; REPRO_FAULT) and
         # the seed for its deterministic corruptions
         self.fault = ""
@@ -103,7 +112,9 @@ class GlobalConfig:
             if raw is None:
                 continue
             try:
-                if isinstance(cur, bool):
+                if cur is None:     # an unset byte count (guardrail_budget)
+                    setattr(self, name, int(raw))
+                elif isinstance(cur, bool):
                     setattr(self, name,
                             raw.lower() in ("1", "true", "yes", "on"))
                 elif isinstance(cur, float):
@@ -113,10 +124,37 @@ class GlobalConfig:
                 else:
                     setattr(self, name, raw)
             except ValueError as e:
+                kind = "int" if cur is None else type(cur).__name__
                 raise ConfigError(
                     f"{prefix + name.upper()}={raw!r} is not a valid "
-                    f"{type(cur).__name__} for config field {name!r} "
+                    f"{kind} for config field {name!r} "
                     f"(default {cur!r})") from e
+
+    def snapshot(self) -> dict:
+        """Plain-dict view (bench metadata / test save-restore)."""
+        return dict(vars(self))
+
+    def restore(self, snap: dict) -> None:
+        vars(self).update(snap)
 
 
 global_config = GlobalConfig()
+
+
+def resolve_guardrail_budget(device) -> int:
+    """The guardrail's budget in bytes for a task on ``device``:
+    ``global_config.guardrail_budget`` when set, else GUARDRAIL_SHARE of
+    the device's total memory (a CUDA device's, the host's physical
+    memory for any other). The total, not the free memory: a task's id
+    carries its row span, so every process on one machine must cut a
+    task the same way for a resumed run to find its checkpoints."""
+    pinned = global_config.guardrail_budget
+    if pinned is not None:
+        return int(pinned)
+    import torch  # deferred: the config module stays a leaf
+    device = torch.device(device)
+    if device.type == "cuda":
+        total = torch.cuda.get_device_properties(device).total_memory
+    else:
+        total = os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+    return int(total * GUARDRAIL_SHARE)

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from ..launch.mesh import Mesh, check_mesh, join_axis
-from .config import global_config
+from .config import global_config, resolve_guardrail_budget
 from .device import resolve_device, upload
 from .measures import get_measure
 from .partition import Partitioning, hash_partition, load_aware_partition, route
@@ -450,15 +450,15 @@ def _sub_collection(C: SetCollection, rows) -> SetCollection:
                          C.ids[rows].astype(np.int32))
 
 
-def _guardrail_spans(rows, n_cols: int, res) -> list:
+def _guardrail_spans(rows, n_cols: int, res, device) -> list:
     """Pre-dispatch memory guardrail: split a shard's R rows so the
-    estimated dense (|rows|, n_cols) int32 working set fits
-    ``global_config.guardrail_budget``. Active only on the resilience
-    path."""
+    estimated dense (|rows|, n_cols) int32 working set fits the budget
+    for ``device`` (``resolve_guardrail_budget``). Active only on the
+    resilience path."""
     if res is None or not global_config.memory_guardrail or not len(rows):
         return [rows]
     est = len(rows) * n_cols * 4
-    budget = int(global_config.guardrail_budget)
+    budget = resolve_guardrail_budget(device)
     if est <= budget:
         return [rows]
     chunks = min(len(rows), -(-est // budget))
@@ -513,8 +513,11 @@ def _lfvt_loop_join(R: SetCollection, S: SetCollection, t: float, part,
                 "walk_vmem": 0}
 
     acc = zero_acc()
+    # shard -> its S as a FlatLFVT: encoded once per call, so the spans of
+    # a guardrail-split shard (and a retried rung) walk one table
+    flats: dict = {}
 
-    def dispatch(rs, ss, acc: dict, use_impl: str) -> dict | None:
+    def dispatch(k: int, rs, ss, acc: dict, use_impl: str) -> dict | None:
         if not len(rs) or not len(ss):
             return None
         if use_impl == "popcount":
@@ -534,9 +537,11 @@ def _lfvt_loop_join(R: SetCollection, S: SetCollection, t: float, part,
                 _words(r_bm, device), sz, _words(s_bm, device), s_sz, lo,
                 hi, t, method="popcount", measure=measure)
             return {"rs": rs, "mask": mask, "sids": S.ids[ss]}
-        sub = SetCollection([S.sets[int(j)] for j in ss], S.universe,
-                            S.ids[ss].astype(np.int32))
-        flat = checked_flat(sub.flat_lfvt())
+        if k not in flats:
+            flats[k] = SetCollection(
+                [S.sets[int(j)] for j in ss], S.universe,
+                S.ids[ss].astype(np.int32)).flat_lfvt()
+        flat = checked_flat(flats[k])
         r_pad, sz = r_pad_all[rs], r_sizes[rs]
         lo, hi = window_bounds(sz, flat.s_sizes, t, measure)
         # map-output bytes: the serialized flat arrays + the shard's R rows
@@ -605,7 +610,8 @@ def _lfvt_loop_join(R: SetCollection, S: SetCollection, t: float, part,
     if res is None:
         in_flight: dict | None = None
         for k in range(part.n_shards):
-            ctx = dispatch(r_rows[k], s_rows[k], acc, _impl_of(kinds[k]))
+            ctx = dispatch(k, r_rows[k], s_rows[k], acc, _impl_of(kinds[k]))
+            flats.pop(k, None)  # the in-flight context holds its table
             if in_flight is not None:
                 finalize(in_flight, acc, pairs)
                 in_flight = None
@@ -619,9 +625,9 @@ def _lfvt_loop_join(R: SetCollection, S: SetCollection, t: float, part,
         # oversized shards are guardrail-split before dispatch
         from .join import brute_force_join  # deferred: the oracle rung
 
-        def run_impl(use_impl: str, rs, ss):
+        def run_impl(use_impl: str, k: int, rs, ss):
             sub_acc, sub_pairs = zero_acc(), set()
-            ctx = dispatch(rs, ss, sub_acc, use_impl)
+            ctx = dispatch(k, rs, ss, sub_acc, use_impl)
             if ctx is not None:
                 finalize(ctx, sub_acc, sub_pairs)
             return sorted_pairs(sub_pairs), sub_acc
@@ -641,7 +647,7 @@ def _lfvt_loop_join(R: SetCollection, S: SetCollection, t: float, part,
             if not len(rs) or not len(ss):
                 continue
             use = _impl_of(kinds[k])
-            spans = _guardrail_spans(rs, len(ss), res)
+            spans = _guardrail_spans(rs, len(ss), res, device)
             for si, sub_rs in enumerate(spans):
                 if kinds[k] is not None:
                     tid = f"auto_loop/{kinds[k]}/{emit}/{measure}/shard={k}"
@@ -651,20 +657,22 @@ def _lfvt_loop_join(R: SetCollection, S: SetCollection, t: float, part,
                     tid += f"/span={si}"
                 if use == "popcount":
                     rungs = [("popcount",
-                              functools.partial(run_impl, "popcount",
+                              functools.partial(run_impl, "popcount", k,
                                                 sub_rs, ss))]
                 else:
                     rungs = [("lfvt" if use == "kernel" else "lfvt_ref",
-                              functools.partial(run_impl, use, sub_rs, ss))]
+                              functools.partial(run_impl, use, k, sub_rs,
+                                                ss))]
                     if use == "kernel":
                         rungs.append(("lfvt_ref",
-                                      functools.partial(run_impl, "ref",
+                                      functools.partial(run_impl, "ref", k,
                                                         sub_rs, ss)))
                 rungs.append(("oracle",
                               functools.partial(oracle, sub_rs, ss)))
                 got, delta = res.run(tid, rungs)
                 pairs.update((int(a), int(b)) for a, b in got)
                 _fold_delta(acc, delta)
+            flats.pop(k, None)
 
     n_result = acc["result"] if emit == "pairs" else len(pairs)
     if stats is not None:
@@ -835,8 +843,8 @@ def _lfvt_mesh_join(R: SetCollection, S: SetCollection, t: float, part,
 
     With ``res`` each bucket is a task of the ladder mesh -> loop (the
     whole-block walk, shard by shard on ``device``) -> host oracle; a
-    bucket whose dense masks would pass ``guardrail_budget`` starts at
-    the loop rung.
+    bucket whose dense masks would pass the guardrail's budget
+    (``resolve_guardrail_budget``) starts at the loop rung.
     """
     from ..kernels import lfvt_walk as _lw  # deferred: kernels import core
 
@@ -1041,8 +1049,8 @@ def _lfvt_mesh_join(R: SetCollection, S: SetCollection, t: float, part,
 
         rungs = [("mesh", mesh_rung)]
         mp, np_ = caps[0], caps[1]
-        if (global_config.memory_guardrail
-                and K * mp * np_ * 4 > int(global_config.guardrail_budget)):
+        if (global_config.memory_guardrail and K * mp * np_ * 4
+                > resolve_guardrail_budget(mesh.devices[0])):
             res.degradations.append(f"{tid}:mesh->loop(guardrail)")
             rungs = []
         rungs += [("loop", loop_rung), ("oracle", oracle_rung)]

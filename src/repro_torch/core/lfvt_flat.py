@@ -280,6 +280,11 @@ class FlatLFVT:
             self._device[key] = dev
         return dev
 
+    def drop_uploads(self) -> None:
+        """Forget every device's upload; the next ``to_device`` copies
+        the arrays again."""
+        self._device.clear()
+
 
 # ---------------------------------------------------------------------- #
 # encoder

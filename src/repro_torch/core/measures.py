@@ -129,6 +129,10 @@ class Measure:
         lhs, rhs = self._cross(int(f), int(r_size), int(s_size), p, q)
         return lhs >= rhs
 
+    def min_overlap(self, r_size: int, s_size: int, t: float) -> int:
+        """Smallest integer f with ``qualifies(f, r_size, s_size, t)``."""
+        raise NotImplementedError
+
     # ------------------------------------------------------------------ #
     # (b) per-measure size window (Lemma 3.1 generalized)
     # ------------------------------------------------------------------ #
@@ -205,6 +209,10 @@ class Jaccard(Measure):
     def _cross(self, f, r, s, p, q):
         return f * (p + q), p * (r + s)
 
+    def min_overlap(self, r_size, s_size, t):
+        p, q = threshold_fraction(t)
+        return max(1, _cdiv(p * (r_size + s_size), p + q))
+
     def size_window(self, r_size, t):
         p, q = threshold_fraction(t)
         return _cdiv(p * r_size, q), (q * r_size) // p
@@ -224,6 +232,11 @@ class Cosine(Measure):
 
     def _cross(self, f, r, s, p, q):
         return (f * f) * (q * q), (p * p) * (r * s)
+
+    def min_overlap(self, r_size, s_size, t):
+        p, q = threshold_fraction(t)
+        # smallest f with (f·q)² >= p²·r·s
+        return max(1, _cdiv(_ceil_sqrt(p * p * r_size * s_size), q))
 
     def size_window(self, r_size, t):
         p, q = threshold_fraction(t)
@@ -250,6 +263,10 @@ class Dice(Measure):
     def _cross(self, f, r, s, p, q):
         return f * (2 * q), p * (r + s)
 
+    def min_overlap(self, r_size, s_size, t):
+        p, q = threshold_fraction(t)
+        return max(1, _cdiv(p * (r_size + s_size), 2 * q))
+
     def size_window(self, r_size, t):
         p, q = threshold_fraction(t)
         return _cdiv(p * r_size, 2 * q - p), ((2 * q - p) * r_size) // p
@@ -272,6 +289,10 @@ class Overlap(Measure):
         mins = min(r, s) if isinstance(r, int) and isinstance(s, int) else (
             np.minimum(r, s))
         return f * q, p * mins
+
+    def min_overlap(self, r_size, s_size, t):
+        p, q = threshold_fraction(t)
+        return max(1, _cdiv(p * min(r_size, s_size), q))
 
     def size_window(self, r_size, t):
         return 1, None

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from . import measures
-from .config import global_config
+from .config import global_config, resolve_guardrail_budget
 from .device import resolve_device
 from .planner import build_plan
 from .resilience import (PairCapacityError, build_resilience, checked_flat,
@@ -44,10 +44,13 @@ from .sets import EmptyCollectionError, SetCollection
 __all__ = [
     "popcount_row_block",
     "popcount_counts",
+    "onehot_counts",
     "qualify",
     "window_bounds",
     "cf_rs_join_device",
     "cf_rs_join_device_ids",
+    "clear_s_rep_cache",
+    "clear_r_block_cache",
     "round_capacity",
     "PAIR_CAP_GRAIN",
 ]
@@ -140,6 +143,46 @@ def popcount_counts(r_bitmaps: torch.Tensor,
     return out
 
 
+def onehot_counts(r_padded: torch.Tensor, r_sizes: torch.Tensor,
+                  s_padded: torch.Tensor, s_sizes: torch.Tensor,
+                  universe: int, block: int = 512) -> torch.Tensor:
+    """Intersection sizes of -1-padded element lists via blocked one-hot
+    products -> (m, n) int32, on the operands' device.
+
+    Streams the universe in ``block``-wide chunks, as the reference does:
+    membership matrices ``B_R (m, block)``, ``B_S (n, block)`` and
+    ``F += B_R @ B_S^T`` in float32 (exact: a count never passes 2**24).
+    No driver path calls it: the ``onehot`` methods count over bitmaps
+    (K5, ``onehot_join``)."""
+    m, n = r_padded.shape[0], s_padded.shape[0]
+    out = torch.zeros((m, n), dtype=torch.float32, device=r_padded.device)
+    for start in range(0, universe, block):
+        br = _membership_block(r_padded, start, block)
+        bs = _membership_block(s_padded, start, block)
+        out += br @ bs.T
+    return out.to(torch.int32)
+
+
+def _membership_block(padded: torch.Tensor, start: int,
+                      block: int) -> torch.Tensor:
+    """One-hot membership of elements in [start, start + block) ->
+    (rows, block) float32 (a -1 pad is no member), built in row groups
+    whose staged one-hot stays within ``stage_budget``."""
+    rows, lanes = padded.shape
+    out = torch.zeros((rows, block), dtype=torch.float32,
+                      device=padded.device)
+    # rows per group: the staged (rows, lanes, block) int64 one-hot
+    step = max(1, stage_budget(padded.device)
+               // (8 * block * max(lanes, 1)))
+    for a in range(0, rows, step):
+        rel = padded[a:a + step].to(torch.int64) - start
+        valid = (rel >= 0) & (rel < block) & (padded[a:a + step] >= 0)
+        onehot = torch.nn.functional.one_hot(
+            torch.where(valid, rel, 0), block).to(torch.float32)
+        out[a:a + step] = (onehot * valid[..., None]).sum(1)
+    return out
+
+
 def qualify(counts: torch.Tensor, r_sizes: torch.Tensor,
             s_sizes: torch.Tensor, t: float,
             measure: str = "jaccard") -> torch.Tensor:
@@ -156,6 +199,16 @@ def _popcount_qualify(r_bm, r_sz, s_bm, s_sz, col_lo, col_hi, *, t,
     (m, n) bool: the popcount join of m R rows against n S columns."""
     counts = popcount_counts(r_bm, s_bm)
     cols = torch.arange(s_bm.shape[0], device=counts.device)[None, :]
+    in_window = (cols >= col_lo[:, None]) & (cols < col_hi[:, None])
+    return qualify(counts, r_sz, s_sz, t, measure) & in_window
+
+
+def _onehot_qualify(r_pad, r_sz, s_pad, s_sz, col_lo, col_hi, *, t,
+                    universe, measure="jaccard") -> torch.Tensor:
+    """``onehot_counts`` over the padded element lists, the predicate and
+    the [lo, hi) window -> (m, n) bool."""
+    counts = onehot_counts(r_pad, r_sz, s_pad, s_sz, universe)
+    cols = torch.arange(s_pad.shape[0], device=counts.device)[None, :]
     in_window = (cols >= col_lo[:, None]) & (cols < col_hi[:, None])
     return qualify(counts, r_sz, s_sz, t, measure) & in_window
 
@@ -235,6 +288,16 @@ _S_REP_CACHE: "weakref.WeakKeyDictionary[SetCollection, dict]" = (
     weakref.WeakKeyDictionary())
 
 
+def clear_s_rep_cache() -> None:
+    """Drop every cached S rep on every device, the uploads that cached
+    ``FlatLFVT`` tables hold included: the next join stages S again."""
+    for entry in list(_S_REP_CACHE.values()):
+        for key, rep in entry.items():
+            if isinstance(key, tuple) and key[0] == "lfvt":
+                rep.drop_uploads()
+    _S_REP_CACHE.clear()
+
+
 def _s_device_rep(S: SetCollection, family: str, W: int,
                   device: torch.device, stats: dict | None = None):
     """-> (sorted collection, device rep, device sizes, np sizes).
@@ -289,6 +352,11 @@ _R_BLOCK_CACHE: "weakref.WeakKeyDictionary[SetCollection, dict]" = (
     weakref.WeakKeyDictionary())
 # bound on cached block uploads per collection (LRU)
 _R_BLOCK_CACHE_MAX_ENTRIES = 64
+
+
+def clear_r_block_cache() -> None:
+    """Drop every cached R-block upload on every device."""
+    _R_BLOCK_CACHE.clear()
 
 
 def _r_block_rep(R: SetCollection, family: str, W: int,
@@ -577,7 +645,7 @@ def cf_rs_join_device_ids(R: SetCollection, S: SetCollection, t: float,
             sub_acc["n_pairs"] = len(got)
             return sorted_pairs(got), sub_acc
 
-        budget = int(global_config.guardrail_budget)
+        budget = resolve_guardrail_budget(device)
         for start in range(0, m, r_block):
             stop = min(start + r_block, m)
             spans = [(start, stop)]

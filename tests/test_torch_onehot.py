@@ -157,7 +157,8 @@ def test_exact_boundary_pair(measure):
 
 def test_membership_counts_match_reference_onehot_counts():
     """The port's product over bitmap words equals the reference's
-    padded-list ``onehot_counts`` (which the port does not carry)."""
+    padded-list ``onehot_counts`` (the port's own is held against it in
+    ``test_torch_last_functions.py``)."""
     rng = np.random.default_rng(6)
     U = 700
     r = [rng.choice(U, size=int(rng.integers(0, 40)), replace=False)
