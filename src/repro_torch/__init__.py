@@ -8,6 +8,11 @@ The public surface mirrors the JAX package's front door::
     repro_torch.join(R, S, 0.8, n_shards=8)   # MR-CF-RS-Join, 8 shards
     repro_torch.join(R, S, 0.8, mesh=repro_torch.make_host_mesh(8))
 
+    # spans and counters on the join path (off unless recording)
+    with repro_torch.trace.recording() as rec:
+        repro_torch.join(R, S, 0.8)
+    rec.spans, rec.counters
+
     engine = repro_torch.DedupServeEngine(corpus, threshold=0.8)
     rid = engine.submit([3, 17, 4096])   # then engine.drain() / step()
 
@@ -83,9 +88,13 @@ __all__ = sorted(_EXPORTS)
 
 #: exports whose name differs from the attribute they resolve to
 _RENAMED = {"build_model": "build"}
+#: submodules reached as attributes
+_SUBMODULES = ("trace",)
 
 
 def __getattr__(name: str):
+    if name in _SUBMODULES:
+        return importlib.import_module(f"{__name__}.{name}")
     mod = _EXPORTS.get(name)
     if mod is None:
         raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")

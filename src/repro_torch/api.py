@@ -26,6 +26,7 @@ from typing import Any, Iterable, Mapping
 
 import numpy as np
 
+from . import trace
 from .core.device import resolve_device
 from .core.distributed import mr_cf_rs_join
 from .core.planner import JoinPlan, JoinStats, PlannerError, build_plan
@@ -130,52 +131,57 @@ def join(R, S, threshold: float, *, measure: str = "jaccard",
     lattice; invalid ones raise
     :class:`~repro_torch.core.planner.PlannerError`.
     """
-    if mesh is not None:
-        check_mesh(mesh)
-        if device is None:
-            device = mesh.devices[0]
-    device = resolve_device(device)
-    R = as_collection(R)
-    S = as_collection(S)
-    mr = n_shards is not None or mesh is not None
-    if mr and n_shards is None:
-        n_shards = mesh.shape.get(join_axis(mesh, axis))
-    if not mr:
-        for name, val in (("strategy", strategy != "load_aware"),
-                          ("pad", pad is not None),
-                          ("schedule", schedule is not None)):
-            if val:
-                raise PlannerError(
-                    f"{name} applies to the MapReduce driver; pass "
-                    f"n_shards= (or mesh=) to select it")
-    elif r_block is not None or row_tile is not None:
-        raise PlannerError(
-            "r_block/row_tile tune the single-device tile driver; drop "
-            "n_shards/mesh to select it")
+    with trace.span("join"):
+        if mesh is not None:
+            check_mesh(mesh)
+            if device is None:
+                device = mesh.devices[0]
+        device = resolve_device(device)
+        R = as_collection(R)
+        S = as_collection(S)
+        mr = n_shards is not None or mesh is not None
+        if mr and n_shards is None:
+            n_shards = mesh.shape.get(join_axis(mesh, axis))
+        if not mr:
+            for name, val in (("strategy", strategy != "load_aware"),
+                              ("pad", pad is not None),
+                              ("schedule", schedule is not None)):
+                if val:
+                    raise PlannerError(
+                        f"{name} applies to the MapReduce driver; pass "
+                        f"n_shards= (or mesh=) to select it")
+        elif r_block is not None or row_tile is not None:
+            raise PlannerError(
+                "r_block/row_tile tune the single-device tile driver; drop "
+                "n_shards/mesh to select it")
 
-    raw: dict[str, Any] = stats if stats is not None else {}
-    if not mr:
-        plan = build_plan(R, S, threshold, driver="device", method=method,
-                          measure=measure, emit=emit, r_block=r_block,
-                          row_tile=row_tile, pair_capacity=pair_capacity,
-                          double_buffer=double_buffer)
-        pairs = cf_rs_join_device(R, S, threshold, stats=raw, emit=emit,
+        raw: dict[str, Any] = stats if stats is not None else {}
+        if not mr:
+            with trace.span("plan"):
+                plan = build_plan(R, S, threshold, driver="device",
+                                  method=method, measure=measure, emit=emit,
+                                  r_block=r_block, row_tile=row_tile,
+                                  pair_capacity=pair_capacity,
+                                  double_buffer=double_buffer)
+            pairs = cf_rs_join_device(R, S, threshold, stats=raw, emit=emit,
+                                      pair_capacity=pair_capacity,
+                                      measure=measure, fault_plan=fault_plan,
+                                      checkpoint_dir=checkpoint_dir, plan=plan,
+                                      device=device)
+        else:
+            pairs = mr_cf_rs_join(R, S, threshold, n_shards, strategy=strategy,
+                                  method=method, mesh=mesh, axis=axis,
+                                  stats=raw, emit=emit, pad=pad,
                                   pair_capacity=pair_capacity,
                                   measure=measure, fault_plan=fault_plan,
-                                  checkpoint_dir=checkpoint_dir, plan=plan,
-                                  device=device)
-    else:
-        pairs = mr_cf_rs_join(R, S, threshold, n_shards, strategy=strategy,
-                              method=method, mesh=mesh, axis=axis,
-                              stats=raw, emit=emit, pad=pad,
-                              pair_capacity=pair_capacity,
-                              measure=measure, fault_plan=fault_plan,
-                              checkpoint_dir=checkpoint_dir,
-                              schedule=schedule, device=device)
-    plan_dict: Mapping[str, Any] | None = raw.get("plan")
-    plan = (JoinPlan.from_dict(plan_dict) if plan_dict is not None
-            else build_plan(driver="mr" if mr else "device", method=method,
-                            measure=measure, emit=emit))
-    mask = _dense_mask(pairs, R, S) if emit == "mask" else None
-    return JoinResult(pairs=frozenset(pairs), mask=mask,
-                      stats=JoinStats.from_dict(raw), plan=plan)
+                                  checkpoint_dir=checkpoint_dir,
+                                  schedule=schedule, device=device)
+        with trace.span("result"):
+            plan_dict: Mapping[str, Any] | None = raw.get("plan")
+            plan = (JoinPlan.from_dict(plan_dict) if plan_dict is not None
+                    else build_plan(driver="mr" if mr else "device",
+                                    method=method, measure=measure,
+                                    emit=emit))
+            mask = _dense_mask(pairs, R, S) if emit == "mask" else None
+            return JoinResult(pairs=frozenset(pairs), mask=mask,
+                              stats=JoinStats.from_dict(raw), plan=plan)

@@ -51,6 +51,7 @@ from typing import Any, Iterator, Mapping
 
 import numpy as np
 
+from .. import trace
 from .config import global_config
 from .measures import get_measure
 
@@ -579,7 +580,8 @@ def build_plan(R=None, S=None, t: float | None = None, *,
             method, decided = "popcount", "empty"
         else:
             coeffs = effective_coeffs()
-            features = probe_features(R, S, t, measure)
+            with trace.span("plan.probe"):
+                features = probe_features(R, S, t, measure)
             # mesh shards share one shape family: the pick must be
             # homogeneous, and only popcount/lfvt have mesh paths
             candidates = (("popcount", "lfvt") if has_mesh

@@ -20,6 +20,8 @@ from typing import Sequence
 
 import numpy as np
 
+from .. import trace
+
 __all__ = ["SetCollection", "CollectionValidationError",
            "EmptyCollectionError", "length_filter_bounds", "jaccard",
            "similarity"]
@@ -37,6 +39,11 @@ class EmptyCollectionError(ValueError):
     """An empty R or S collection reached a driver running with
     ``global_config.strict_validation`` on. By default empty inputs are
     legal (they produce empty joins); strict mode names them instead."""
+
+
+#: a memoized rep -> the name of the recorder's span around its build
+_BUILD_SPAN = {rep: f"sets.{rep}" for rep in (
+    "validated", "sizes", "padded", "bitmaps", "csr", "lfvt_flat")}
 
 
 def _write_protect(out) -> None:
@@ -94,10 +101,14 @@ class SetCollection:
 
     def _memo(self, key, build):
         out = self._reps.get(key)
+        rep = key if isinstance(key, str) else key[0]
         if out is None:
-            out = build()
-            _write_protect(out)
+            with trace.span(_BUILD_SPAN[rep]):
+                out = build()
+                _write_protect(out)
             self._reps[key] = out
+        elif trace.enabled():
+            trace.count("sets.hit." + rep)
         return out
 
     # ------------------------------------------------------------------ #

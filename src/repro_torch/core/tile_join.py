@@ -32,6 +32,7 @@ import weakref
 import numpy as np
 import torch
 
+from .. import trace
 from . import measures
 from .config import global_config, resolve_guardrail_budget
 from .device import resolve_device
@@ -308,7 +309,6 @@ def _s_device_rep(S: SetCollection, family: str, W: int,
     nonzero words as K2/K3 read them (``bitmap_join.compress_s``),
     cached beside it; 'lfvt' -> the ``FlatLFVT`` uploaded to ``device``.
     """
-    from ..kernels import bitmap_join, ops  # deferred: kernels import this
     fault_point("device_upload")
     entry = _S_REP_CACHE.get(S)
     if entry is None:
@@ -317,30 +317,52 @@ def _s_device_rep(S: SetCollection, family: str, W: int,
     dev = str(device)
     key = ("lfvt", dev) if family == "lfvt" else (family, W, dev)
     hit = "sorted" in entry and key in entry
+    if not hit:
+        with trace.span("stage_s"):
+            _stage_s(S, entry, family, key, W, device)
+    if stats is not None:
+        stats["s_rep_cache_hit"] = hit
+    Ss = entry["sorted"] if entry["sorted"] is not None else S
+    return Ss, entry[key], entry[("sizes", dev)], entry["sizes_np"]
+
+
+def _stage_s(S: SetCollection, entry: dict, family: str, key: tuple, W: int,
+             device: torch.device) -> None:
+    """Build what ``_s_device_rep``'s ``entry`` lacks for ``key``."""
+    from ..kernels import bitmap_join, ops  # deferred: kernels import this
+    dev = str(device)
     if "sorted" not in entry:
         # None = "the key itself is already sorted": the cache value must
         # not hold a strong reference to its own WeakKeyDictionary key
-        Ss = None if S.sorted_by_size else S.sort_by_size()
-        entry["sorted"] = Ss
-        entry["sizes_np"] = (S if Ss is None else Ss).sizes()
+        with trace.span("stage_s.sort"):
+            Ss = None if S.sorted_by_size else S.sort_by_size()
+            entry["sorted"] = Ss
+            entry["sizes_np"] = (S if Ss is None else Ss).sizes()
     Ss = entry["sorted"] if entry["sorted"] is not None else S
     if ("sizes", dev) not in entry:
-        entry[("sizes", dev)] = torch.tensor(entry["sizes_np"],
-                                             dtype=torch.int32, device=device)
+        with trace.span("stage_s.upload"):
+            entry[("sizes", dev)] = torch.tensor(
+                entry["sizes_np"], dtype=torch.int32, device=device)
+        trace.count("stage_s.upload_bytes", entry[("sizes", dev)].nbytes)
     sheet = ("bitmap", W, dev)
     if family != "lfvt" and sheet not in entry:
-        entry[sheet] = ops.pad_sheet(torch.tensor(
-            Ss.bitmaps(W).view(np.int32), device=device))
+        host = Ss.bitmaps(W).view(np.int32)
+        with trace.span("stage_s.upload"):
+            words = torch.tensor(host, device=device)
+        trace.count("stage_s.upload_bytes", words.nbytes)
+        with trace.span("stage_s.pad_sheet"):
+            entry[sheet] = ops.pad_sheet(words)
     if key not in entry:
         if family == "sparse":
-            entry[key] = bitmap_join.compress_s(entry[sheet])
+            with trace.span("stage_s.compress_s"):
+                entry[key] = bitmap_join.compress_s(entry[sheet])
         else:
             flat = Ss.flat_lfvt()    # memoized on the collection
-            flat.to_device(device)   # one upload per device, cached on it
+            with trace.span("stage_s.upload"):
+                # one upload per device, cached on it
+                up = flat.to_device(device)
+            trace.count("stage_s.upload_bytes", sum(a.nbytes for a in up))
             entry[key] = flat
-    if stats is not None:
-        stats["s_rep_cache_hit"] = hit
-    return Ss, entry[key], entry[("sizes", dev)], entry["sizes_np"]
 
 
 # ------------------------------------------------------------------ #
@@ -375,10 +397,12 @@ def _r_block_rep(R: SetCollection, family: str, W: int,
     else:
         if len(entry) >= _R_BLOCK_CACHE_MAX_ENTRIES:
             entry.pop(next(iter(entry)))  # evict least-recently used
-        host = (R.bitmaps(W).view(np.int32) if family == "bitmap"
-                else R.padded()[0])
-        entry[key] = torch.tensor(host[start:stop], dtype=torch.int32,
-                                  device=device)
+        with trace.span("block.upload"):
+            host = (R.bitmaps(W).view(np.int32) if family == "bitmap"
+                    else R.padded()[0])
+            entry[key] = torch.tensor(host[start:stop], dtype=torch.int32,
+                                      device=device)
+        trace.count("block.upload_bytes", entry[key].nbytes)
     return entry[key], hit
 
 
@@ -422,12 +446,13 @@ def cf_rs_join_device(R: SetCollection, S: SetCollection, t: float,
     ``r_block`` and ``double_buffer`` default to ``global_config`` when
     None.
     """
-    r_ids, s_ids = cf_rs_join_device_ids(
-        R, S, t, method=method, r_block=r_block, stats=stats, emit=emit,
-        pair_capacity=pair_capacity, double_buffer=double_buffer,
-        measure=measure, fault_plan=fault_plan,
-        checkpoint_dir=checkpoint_dir, plan=plan, device=device)
-    return set(zip(r_ids.tolist(), s_ids.tolist()))
+    with trace.span("driver"):
+        r_ids, s_ids = cf_rs_join_device_ids(
+            R, S, t, method=method, r_block=r_block, stats=stats, emit=emit,
+            pair_capacity=pair_capacity, double_buffer=double_buffer,
+            measure=measure, fault_plan=fault_plan,
+            checkpoint_dir=checkpoint_dir, plan=plan, device=device)
+        return set(zip(r_ids.tolist(), s_ids.tolist()))
 
 
 def cf_rs_join_device_ids(R: SetCollection, S: SetCollection, t: float,
@@ -480,11 +505,13 @@ def cf_rs_join_device_ids(R: SetCollection, S: SetCollection, t: float,
     popcount = method in ("popcount", "kernel_bitmap")
     s_sparse = (_s_device_rep(S, "sparse", W, device)[1]
                 if popcount and device.type == "cuda" else None)
-    r_sizes_all = R.sizes()
-    # int32 exactness guard for the device predicate (DESIGN.md §8)
-    measures.get_measure(measure).validate(
-        t, max(int(r_sizes_all.max(initial=0)), int(s_sizes.max(initial=0))))
-    lo_all, hi_all = window_bounds(r_sizes_all, s_sizes, t, measure)
+    with trace.span("bounds"):
+        r_sizes_all = R.sizes()
+        # int32 exactness guard for the device predicate (DESIGN.md §8)
+        measures.get_measure(measure).validate(
+            t, max(int(r_sizes_all.max(initial=0)),
+                   int(s_sizes.max(initial=0))))
+        lo_all, hi_all = window_bounds(r_sizes_all, s_sizes, t, measure)
 
     kernel_pairs = (emit == "pairs" and method in (
         "kernel_bitmap", "kernel_onehot", "lfvt", "lfvt_ref"))
@@ -515,86 +542,96 @@ def cf_rs_join_device_ids(R: SetCollection, S: SetCollection, t: float,
 
     def dispatch(start: int, stop: int, acc: dict) -> dict:
         """Launch all of one R block's device work; no host syncs."""
-        sl = slice(start, stop)
-        r_rep, hit = _r_block_rep(R, family, W, device, start, stop)
-        acc["r_rep_hits"] += hit
-        acc["out_dense"] += (stop - start) * len(Ss)
-        blk: dict = {"start": start, "mb": stop - start}
-        if method == "lfvt":
-            # live row-tiled walk; host np row metadata so the dispatch
-            # plans tiles without syncing device arrays
-            blk["pending"] = kops.lfvt_walk_join_pairs_dispatch(
-                s_rep, r_rep, r_sizes_all[sl], lo_all[sl], hi_all[sl], t,
-                measure=measure, row_tile=plan.row_tile)
-        elif method == "lfvt_ref":  # whole-block walk as one live tile
-            blk["pending"] = kops.lfvt_join_pairs_dispatch(
-                s_rep, r_rep, r_sizes_all[sl], lo_all[sl], hi_all[sl], t,
-                measure=measure)
-        elif kernel_pairs:
-            # live-tile schedule + in-kernel counts; count sync deferred
-            if method == "kernel_bitmap":
-                blk["pending"] = kops.bitmap_join_pairs_dispatch(
-                    r_rep, r_sizes_all[sl], s_rep, s_sz, lo_all[sl],
-                    hi_all[sl], t, measure=measure, s_sparse=s_sparse)
+        with trace.span("block.dispatch"):
+            sl = slice(start, stop)
+            r_rep, hit = _r_block_rep(R, family, W, device, start, stop)
+            acc["r_rep_hits"] += hit
+            acc["out_dense"] += (stop - start) * len(Ss)
+            blk: dict = {"start": start, "mb": stop - start}
+            if method == "lfvt":
+                # live row-tiled walk; host np row metadata so the dispatch
+                # plans tiles without syncing device arrays
+                blk["pending"] = kops.lfvt_walk_join_pairs_dispatch(
+                    s_rep, r_rep, r_sizes_all[sl], lo_all[sl], hi_all[sl], t,
+                    measure=measure, row_tile=plan.row_tile)
+            elif method == "lfvt_ref":  # whole-block walk as one live tile
+                blk["pending"] = kops.lfvt_join_pairs_dispatch(
+                    s_rep, r_rep, r_sizes_all[sl], lo_all[sl], hi_all[sl], t,
+                    measure=measure)
+            elif kernel_pairs:
+                # live-tile schedule + in-kernel counts; count sync deferred
+                if method == "kernel_bitmap":
+                    blk["pending"] = kops.bitmap_join_pairs_dispatch(
+                        r_rep, r_sizes_all[sl], s_rep, s_sz, lo_all[sl],
+                        hi_all[sl], t, measure=measure, s_sparse=s_sparse)
+                else:
+                    blk["pending"] = kops.onehot_join_pairs_dispatch(
+                        r_rep, r_sizes_all[sl], s_rep, s_sz, lo_all[sl],
+                        hi_all[sl], t, measure=measure)
             else:
-                blk["pending"] = kops.onehot_join_pairs_dispatch(
-                    r_rep, r_sizes_all[sl], s_rep, s_sz, lo_all[sl],
-                    hi_all[sl], t, measure=measure)
-        else:
-            if popcount:
-                mask = kops.bitmap_join(r_rep, r_sizes_all[sl], s_rep, s_sz,
-                                        lo_all[sl], hi_all[sl], t,
-                                        measure=measure, s_sparse=s_sparse)
-            else:
-                mask = kops.onehot_join(r_rep, r_sizes_all[sl], s_rep, s_sz,
-                                        lo_all[sl], hi_all[sl], t,
-                                        measure=measure)
-            blk["mask"] = mask
-            if emit == "pairs":
-                # speculative on-device compaction at the fixed capacity;
-                # the exact count rides along and syncs only at finalize
-                blk["total"] = _mask_total(mask)
-                blk["packed"] = _compact_mask(mask, size=spec_cap)
-        return blk
+                if popcount:
+                    mask = kops.bitmap_join(
+                        r_rep, r_sizes_all[sl], s_rep, s_sz, lo_all[sl],
+                        hi_all[sl], t, measure=measure, s_sparse=s_sparse)
+                else:
+                    mask = kops.onehot_join(
+                        r_rep, r_sizes_all[sl], s_rep, s_sz, lo_all[sl],
+                        hi_all[sl], t, measure=measure)
+                blk["mask"] = mask
+                if emit == "pairs":
+                    # speculative on-device compaction at the fixed capacity;
+                    # the exact count rides along and syncs only at finalize
+                    blk["total"] = _mask_total(mask)
+                    with trace.span("block.compact"):
+                        blk["packed"] = _compact_mask(mask, size=spec_cap)
+            return blk
 
     def finalize(blk: dict, acc: dict, r_out: list, s_out: list) -> None:
         """Sync one block's counts, compact (regrowing if needed) and fold
         its pairs into ``r_out``/``s_out``."""
-        start = blk["start"]
-        fault_point("compact")
-        if "pending" in blk:
-            kstats: dict = {}
-            if emit == "pairs":
-                pp, n_pairs = kops.join_pairs_finalize(
-                    blk["pending"], capacity=pair_capacity, stats=kstats)
-                local = pp[:n_pairs].cpu().numpy()
-                acc["out_sparse"] += 8 * n_pairs + 4 + kstats.get(
-                    "counts_bytes", 0)
-                acc["regrows"] += kstats.get("regrows", 0)
+        with trace.span("block.finalize"):
+            start = blk["start"]
+            fault_point("compact")
+            if "pending" in blk:
+                kstats: dict = {}
+                if emit == "pairs":
+                    pp, n_pairs = kops.join_pairs_finalize(
+                        blk["pending"], capacity=pair_capacity, stats=kstats)
+                    with trace.span("block.fetch"):
+                        local = pp[:n_pairs].cpu().numpy()
+                    acc["out_sparse"] += 8 * n_pairs + 4 + kstats.get(
+                        "counts_bytes", 0)
+                    acc["regrows"] += kstats.get("regrows", 0)
+                else:
+                    mask_np = kops.join_mask_finalize(
+                        blk["pending"], blk["mb"], len(Ss), kstats)
+                fold_kernel_stats(acc, kstats)
+            elif emit == "pairs":
+                with trace.span("block.sync"):
+                    # the only host sync per block
+                    n_pairs = int(blk["total"])
+                cap = spec_cap
+                # overflow: regrow exactly once (count known)
+                if cap < n_pairs:
+                    fault_point("regrow")
+                    cap = round_capacity(n_pairs)
+                    with trace.span("block.compact"):
+                        blk["packed"] = _compact_mask(blk["mask"], size=cap)
+                    acc["regrows"] += 1
+                with trace.span("block.fetch"):
+                    local = blk["packed"][:n_pairs].cpu().numpy()
+                acc["out_sparse"] += 8 * n_pairs + 4
             else:
-                mask_np = kops.join_mask_finalize(blk["pending"], blk["mb"],
-                                                  len(Ss), kstats)
-            fold_kernel_stats(acc, kstats)
-        elif emit == "pairs":
-            n_pairs = int(blk["total"])  # the only host sync per block
-            cap = spec_cap
-            if cap < n_pairs:  # overflow: regrow exactly once (count known)
-                fault_point("regrow")
-                cap = round_capacity(n_pairs)
-                blk["packed"] = _compact_mask(blk["mask"], size=cap)
-                acc["regrows"] += 1
-            local = blk["packed"][:n_pairs].cpu().numpy()
-            acc["out_sparse"] += 8 * n_pairs + 4
-        else:
-            mask_np = blk["mask"].cpu().numpy()
-        if emit == "mask":
-            acc["out_sparse"] += mask_np.size
-            local = np.argwhere(mask_np)
-            n_pairs = len(local)
-        if len(local):
-            r_out.append(R.ids[start + local[:, 0]].astype(np.int64))
-            s_out.append(Ss.ids[local[:, 1]].astype(np.int64))
-        acc["n_pairs"] += n_pairs
+                with trace.span("block.fetch"):
+                    mask_np = blk["mask"].cpu().numpy()
+            if emit == "mask":
+                acc["out_sparse"] += mask_np.size
+                local = np.argwhere(mask_np)
+                n_pairs = len(local)
+            if len(local):
+                r_out.append(R.ids[start + local[:, 0]].astype(np.int64))
+                s_out.append(Ss.ids[local[:, 1]].astype(np.int64))
+            acc["n_pairs"] += n_pairs
 
     if res is None:
         in_flight: dict | None = None

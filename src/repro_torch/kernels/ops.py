@@ -33,6 +33,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import trace
 from ..core.config import global_config
 from ..core.device import upload
 from ..core.resilience import fault_point
@@ -300,8 +301,9 @@ def _sync_counts(pending: PendingPairs, stats: dict | None) -> np.ndarray:
     extras = pending.extras or {}
     keys = [k for k, v in extras.items() if torch.is_tensor(v)]
     parts = ([pending.counts] if L else []) + [extras[k] for k in keys]
-    host = (torch.cat([x.reshape(-1) for x in parts]).cpu().numpy()
-            if parts else np.zeros(0, np.int64))
+    with trace.span("block.sync"):
+        host = (torch.cat([x.reshape(-1) for x in parts]).cpu().numpy()
+                if parts else np.zeros(0, np.int64))
     if stats is not None:
         stats["live_tiles"] = L
         stats["total_tiles"] = pending.total_tiles
@@ -344,10 +346,12 @@ def join_pairs_finalize(pending: PendingPairs, capacity: int | None = None,
         cap = round_capacity(total)
         regrows += 1
     if cap:
-        pairs = _compact_live(pending.masks, pending.tile_i, pending.tile_j,
-                              tm=pending.tm, tn=pending.tn, size=cap)
-        if pending.row_map is not None:
-            pairs = _remap_rows(pairs, pending.row_map)
+        with trace.span("block.compact"):
+            pairs = _compact_live(pending.masks, pending.tile_i,
+                                  pending.tile_j, tm=pending.tm,
+                                  tn=pending.tn, size=cap)
+            if pending.row_map is not None:
+                pairs = _remap_rows(pairs, pending.row_map)
     else:
         pairs = torch.zeros((0, 2), dtype=torch.int32, device=device)
     if stats is not None:
@@ -591,7 +595,8 @@ def lfvt_walk_join_pairs_dispatch(flat, r_padded: torch.Tensor, r_sizes,
             or flat.max_seq_len == 0):
         return PendingPairs(None, None, None, None, tm, max(n, 1), 0,
                             m_tiles, m * n)
-    plan = walk_operands(flat, r_padded, r_sizes, lo, hi, tm, schedule)
+    with trace.span("block.operands"):
+        plan = walk_operands(flat, r_padded, r_sizes, lo, hi, tm, schedule)
     if plan is None:
         return PendingPairs(None, None, None, None, tm, n, 0, m_tiles, m * n)
     ti, operands, row_map = plan
